@@ -1,27 +1,39 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (crdr_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the root of a checkout; needs one GPU
-    python3 chip_smoke.py --profile   # + device time by kernel, idle share
+    python3 chip_smoke.py               # from the root of a checkout; one GPU
+    python3 chip_smoke.py --profile     # + device time by kernel, idle share
+    python3 chip_smoke.py --ab-encode   # + the fixed-batch analysis A/B
 
 Phases, each asserted (any failure exits non-zero):
 
-1. card: the nvidia-smi name / power-limit line; the kernel builds from the
-   checkout's sources (nvcc for K1, g++ for the host rANS coder, started
-   together) into build/crdr_tpu_torch/.
+1. card: the nvidia-smi name / power-limit line; the kernels build from the
+   checkout's sources (nvcc for K1 and K2, g++ for the host rANS coders, all
+   started together) into build/crdr_tpu_torch/.
 2. K1 (the Charm SliceTransform kernel) at the main path's shapes: batch 4,
    a 32x48 latent (a 512x768 image), Cin 480 (mean / scale) and 512 (LRP),
    seeded weights in a 10-slice packed stack, slice 7.  The kernel against
    its plain PyTorch twin (TF32 off), bit-stability across calls and batch
    sizes, and times: kernel, plain twin, a cuDNN bf16 conv chain (yardstick
    only, never called by the port) and the bound.
-3. main path: the flagship BetaCondInterpCaHyperpriorCharmModel at full
-   width from config/crdr_throughput.yaml, seeded random init, on 4 seeded
-   smooth synthetic 512x768 uint8 images: compress_batch -> decompress_batch
-   with the K1 launch count, bit-exact y_hat, reconstruction sanity, real vs
-   predicted bpp, a batch-1 decode of stream 0 (asserted equal) and encode
-   of image 0 (compared), and the timings.
-4. one JSON line of kernel figures, then the last line:
+3. main path, compressai wire: the flagship BetaCondInterpCaHyperpriorCharmModel
+   at full width from config/crdr_throughput.yaml, seeded random init, on 4
+   seeded smooth synthetic 512x768 uint8 images: compress_batch ->
+   decompress_batch with the K1 launch count, bit-exact y_hat,
+   reconstruction sanity, real vs predicted bpp, a batch-1 decode of stream
+   0 and a batch-1 encode of image 0 (both equal to the batch-4 ones), and
+   the timings.
+4. main path, device wire: the same model (wire_format: device,
+   device_wire_encoder: host, set in its options, codec_setup again): the K2
+   and K1 launch counts, y_hat bit-exact and equal to the compressai wire's,
+   real vs predicted bpp, the decode chain enqueued with no host sync, and
+   both wires' timings.
+5. K2 (one lane-rans decode round) on the inputs the device-wire decode
+   gave it (11 rounds: z, then the 10 y slices; the y table is the real
+   one): kernel == plain twin exactly (values, states, pointers), a flipped
+   stream word changes the kernel's output, two launches are bit-identical;
+   kernel / twin times and the bound of a batch-4 y round.
+6. one JSON line of kernel figures, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -43,8 +55,13 @@ N_IMG, IMG_H, IMG_W = 4, 512, 768
 # these inputs, outputs up to ~0.6 (PERF.md)
 K1_ATOL = 2e-3
 BPP_REL = 0.05       # real vs predicted bpp
+TIMED_RUNS = 3       # timed batch round trips per wire (medians printed)
 H100_BF16_FLOPS = 989e12   # dense, 700 W part (NVIDIA data sheet)
+H100_F32_OPS = 67e12       # float32 outside the tensor cores: the peak of
+#                            K2's scalar integer work (same data sheet)
 H100_BYTES_PER_S = 3.35e12
+SMEM_LATENCY_CYCLES = 30   # a dependent shared-memory load on Hopper (an
+#                            assumption of K2's chain estimate, not measured)
 
 
 def fail(msg: str) -> None:
@@ -67,6 +84,7 @@ def card_line() -> str:
 
 def build_kernels() -> None:
     from crdr_tpu_torch import runtime
+    from crdr_tpu_torch.ops import lane_decode as k2
     from crdr_tpu_torch.ops import slice_transform as k1
 
     results, threads = {}, []
@@ -79,6 +97,7 @@ def build_kernels() -> None:
             results[name] = (e, time.perf_counter() - t0)
 
     for name, fn in (("slice_transform (nvcc sm_90a)", k1.build),
+                     ("lane_decode (nvcc sm_90a)", k2.build),
                      ("host rANS (g++)", runtime.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
@@ -87,10 +106,12 @@ def build_kernels() -> None:
     for name, (res, dt) in results.items():
         check(not isinstance(res, Exception), f"build of {name}: {res}")
         print(f"built {name} in {dt:.1f} s -> {os.path.relpath(res, ROOT)}")
-    with open(k1.build() + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+    for k in (k1, k2):
+        with open(k.build() + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {k.__name__.split('.')[-1]}:",
+                          line.strip())
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -241,11 +262,10 @@ def profile_phase(fn, label: str, card: str) -> None:
               f"x{count:<5d} {key[:100]}")
 
 
-def main_path(card: str) -> int:
+def build_model(card: str):
     import torch
 
     from crdr_tpu_torch.models import build_comp_model
-    from crdr_tpu_torch.ops.slice_transform import slice_transform
     from crdr_tpu_torch.utils.config import Config
 
     cfg = Config.from_file(os.path.join(ROOT, "config",
@@ -264,76 +284,341 @@ def main_path(card: str) -> int:
     nparam = sum(p.numel() for p in model.net.parameters())
     print(f"flagship {cfg.model_type}: {nparam / 1e6:.1f}M params, "
           f"fused_slice_kernel={model.fused_slice_kernel}, transform_dtype="
-          f"{model.transform_dtype}, built in {time.perf_counter() - t0:.1f} s")
+          f"{model.transform_dtype}, built in {time.perf_counter() - t0:.1f} "
+          f"s [{card}]")
     check(model.fused_slice_kernel, "crdr_throughput.yaml must enable K1")
+    return model
 
-    imgs = smooth_images(7)
-    rate, beta = 2.0, 2.56
 
-    def round_trip():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        encs = model.compress_batch(imgs, rate_ind=rate)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        dec = model.decompress_batch([e["string_list"] for e in encs],
-                                     beta=beta)
-        torch.cuda.synchronize()
-        return encs, dec, t1 - t0, time.perf_counter() - t1
+RATE, BETA = 2.0, 2.56
 
-    round_trip()  # warm-up: cuDNN / library initialization
-    slice_transform.launches = 0
-    encs, (fake, _, y_hat), enc_s, dec_s = round_trip()
-    launches = slice_transform.launches
-    check(launches == 60, f"K1 launches in one batch round trip: {launches} "
-                          "(expected 30 per direction)")
+
+def round_trip(model, imgs):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encs = model.compress_batch(imgs, rate_ind=RATE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dec = model.decompress_batch([e["string_list"] for e in encs], beta=BETA)
+    torch.cuda.synchronize()
+    return encs, dec, t1 - t0, time.perf_counter() - t1
+
+
+def counted_round_trip(model, imgs):
+    """One batch round trip with every kernel's launch count set to 0 just
+    before it; returns (encs, decoded, enc s, dec s, {kernel: launches})."""
+    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
+    from crdr_tpu_torch.ops.slice_transform import slice_transform
+
+    kernels = {"slice_transform": slice_transform,
+               "lane_decode_round": lane_decode_round}
+    for k in kernels.values():
+        k.launches = 0
+    out = round_trip(model, imgs)
+    return out + ({n: k.launches for n, k in kernels.items()},)
+
+
+def check_round_trip(label, encs, fake, y_hat) -> None:
     y_enc = np.concatenate([e["y_hat"] for e in encs])
-    check(np.array_equal(y_hat, y_enc), "decoded y_hat != encoder y_hat")
+    check(np.array_equal(y_hat, y_enc), f"{label}: decoded y_hat != encoder "
+                                        "y_hat")
     check(fake.shape == (N_IMG, IMG_H, IMG_W, 3), f"recon shape {fake.shape}")
-    check(np.isfinite(fake).all(), "non-finite reconstruction")
+    check(np.isfinite(fake).all(), f"{label}: non-finite reconstruction")
     check(fake.min() >= -1.0 and fake.max() <= 1.0 and fake.std() > 0,
-          "reconstruction out of [-1, 1] or constant")
+          f"{label}: reconstruction out of [-1, 1] or constant")
     for i, e in enumerate(encs):
         real = sum(len(s) for s in e["string_list"][1:]) * 8 / (IMG_H * IMG_W)
         pred = e["pred_y_bpp"] + e["pred_z_bpp"]
-        print(f"image {i}: real {real:.4f} bpp, predicted {pred:.4f} bpp")
+        print(f"{label} image {i}: real {real:.4f} bpp, predicted "
+              f"{pred:.4f} bpp")
         check(abs(real - pred) <= BPP_REL * pred,
-              f"image {i}: real bpp {real} vs predicted {pred}")
+              f"{label} image {i}: real bpp {real} vs predicted {pred}")
 
-    # batch 1 is a new shape for cuDNN: warm it up before timing it
-    model.decompress(model.compress(imgs[:1], rate_ind=rate)["string_list"],
-                     beta=beta)
+
+def timed_runs(model, imgs, label: str, card: str) -> dict:
+    """Median encode / decode ms over TIMED_RUNS batch round trips."""
+    enc, dec = [], []
+    for _ in range(TIMED_RUNS):
+        *_, e, d = round_trip(model, imgs)
+        enc.append(e * 1e3)
+        dec.append(d * 1e3)
+    res = {"encode_ms": float(np.median(enc)), "decode_ms":
+           float(np.median(dec)), "encode_runs_ms": enc, "decode_runs_ms": dec}
+    mpix = N_IMG * IMG_H * IMG_W / 1e6
+    print(f"{label} batch {N_IMG} {IMG_W}x{IMG_H}, median of {TIMED_RUNS}: "
+          f"encode {res['encode_ms']:.1f} ms, decode {res['decode_ms']:.1f} "
+          f"ms, {mpix / (res['encode_ms'] + res['decode_ms']) * 1e3:.4f} "
+          f"Mpix/s (encode runs {[round(v, 1) for v in enc]}, decode runs "
+          f"{[round(v, 1) for v in dec]}) [{card}]")
+    return res
+
+
+def compressai_path(model, imgs, card: str):
+    """The compressai wire: counts, checks, batch-1 equality, times."""
+    import torch
+
+    round_trip(model, imgs)  # warm-up: cuDNN / library initialization
+    encs, (fake, _, y_hat), enc_s, dec_s, counts = \
+        counted_round_trip(model, imgs)
+    k1_expected = 6 * model.num_slices  # 3 SliceTransforms a slice, twice
+    check(counts["slice_transform"] == k1_expected,
+          f"compressai wire: K1 launches in one batch round trip: "
+          f"{counts['slice_transform']} (expected {k1_expected})")
+    check(counts["lane_decode_round"] == 0,
+          "compressai wire: K2 launched on the host wire")
+    check_round_trip("compressai wire", encs, fake, y_hat)
+
+    # batch 1 is a new shape for the decode's cuDNN calls: warm it up first
+    model.decompress(model.compress(imgs[:1], rate_ind=RATE)["string_list"],
+                     beta=BETA)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    enc1 = model.compress(imgs[:1], rate_ind=rate)
+    enc1 = model.compress(imgs[:1], rate_ind=RATE)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    _, _, y0 = model.decompress(encs[0]["string_list"], beta=beta)
+    _, _, y0 = model.decompress(encs[0]["string_list"], beta=BETA)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     check(np.array_equal(y0, encs[0]["y_hat"]),
           "batch-1 decode of stream 0 != encoder y_hat")
-    # the analysis transform is side-local and batched (cuDNN may pick
-    # another algorithm at batch 1): measured, not asserted
-    same_enc = enc1["string_list"] == encs[0]["string_list"]
-    print(f"batch-1 encode of image 0 equals its batch-{N_IMG} stream: "
-          f"{same_enc}; y_hat max |diff| "
-          f"{float(np.abs(enc1['y_hat'] - encs[0]['y_hat']).max()):.3e}")
-    mpix = N_IMG * IMG_H * IMG_W / 1e6
-    print(f"main path batch {N_IMG} {IMG_W}x{IMG_H}: encode "
-          f"{enc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms, encode+decode "
-          f"{mpix / (enc_s + dec_s):.4f} Mpix/s; batch-1 encode "
-          f"{(t1 - t0) * 1e3:.1f} ms, decode {(t2 - t1) * 1e3:.1f} ms; "
-          f"K1 launches {launches} [{card}]")
+    # the analysis runs at one fixed batch size: an image's stream does not
+    # depend on the batch it was encoded in
+    check(enc1["string_list"] == encs[0]["string_list"],
+          "batch-1 encode of image 0 != its batch-4 stream (y_hat max |diff| "
+          f"{float(np.abs(enc1['y_hat'] - encs[0]['y_hat']).max()):.3e})")
+    print(f"batch-1 encode of image 0 equals its batch-{N_IMG} stream")
+    print(f"compressai wire batch-1: encode {(t1 - t0) * 1e3:.1f} ms, decode "
+          f"{(t2 - t1) * 1e3:.1f} ms; one batch round trip: encode "
+          f"{enc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms; launches "
+          f"{counts} [{card}]")
     print(f"timing encode {json.dumps(encs[0]['timing'])} decode "
           f"{json.dumps(model.last_decode_timing)}")
-    if "--profile" in sys.argv[1:]:
-        profile_phase(lambda: model.compress_batch(imgs, rate_ind=rate),
-                      f"encode batch {N_IMG}", card)
-        profile_phase(lambda: model.decompress_batch(
-            [e["string_list"] for e in encs], beta=beta),
-            f"decode batch {N_IMG}", card)
-    return launches
+    times = timed_runs(model, imgs, "compressai wire", card)
+    return encs, counts, times
+
+
+def device_wire_path(model, imgs, y_compressai, card: str):
+    """The device wire on the same model: counts, checks, a sync-free decode
+    chain, times.  Returns the K2 inputs the warm-up decode recorded."""
+    import torch
+
+    from crdr_tpu_torch.models import codec_devicewire
+    from crdr_tpu_torch.models.codec import codec_numerics
+
+    model.opt.update(wire_format="device", device_wire_encoder="host")
+    model.codec_setup()
+    check(model.wire_format == "device", "the device wire is not set")
+    real, recorded = codec_devicewire.lane_decode_round, []
+
+    def recorder(*args):  # K2's inputs, as the decode gives them
+        recorded.append(tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return real(*args)
+
+    codec_devicewire.lane_decode_round = recorder
+    try:
+        round_trip(model, imgs)  # warm-up, and K2's inputs for its phase
+    finally:
+        codec_devicewire.lane_decode_round = real
+    encs, (fake, _, y_hat), enc_s, dec_s, counts = \
+        counted_round_trip(model, imgs)
+    check(counts["lane_decode_round"] == 1 + model.num_slices,
+          f"device wire: K2 launches in one batch decode: "
+          f"{counts['lane_decode_round']} (expected 1 z + "
+          f"{model.num_slices} y rounds)")
+    k1_expected = 6 * model.num_slices
+    check(counts["slice_transform"] == k1_expected,
+          f"device wire: K1 launches in one batch round trip: "
+          f"{counts['slice_transform']} (expected {k1_expected})")
+    check(all(e["string_list"][2][:4] == b"CRDW" for e in encs),
+          "device wire: the y streams are not lane containers")
+    check_round_trip("device wire", encs, fake, y_hat)
+    check(np.array_equal(y_hat, y_compressai),
+          "device-wire y_hat != compressai-wire y_hat of the same images")
+
+    # the decode chain enqueues every launch without a host sync
+    strings = [e["string_list"] for e in encs]
+    with codec_numerics():
+        z, y_lanes = model._device_wire_inputs(
+            [s[1] for s in strings], [s[2] for s in strings],
+            IMG_H // model.model_stride, IMG_W // model.model_stride)
+        ri, bt = model._cond_arg(RATE, N_IMG), model._cond_arg(BETA, N_IMG)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            chain = model._charm_device_chain(
+                z, y_lanes, IMG_H // model.model_stride,
+                IMG_W // model.model_stride, ri, bt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    check(np.array_equal(chain[2].cpu().numpy(), y_hat),
+          "device wire: the checked decode chain gave another y_hat")
+    print("device-wire decode chain (z round, decode_begin, the slice "
+          "steps with their K2 rounds, decode_final) enqueued with no host "
+          "sync (sync debug mode 'error')")
+    print(f"device wire one batch round trip: encode {enc_s * 1e3:.1f} ms, "
+          f"decode {dec_s * 1e3:.1f} ms; launches {counts} [{card}]")
+    print(f"timing encode {json.dumps(encs[0]['timing'])} decode "
+          f"{json.dumps(model.last_decode_timing)}")
+    times = timed_runs(model, imgs, "device wire", card)
+    return recorded, counts, times
+
+
+def k2_bound(st, pt_in, pt_out, idx, cdf_len, clock_ghz: float) -> dict:
+    """Bytes / operations / dependent-chain figures of one K2 round on these
+    inputs (the words it consumed, each symbol's search depth)."""
+    import torch
+
+    n, m = idx.shape
+    k = st.shape[1]
+    lens = cdf_len.long()[idx.long()]
+    depth = torch.ceil(torch.log2((lens - 1).clamp(min=1).double())).long()
+    nbytes = (4 * 2 * n * m                              # idx in, vals out
+              + 4 * int((pt_out - pt_in).sum())          # words consumed
+              + (8 + 4) * 2 * n * k                      # states, ptrs in/out
+              + 4 * int(cdf_len.sum()) + 4 * 2 * cdf_len.numel())
+    ops = int((2 * depth + 12).sum())  # search + state update, per symbol
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS
+    # the chain: a warp's step takes its deepest lane's search (+ ~4
+    # dependent loads around it); the round waits for the slowest warp
+    t_steps, warps = -(-m // k), -(-k // 32)
+    d = torch.nn.functional.pad(depth, (0, t_steps * k - m))
+    d = torch.nn.functional.pad(d.reshape(n, t_steps, k),
+                                (0, warps * 32 - k))
+    warp_steps = (d.reshape(n, t_steps, warps, 32).amax(-1) + 4).sum(1)
+    chain_s = (float(warp_steps.max()) * SMEM_LATENCY_CYCLES
+               / (clock_ghz * 1e9))
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops, chain_ms_est=chain_s * 1e3,
+                mean_search_depth=float(depth.double().mean()))
+
+
+def k2_phase(recorded, rounds: int, card: str) -> dict:
+    """K2 against its twin on the main path's recorded rounds."""
+    import torch
+
+    from crdr_tpu_torch.ops.device_rans import lane_decode_round_instep
+    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
+
+    check(len(recorded) == rounds, f"recorded {len(recorded)} K2 rounds, "
+                                   f"expected {rounds}")
+    err = 0
+    for r, args in enumerate(recorded):
+        got = lane_decode_round(*args)
+        again = lane_decode_round(*args)
+        plain = lane_decode_round_instep(*args)
+        torch.cuda.synchronize()
+        for a, b, c, name in zip(got, again, plain,
+                                 ("values", "states", "pointers")):
+            check(torch.equal(a, b), f"K2 round {r}: two launches differ in "
+                                     f"{name}")
+            err = max(err, int((a.long() - c.long()).abs().max()))
+            check(torch.equal(a, c), f"K2 round {r}: kernel != plain twin in "
+                                     f"{name}")
+    # the check's power: one flipped word of a lane this round reads
+    st, pt, words, idx, cdf, cdf_len, cdf_off, m = recorded[1]  # y slice 0
+    _, _, pt_out = lane_decode_round(*recorded[1])
+    lane = int(torch.argmax((pt_out - pt)[0]))
+    bad = words.clone()
+    bad[0, lane, int(pt[0, lane])] ^= 0x5A5A
+    flipped = lane_decode_round(st, pt, bad, idx, cdf, cdf_len, cdf_off, m)
+    ref = lane_decode_round(*recorded[1])
+    check(not all(torch.equal(a, b) for a, b in zip(flipped, ref)),
+          "K2: a flipped stream word left the output unchanged")
+
+    args = recorded[1]
+    ms = cuda_time_ms(lambda: lane_decode_round(*args), 50, warmup=3)
+    plain_ms = cuda_time_ms(lambda: lane_decode_round_instep(*args), 2, 1)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0]
+    bound = k2_bound(st, pt, pt_out, idx, cdf_len, float(clock) / 1e3)
+    n, k = st.shape
+    print(f"K2 y round N{n} K{k} m {m} (table {tuple(cdf.shape)}): kernel "
+          f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
+          f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}: "
+          f"{bound['bytes'] / 1e6:.3f} MB, {bound['ops'] / 1e6:.2f} M int "
+          f"ops), dependent-chain estimate {bound['chain_ms_est']:.4f} ms "
+          f"(search depth: mean {bound['mean_search_depth']:.2f}, each "
+          f"warp's deepest lane per step; {SMEM_LATENCY_CYCLES} cycles a "
+          f"dependent load at {clock} MHz); kernel == "
+          f"twin on all {rounds} rounds, bit-stable, a flipped word of lane "
+          f"{lane} "
+          f"changes the output [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                shape=f"N{n} K{k} m {m}, y table {tuple(cdf.shape)}",
+                **bound)
+
+
+def encode_ab_phase(model, imgs, card: str, pairs: int = 6) -> None:
+    """Where image 0 of a batch-1 and a batch-4 analysis first differ with
+    the whole-batch analysis (A), then A against the fixed-batch analysis
+    (B), alternating A B B A, on the compressai wire."""
+    import torch
+
+    from crdr_tpu_torch.models.codec import ANALYSIS_BATCH, codec_numerics
+
+    x = torch.from_numpy(imgs).to(model.device)
+    mods = [(f"{tag}.{n}", mod) for tag, net in (("encoder", model._enc_t),
+                                                 ("hyperencoder",
+                                                  model._henc_t))
+            for n, mod in net.named_modules() if not list(mod.children())]
+    for variant in (None, ANALYSIS_BATCH):
+        model._analysis_batch = variant
+        calls = []  # per pass: (layer, image 0's output) in call order
+        hooks = [mod.register_forward_hook(
+            lambda _m, _i, o, name=name: calls[-1].append(
+                (name, o[:1].float().clone())) if torch.is_tensor(o) else None)
+            for name, mod in mods]
+        try:
+            for xb in (x, x[:1]):
+                calls.append([])
+                with codec_numerics():
+                    model.encode_head(xb, model._cond_arg(RATE, len(xb)))
+        finally:
+            for h in hooks:
+                h.remove()
+        first = next(((name, float((a - b).abs().max()))
+                      for (name, a), (_, b) in zip(*calls)
+                      if not torch.equal(a, b)), None)
+        label = "whole batch" if variant is None else f"{variant} per call"
+        print(f"analysis ({label}): first of {len(calls[0])} layer calls "
+              f"where image 0 differs between a batch-1 and a batch-{N_IMG} "
+              f"call: {first or 'none'} [{card}]")
+
+    res = {"A": ([], [], []), "B": ([], [], [])}
+    for variant in ("A", "B"):  # warm both up at both batch sizes
+        model._analysis_batch = None if variant == "A" else ANALYSIS_BATCH
+        model.compress_batch(imgs, rate_ind=RATE)
+        model.compress(imgs[:1], rate_ind=RATE)
+    for _ in range(pairs):
+        for variant in ("A", "B", "B", "A"):
+            model._analysis_batch = None if variant == "A" else ANALYSIS_BATCH
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batch = model.compress_batch(imgs, rate_ind=RATE)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            one = model.compress(imgs[:1], rate_ind=RATE)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res[variant][0].append((t1 - t0) * 1e3)
+            res[variant][1].append((t2 - t1) * 1e3)
+            res[variant][2].append(one["string_list"] ==
+                                   batch[0]["string_list"])
+    model._analysis_batch = ANALYSIS_BATCH
+    for variant, (b4, b1, same) in res.items():
+        print(f"encode A/B {variant} ("
+              f"{'whole batch' if variant == 'A' else 'fixed batch 4'}), "
+              f"{2 * pairs} runs in A B B A order: batch-{N_IMG} median "
+              f"{np.median(b4):.1f} ms ({min(b4):.1f}-{max(b4):.1f}), batch-1 "
+              f"median {np.median(b1):.1f} ms ({min(b1):.1f}-{max(b1):.1f}); "
+              f"batch-1 stream of image 0 == batch-{N_IMG}: {sum(same)} of "
+              f"{len(same)} [{card}]")
 
 
 def main() -> None:
@@ -347,24 +632,62 @@ def main() -> None:
         fail("crdr_tpu_torch/ not found: run from the root of a checkout")
     sys.path.insert(0, ROOT)
     t_start = time.perf_counter()
+    profiling = "--profile" in sys.argv[1:]
 
     card = card_line()
     print(f"card: {card}")
     build_kernels()
-    rows = k1_phase(card)
-    launches = main_path(card)
-    r = rows[480]
+    k1 = k1_phase(card)
+    model = build_model(card)
+    imgs = smooth_images(7)
+    if "--ab-encode" in sys.argv[1:]:
+        encode_ab_phase(model, imgs, card)
+    encs_c, counts_c, times_c = compressai_path(model, imgs, card)
+    if profiling:
+        profile_phase(lambda: model.compress_batch(imgs, rate_ind=RATE),
+                      f"compressai encode batch {N_IMG}", card)
+        profile_phase(lambda: model.decompress_batch(
+            [e["string_list"] for e in encs_c], beta=BETA),
+            f"compressai decode batch {N_IMG}", card)
+    y_c = np.concatenate([e["y_hat"] for e in encs_c])
+    recorded, counts_d, times_d = device_wire_path(model, imgs, y_c, card)
+    if profiling:
+        encs_d = model.compress_batch(imgs, rate_ind=RATE)
+        profile_phase(lambda: model.decompress_batch(
+            [e["string_list"] for e in encs_d], beta=BETA),
+            f"device-wire decode batch {N_IMG}", card)
+    k2 = k2_phase(recorded, 1 + model.num_slices, card)
+    print(f"both wires, batch {N_IMG}, medians: compressai encode "
+          f"{times_c['encode_ms']:.1f} / decode {times_c['decode_ms']:.1f} ms; "
+          f"device encode {times_d['encode_ms']:.1f} / decode "
+          f"{times_d['decode_ms']:.1f} ms [{card}]")
+
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    r = k1[480]
+    launches = {"compressai": counts_c, "device": counts_d}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",
         "replaces": "crdr_tpu/ops/pallas_slice_transform.py:75",
-        "launches": launches, "max_abs_err": max(x["max_abs_err"]
-                                                 for x in rows.values()),
+        "launches": counts_d["slice_transform"],
+        "launches_by_path": {p: c["slice_transform"]
+                             for p, c in launches.items()},
+        "max_abs_err": max(x["max_abs_err"] for x in k1.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "shape": f"N{N_IMG} {IMG_H // 16}x{IMG_W // 16} Cin 480->224->128->32",
+        "card": card}, {
+        "name": "lane_decode_round", "route": "cuda",
+        "source": "crdr_tpu_torch/csrc/lane_decode.cu",
+        "replaces": "crdr_tpu/ops/pallas_lane_decode.py:116",
+        "launches": counts_d["lane_decode_round"],
+        "launches_by_path": {p: c["lane_decode_round"]
+                             for p, c in launches.items()},
+        "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"], "library_ms": None,
+        "chain_ms_est": k2["chain_ms_est"], "shape": k2["shape"],
         "card": card}]}))
-    print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
-"""The compressai-wire Charm codec: setup, device programs, compress /
-decompress (mixin for BaseModel).
+"""The Charm codec: setup, device programs, compress / decompress (mixin
+for BaseModel).
 
 Counterpart of ``crdr_tpu/models/codec_tables.py`` (``codec_setup``),
 ``codec_programs.py`` (``encode_head``, ``decode_begin``, ``quantize_slice``,
@@ -24,15 +24,25 @@ path secures by:
   that set them, so concurrent calls cannot restore them under each other;
 * running the hyper-decoder and the plain Charm convolutions one image at a
   time, so cuDNN picks the same algorithm for a batch as for one image (a
-  stream encoded in a batch then decodes alone).  The analysis transform
-  is side-local and runs batched, so on a GPU an image's stream may depend
-  on the batch it was encoded in; it decodes either way;
+  stream encoded in a batch then decodes alone);
 * the K1 kernel, bit-identical across calls and batch sizes by design.
 
-Only ``wire_format: compressai`` (host C++ rANS) and ``codec_precision:
-highest`` (the f32 chain) are ported; ``codec_setup`` raises for the others.
-The device wire, the reduced-precision chain and the checkerboard / generic
-families come later.
+The analysis transform is side-local, so it cannot desync the stream, but an
+image's bytes should not depend on the batch it was encoded in (JAX holds
+batch streams equal to batch-1 streams).  It runs at one fixed batch size,
+``ANALYSIS_BATCH`` images per call with the last call padded with zero
+images: every call has one shape, so cuDNN makes one algorithm choice, and
+no convolution mixes images.
+
+Wires: ``wire_format: compressai`` (host C++ rANS, decoded between the
+slice steps) and ``wire_format: device`` (lane rans32, decoded on the GPU by
+K2: ``models/codec_devicewire.py``), the latter with ``device_wire_encoder:
+host`` only.  ``fused_decode_loop`` is accepted and changes nothing: in JAX
+it merges the same per-slice programs into one ``lax.scan`` with
+byte-identical streams, and eager PyTorch runs one loop either way.
+``codec_precision`` other than ``highest`` (the f32 chain) is not ported;
+``codec_setup`` raises for what is not.  The checkerboard and
+generic families come later.
 """
 
 from __future__ import annotations
@@ -58,6 +68,10 @@ from ..utils.codec_utils import HeaderHandler, MultiRateHeaderHandler
 from ..utils.img_utils import pad_image, uint8_to_tensor
 
 Tensor = torch.Tensor
+
+# Images per analysis call (see the module doc): a batch-4 encode runs one
+# call, a batch-1 encode pads three zero images.
+ANALYSIS_BATCH = 4
 
 
 # The numerics flags are process-wide torch state: one codec call at a time
@@ -119,9 +133,24 @@ class CharmCodecMixin:
         if self.context_type != "Minnen20CharmContextModel":
             raise NotImplementedError("only the Charm (Minnen20) codec is "
                                       "ported")
-        wire = self.opt.get("wire_format", "compressai")
-        if wire != "compressai":
-            raise NotImplementedError(f"wire_format {wire!r} is not ported")
+        self.wire_format = self.opt.get("wire_format", "compressai")
+        if self.wire_format not in ("compressai", "device"):
+            raise ValueError(f"wire_format {self.wire_format!r}: compressai "
+                             "or device")
+        self.device_wire_lanes = int(self.opt.get("device_wire_lanes", 128))
+        self.device_wire_fixup_cap = int(
+            self.opt.get("device_wire_fixup_cap", 256))
+        # JAX's default places the device-wire lane encode on the device;
+        # that encoder is not ported (its bytes equal the host coder's)
+        lane_enc = self.opt.get("device_wire_encoder", "device")
+        if lane_enc not in ("device", "host"):
+            raise ValueError(f"device_wire_encoder {lane_enc!r}: device or "
+                             "host")
+        if self.wire_format == "device" and lane_enc != "host":
+            raise NotImplementedError(
+                f"device_wire_encoder {lane_enc!r} is not ported: "
+                "wire_format: device runs with device_wire_encoder: host")
+        # fused_decode_loop is accepted and read by nothing (module doc)
         chain_prec = self.opt.get("codec_precision", "highest")
         if chain_prec not in ("highest", "float32"):
             # the hyper-decoder + Charm chain always runs in f32 here
@@ -140,6 +169,11 @@ class CharmCodecMixin:
         self.codec_y.update_scale_table(get_scale_table())
         self._table = torch.as_tensor(self.codec_y.scale_table,
                                       dtype=torch.float32, device=self.device)
+        # K2's device-resident tables (int32, uploaded once per setup)
+        self._ytab = self._device_tables(self.codec_y)
+        self._ztab = self._device_tables(self.codec_z)
+        self._zidx_cache = {}
+        self._analysis_batch = ANALYSIS_BATCH
 
         sub = net.subnet_opt
         enc, hyp = sub["encoder"], sub["hyperencoder"]
@@ -196,9 +230,7 @@ class CharmCodecMixin:
         if tdt is not None:
             x = x.to(tdt)
             rate_ind = rate_ind.to(tdt)
-        with _tf32(self._transform_tf32):
-            y, z = self.net.encode_latents(x, rate_ind, self._enc_t,
-                                           self._henc_t)
+        y, z = self._analysis(x, rate_ind)
         y, z = y.float(), z.float()
         med = self.net.entropy_model_z.medians()[None, :, None, None]
         z_sym = torch.round(z - med)
@@ -207,12 +239,37 @@ class CharmCodecMixin:
                                  dim=(1, 2, 3))
         return _nhwc(y), _nhwc(z_sym), pred_z_bits
 
+    def _analysis(self, x: Tensor, rate_ind: Tensor) -> Tuple[Tensor, Tensor]:
+        """Analysis + hyper-analysis of NCHW ``x`` in calls of
+        ``_analysis_batch`` images (the last padded with zero images; None:
+        one call over the batch).  ``rate_ind`` is [1] or one per image."""
+        n, chunk = x.shape[0], self._analysis_batch or x.shape[0]
+        pad = -n % chunk
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+            if rate_ind.numel() > 1:
+                rate_ind = torch.cat([rate_ind, rate_ind.new_zeros(pad)])
+        ys, zs = [], []
+        with _tf32(self._transform_tf32):
+            for i in range(0, n + pad, chunk):
+                ri = rate_ind if rate_ind.numel() == 1 else \
+                    rate_ind[i:i + chunk]
+                y, z = self.net.encode_latents(x[i:i + chunk], ri,
+                                               self._enc_t, self._henc_t)
+                ys.append(y)
+                zs.append(z)
+        return torch.cat(ys)[:n], torch.cat(zs)[:n]
+
     def decode_begin(self, z_sym: Tensor):
         """z dequantize + hyper-decode + the slice-0 entropy params.
         Returns (hm, hs, support, mu0, sigma0, idx0, z_hat), NHWC."""
         med = self.net.entropy_model_z.medians()
         z_hat = z_sym + med
-        zc = _nchw(z_hat)
+        # canonical strides: with a 1x1 z grid the NHWC -> NCHW view is
+        # "contiguous" both ways, and strides that look channels-last would
+        # send the convolutions to another algorithm (other bits) depending
+        # on where z_sym came from (the encoder, host rANS or K2)
+        zc = _nchw(z_hat).clone(memory_format=torch.contiguous_format)
         hyper = torch.cat([self.net.hyper_decode(zi) for zi in zc.split(1)])
         hm, hs = (_nhwc(t) for t in torch.chunk(hyper, 2, dim=1))
         n, h, w, _ = hm.shape
@@ -325,19 +382,33 @@ class CharmCodecMixin:
                 y_slices.append(y_prev)
         symbols, indexes, pred_y_bits, maxabs, y_hat = self.replay_pack(
             hm, support, syms, idxs, sigmas, y_slices, mu)
-        # channel-major rANS serialization (stream-layout parity)
-        sym_np = symbols.permute(0, 3, 1, 2).reshape(N, -1) \
-            .to(torch.int32).cpu().numpy()
-        idx_np = indexes.permute(0, 3, 1, 2).reshape(N, -1).cpu().numpy()
+        _, h, w, _ = symbols.shape
+        ns, sc = self.num_slices, self.slice_ch
+        if self.wire_format == "device":
+            # slice-major: for each slice the NHWC slice [h, w, sc] flattened
+            # (the decode's consumption order, one lane round per slice)
+            def order(t):
+                return t.reshape(N, h, w, ns, sc).permute(0, 3, 1, 2, 4) \
+                    .reshape(N, -1)
+        else:
+            # channel-major rANS serialization (stream-layout parity)
+            def order(t):
+                return t.permute(0, 3, 1, 2).reshape(N, -1)
+        sym_np = order(symbols).to(torch.int32).cpu().numpy()
+        idx_np = order(indexes).cpu().numpy()
         z_np = z_sym.to(torch.int32).cpu().numpy()
         meta = torch.stack([pred_y_bits, pred_z_bits, maxabs], 1).cpu().numpy()
         timing["device_encode_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        z_str = self.codec_z.compress_symbols(z_np)
+        z_str = self._z_serialize(z_np)
         cy = self.codec_y
-        y_str = self._host_pmap(lambda i: rans_encode_with_indexes(
-            sym_np[i], idx_np[i], cy.quantized_cdf, cy.cdf_length, cy.offset),
-            N)
+        if self.wire_format == "device":
+            y_str = self._lane_serialize(
+                sym_np, idx_np, np.arange(ns + 1, dtype=np.int64) * h * w * sc)
+        else:
+            y_str = self._host_pmap(lambda i: rans_encode_with_indexes(
+                sym_np[i], idx_np[i], cy.quantized_cdf, cy.cdf_length,
+                cy.offset), N)
         timing["host_rans_s"] = time.perf_counter() - t0
 
         y_hat_np = y_hat.cpu().numpy()
@@ -379,6 +450,8 @@ class CharmCodecMixin:
         Returns (fake [N, H, W, 3], z_hat, y_hat)."""
         if self.codec_z is None:
             raise RuntimeError("call codec_setup() first")
+        for sl in string_lists:
+            self._guard_wire_mismatch(sl[2])
         heads = [self.header_handler.decode(sl[0]) for sl in string_lists]
         H, W = heads[0]["img_size"]
         if any(tuple(hd["img_size"]) != (H, W) for hd in heads[1:]):
@@ -388,8 +461,10 @@ class CharmCodecMixin:
         padH = math.ceil(H / self.stride) * self.stride
         padW = math.ceil(W / self.stride) * self.stride
         zH, zW = padH // self.model_stride, padW // self.model_stride
+        decode = (self._decompress_charm_device
+                  if self.wire_format == "device" else self._decompress_charm)
         with codec_numerics():
-            return self._decompress_charm(
+            return decode(
                 [sl[1] for sl in string_lists], [sl[2] for sl in string_lists],
                 zH, zW, rate_ind, beta_arr, H, W)
 

@@ -30,12 +30,13 @@ from ..utils.device import resolve_device
 from ..utils.img_utils import crop_image, pad_image
 from ..utils.registry import MODEL_REGISTRY
 from .codec import CharmCodecMixin
+from .codec_devicewire import DeviceWireCodecMixin
 from .net import CompNet
 
 _INIT_MODULES = (Conv2d, ConvTranspose2d, Dense, InterpChAtt, EntropyBottleneck)
 
 
-class BaseModel(CharmCodecMixin):
+class BaseModel(CharmCodecMixin, DeviceWireCodecMixin):
     """Holds the network on its device, plus the codec state."""
 
     use_rate = False

@@ -20,15 +20,13 @@ The source note in the .cu file states the bound and the design.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
 import threading
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import build_library, package_path
+from ..utils.device import build_library, nvcc_command, package_path
 
 _SRC = package_path("csrc", "slice_transform.cu")
 _lock = threading.Lock()
@@ -44,22 +42,10 @@ def fits_fused(h: int, w: int) -> bool:
     return h * w <= _MAX_POSITIONS
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the slice_transform kernel is "
-                           "built from csrc/slice_transform.cu at first use")
-    return path
-
-
 def build() -> str:
     """Compile the kernel library (no-op when up to date); the compiler's
     register / shared-memory report is kept beside it as ``.log``."""
-    return build_library(
-        "crdr_slice_transform", [_SRC],
-        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", _SRC])
+    return build_library("crdr_slice_transform", [_SRC], nvcc_command(_SRC))
 
 
 def _get_lib() -> ctypes.CDLL:

@@ -1,8 +1,10 @@
 """Host-side native runtime: rANS entropy coder + CDF quantizer (C++ via ctypes).
 
 The port's own copy of the JAX package's runtime (same ``csrc/rans.cpp``
-wire format).  The shared library is built with ``g++`` at first use into
-``build/crdr_tpu_torch/``; all functions take and return numpy arrays.
+wire formats: the CompressAI-compatible coder here, the lane-interleaved
+rans32 coder of the device wire in ``lane_rans.py``).  The shared library is
+built with ``g++`` at first use into ``build/crdr_tpu_torch/``; all
+functions take and return numpy arrays.
 """
 
 from __future__ import annotations
@@ -57,6 +59,24 @@ def _get_lib() -> ctypes.CDLL:
                 ctypes.c_int, i32p, i32p, i32p]
             lib.rans_decoder_free.restype = None
             lib.rans_decoder_free.argtypes = [ctypes.c_void_p]
+
+            # lane-interleaved rans32 (the device wire, see lane_rans.py)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            u16p = ctypes.POINTER(ctypes.c_uint16)
+            lib.lane_rans_encode.restype = ctypes.c_int64
+            lib.lane_rans_encode.argtypes = [
+                i32p, i32p, ctypes.c_int64, i64p, ctypes.c_int, ctypes.c_int,
+                i32p, ctypes.c_int, ctypes.c_int, i32p, i32p, u16p,
+                ctypes.c_int64, i32p, i64p, i32p, ctypes.c_int64]
+            lib.lane_decoder_new.restype = ctypes.c_void_p
+            lib.lane_decoder_new.argtypes = [u16p, i32p, ctypes.c_int,
+                                             ctypes.c_int64]
+            lib.lane_decoder_decode.restype = None
+            lib.lane_decoder_decode.argtypes = [
+                ctypes.c_void_p, i32p, ctypes.c_int64, i32p, ctypes.c_int,
+                ctypes.c_int, i32p, i32p, i32p]
+            lib.lane_decoder_free.restype = None
+            lib.lane_decoder_free.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib
 

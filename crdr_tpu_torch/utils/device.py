@@ -10,6 +10,7 @@ root, never next to the sources.
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import threading
 from typing import List, Union
@@ -34,6 +35,19 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
 
 def package_path(*parts: str) -> str:
     return os.path.join(_PKG_DIR, *parts)
+
+
+def nvcc_command(source: str) -> List[str]:
+    """nvcc invocation for a kernel source: a shared library with a plain C
+    interface for sm_90a, the compiler's register / shared-memory report
+    (``-Xptxas -v``) kept in the build log."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError(f"nvcc not found: {os.path.basename(source)} "
+                           "is built with it at first use")
+    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", source]
 
 
 def build_library(name: str, sources: List[str], command: List[str]) -> str:

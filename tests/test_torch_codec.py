@@ -86,6 +86,25 @@ def test_batch_streams_equal_batch_1_streams(model):
     np.testing.assert_array_equal(y_1, batch[1]["y_hat"])
 
 
+def test_analysis_runs_at_a_fixed_batch(model, monkeypatch):
+    """The analysis sees ANALYSIS_BATCH images per call whatever the batch
+    (zero images pad the last call), so cuDNN makes one algorithm choice
+    and an image's stream does not depend on its batch on the GPU either."""
+    from crdr_tpu_torch.models.codec import ANALYSIS_BATCH
+
+    sizes = []
+    real = model.net.encode_latents
+    monkeypatch.setattr(model.net, "encode_latents",
+                        lambda x, *a: sizes.append(len(x)) or real(x, *a))
+    x = _smooth(ANALYSIS_BATCH + 1, 64, 64, seed=8)
+    batch = model.compress_batch(x, rate_ind=[0.5] * len(x))
+    assert sizes == [ANALYSIS_BATCH, ANALYSIS_BATCH]
+    sizes.clear()
+    one = model.compress(x[-1:], rate_ind=0.5)
+    assert sizes == [ANALYSIS_BATCH]
+    assert one["string_list"] == batch[-1]["string_list"]
+
+
 def test_slice_transform_calls_per_direction(model, monkeypatch):
     """3 * num_slices SliceTransforms per batch and direction (the LRP
     discarded at slice 0 is skipped): 30 at the flagship's 10 slices."""
@@ -149,7 +168,9 @@ def test_state_dict_uses_reference_names(model):
                                        ("wire_format", "device")])
 def test_unported_codec_options_raise(key, value):
     """A config the port would run as another function than JAX's raises
-    (codec_precision: default is config/crdr_fastchain.yaml)."""
+    (codec_precision: default is config/crdr_fastchain.yaml; wire_format:
+    device with JAX's default device_wire_encoder: device, whose encoder is
+    not ported)."""
     m = build_comp_model(_opt(**{key: value}), device="cpu")
     with pytest.raises(NotImplementedError, match=key):
         m.codec_setup()

@@ -6,9 +6,13 @@
 * f32 codec path (fused kernel off): the port reproduces the committed
   digests of ``tests/golden_bitstream.json``, decodes its own stream to the
   encoder's ``y_hat`` exactly and to the JAX reconstruction within 2e-3, and
-  the two packages decode each other's streams.
+  the two packages decode each other's streams;
+* the same on the device wire (``device_wire_lanes: 16``, the port's host
+  lane encoder): ``tests/golden_bitstream_device.json`` byte for byte, the
+  JAX package's own device-wire streams, and cross-decode both ways.
 
-One JAX init (~45 s of per-op compiles on the CPU) serves the whole file.
+One JAX init (~45 s of per-op compiles on the CPU) serves the whole file:
+the device-wire JAX model takes the same params.
 """
 
 import hashlib
@@ -29,6 +33,8 @@ from crdr_tpu_torch.utils.config import ConfigDict
 from tests.test_comp_model import tiny_opt
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_bitstream.json")
+GOLDEN_DEVICE = os.path.join(os.path.dirname(__file__),
+                             "golden_bitstream_device.json")
 
 
 @pytest.fixture(scope="module")
@@ -102,6 +108,48 @@ def test_port_round_trip_and_jax_reconstruction(pair, streams):
 def test_jax_decodes_port_stream_and_port_decodes_jax_stream(pair, streams):
     jm, pm, *_ = pair
     port_enc, jax_enc = streams
+    _, _, jy = jm.decompress(port_enc["string_list"], beta=2.56)
+    np.testing.assert_allclose(np.asarray(jy), port_enc["y_hat"], rtol=1e-4,
+                               atol=1e-4)
+    _, _, py = pm.decompress(jax_enc["string_list"], beta=2.56)
+    np.testing.assert_allclose(py, np.asarray(jax_enc["y_hat"]), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def device_pair(pair):
+    """Both packages on the device wire, on the seed-7 weights of ``pair``."""
+    _, _, params, state, x = pair
+    opt = tiny_opt()
+    opt["wire_format"] = "device"
+    opt["device_wire_lanes"] = 16
+    jm = jax_build(opt)
+    jm.params = params
+    jm.codec_setup()
+    popt = ConfigDict(opt.to_dict())
+    popt["device_wire_encoder"] = "host"
+    pm = build_comp_model(popt, device="cpu")
+    pm.load_state_dict(state, strict=True)
+    pm.codec_setup()
+    return jm, pm, pm.compress(x, rate_ind=1.0), jm.compress(x, rate_ind=1.0)
+
+
+def test_port_reproduces_device_wire_golden_digests(device_pair):
+    _, pm, port_enc, jax_enc = device_pair
+    s = port_enc["string_list"]
+    digests = {"z": hashlib.sha256(s[1]).hexdigest(), "z_len": len(s[1]),
+               "y": hashlib.sha256(s[2]).hexdigest(), "y_len": len(s[2])}
+    with open(GOLDEN_DEVICE) as f:
+        assert digests == json.load(f)
+    assert [bytes(b) for b in s] == \
+        [bytes(b) for b in jax_enc["string_list"]]
+    _, z_hat, y_hat = pm.decompress(s, beta=1.0)
+    np.testing.assert_array_equal(y_hat, port_enc["y_hat"])
+    np.testing.assert_array_equal(z_hat, port_enc["z_hat"])
+
+
+def test_device_wire_cross_decode(device_pair):
+    jm, pm, port_enc, jax_enc = device_pair
     _, _, jy = jm.decompress(port_enc["string_list"], beta=2.56)
     np.testing.assert_allclose(np.asarray(jy), port_enc["y_hat"], rtol=1e-4,
                                atol=1e-4)
