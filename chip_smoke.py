@@ -57,8 +57,9 @@ K1_ATOL = 2e-3
 BPP_REL = 0.05       # real vs predicted bpp
 TIMED_RUNS = 3       # timed batch round trips per wire (medians printed)
 H100_BF16_FLOPS = 989e12   # dense, 700 W part (NVIDIA data sheet)
-H100_F32_OPS = 67e12       # float32 outside the tensor cores: the peak of
-#                            K2's scalar integer work (same data sheet)
+INT32_LANES_PER_SM = 64   # Hopper: 4 partitions x 16 INT32 units (NVIDIA
+#                           H100 architecture white paper); times the SM count
+#                           and max SM clock, the card's INT32 issue rate
 H100_BYTES_PER_S = 3.35e12
 SMEM_LATENCY_CYCLES = 30   # a dependent shared-memory load on Hopper (an
 #                            assumption of K2's chain estimate, not measured)
@@ -476,11 +477,13 @@ def k2_bound(st, pt_in, pt_out, idx, cdf_len, clock_ghz: float) -> dict:
     lens = cdf_len.long()[idx.long()]
     depth = torch.ceil(torch.log2((lens - 1).clamp(min=1).double())).long()
     nbytes = (4 * 2 * n * m                              # idx in, vals out
-              + 4 * int((pt_out - pt_in).sum())          # words consumed
+              + 2 * int((pt_out - pt_in).sum())          # 16-bit words read
               + (8 + 4) * 2 * n * k                      # states, ptrs in/out
               + 4 * int(cdf_len.sum()) + 4 * 2 * cdf_len.numel())
     ops = int((2 * depth + 12).sum())  # search + state update, per symbol
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS
+    int32_rate = (torch.cuda.get_device_properties(0).multi_processor_count
+                  * INT32_LANES_PER_SM * clock_ghz * 1e9)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / int32_rate
     # the chain: a warp's step takes its deepest lane's search (+ ~4
     # dependent loads around it); the round waits for the slowest warp
     t_steps, warps = -(-m // k), -(-k // 32)
@@ -492,7 +495,8 @@ def k2_bound(st, pt_in, pt_out, idx, cdf_len, clock_ghz: float) -> dict:
                / (clock_ghz * 1e9))
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=ops, chain_ms_est=chain_s * 1e3,
+                bytes=nbytes, ops=ops, int32_rate=int32_rate,
+                chain_ms_est=chain_s * 1e3,
                 mean_search_depth=float(depth.double().mean()))
 
 
@@ -542,7 +546,8 @@ def k2_phase(recorded, rounds: int, card: str) -> dict:
           f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
           f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}: "
           f"{bound['bytes'] / 1e6:.3f} MB, {bound['ops'] / 1e6:.2f} M int "
-          f"ops), dependent-chain estimate {bound['chain_ms_est']:.4f} ms "
+          f"ops at {bound['int32_rate'] / 1e12:.2f} T/s INT32), "
+          f"dependent-chain estimate {bound['chain_ms_est']:.4f} ms "
           f"(search depth: mean {bound['mean_search_depth']:.2f}, each "
           f"warp's deepest lane per step; {SMEM_LATENCY_CYCLES} cycles a "
           f"dependent load at {clock} MHz); kernel == "
@@ -560,57 +565,72 @@ def encode_ab_phase(model, imgs, card: str, pairs: int = 6) -> None:
     (B), alternating A B B A, on the compressai wire."""
     import torch
 
-    from crdr_tpu_torch.models.codec import ANALYSIS_BATCH, codec_numerics
+    from crdr_tpu_torch.models.codec import _tf32, codec_numerics
+
+    def whole_batch(x, rate_ind):  # A: one analysis call over the batch
+        with _tf32(model._transform_tf32):
+            return model.net.encode_latents(x, rate_ind, model._enc_t,
+                                            model._henc_t)
+
+    def use(variant):  # A shadows the method on the instance; B is the method
+        if variant == "A":
+            model._analysis = whole_batch
+        else:
+            model.__dict__.pop("_analysis", None)
 
     x = torch.from_numpy(imgs).to(model.device)
     mods = [(f"{tag}.{n}", mod) for tag, net in (("encoder", model._enc_t),
                                                  ("hyperencoder",
                                                   model._henc_t))
             for n, mod in net.named_modules() if not list(mod.children())]
-    for variant in (None, ANALYSIS_BATCH):
-        model._analysis_batch = variant
-        calls = []  # per pass: (layer, image 0's output) in call order
-        hooks = [mod.register_forward_hook(
-            lambda _m, _i, o, name=name: calls[-1].append(
-                (name, o[:1].float().clone())) if torch.is_tensor(o) else None)
-            for name, mod in mods]
-        try:
-            for xb in (x, x[:1]):
-                calls.append([])
-                with codec_numerics():
-                    model.encode_head(xb, model._cond_arg(RATE, len(xb)))
-        finally:
-            for h in hooks:
-                h.remove()
-        first = next(((name, float((a - b).abs().max()))
-                      for (name, a), (_, b) in zip(*calls)
-                      if not torch.equal(a, b)), None)
-        label = "whole batch" if variant is None else f"{variant} per call"
-        print(f"analysis ({label}): first of {len(calls[0])} layer calls "
-              f"where image 0 differs between a batch-1 and a batch-{N_IMG} "
-              f"call: {first or 'none'} [{card}]")
-
     res = {"A": ([], [], []), "B": ([], [], [])}
-    for variant in ("A", "B"):  # warm both up at both batch sizes
-        model._analysis_batch = None if variant == "A" else ANALYSIS_BATCH
-        model.compress_batch(imgs, rate_ind=RATE)
-        model.compress(imgs[:1], rate_ind=RATE)
-    for _ in range(pairs):
-        for variant in ("A", "B", "B", "A"):
-            model._analysis_batch = None if variant == "A" else ANALYSIS_BATCH
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            batch = model.compress_batch(imgs, rate_ind=RATE)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            one = model.compress(imgs[:1], rate_ind=RATE)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            res[variant][0].append((t1 - t0) * 1e3)
-            res[variant][1].append((t2 - t1) * 1e3)
-            res[variant][2].append(one["string_list"] ==
-                                   batch[0]["string_list"])
-    model._analysis_batch = ANALYSIS_BATCH
+    try:
+        for variant in res:
+            use(variant)
+            calls = []  # per pass: (layer, image 0's output) in call order
+            hooks = [mod.register_forward_hook(
+                lambda _m, _i, o, name=name: calls[-1].append(
+                    (name, o[:1].float().clone())) if torch.is_tensor(o)
+                else None) for name, mod in mods]
+            try:
+                for xb in (x, x[:1]):
+                    calls.append([])
+                    with codec_numerics():
+                        model.encode_head(xb, model._cond_arg(RATE, len(xb)))
+            finally:
+                for h in hooks:
+                    h.remove()
+            first = next(((name, float((a - b).abs().max()))
+                          for (name, a), (_, b) in zip(*calls)
+                          if not torch.equal(a, b)), None)
+            label = "whole batch" if variant == "A" else "fixed batch 4"
+            print(f"analysis ({label}): first of {len(calls[0])} layer calls "
+                  f"where image 0 differs between a batch-1 and a "
+                  f"batch-{N_IMG} call: {first or 'none'} [{card}]")
+            check(variant == "A" or first is None,
+                  f"fixed-batch analysis: image 0 differs at {first}")
+
+        for variant in res:  # warm both up at both batch sizes
+            use(variant)
+            model.compress_batch(imgs, rate_ind=RATE)
+            model.compress(imgs[:1], rate_ind=RATE)
+        for _ in range(pairs):
+            for variant in ("A", "B", "B", "A"):
+                use(variant)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                batch = model.compress_batch(imgs, rate_ind=RATE)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                one = model.compress(imgs[:1], rate_ind=RATE)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                res[variant][0].append((t1 - t0) * 1e3)
+                res[variant][1].append((t2 - t1) * 1e3)
+                res[variant][2].append(one["string_list"] ==
+                                       batch[0]["string_list"])
+    finally:
+        use("B")
     for variant, (b4, b1, same) in res.items():
         print(f"encode A/B {variant} ("
               f"{'whole batch' if variant == 'A' else 'fixed batch 4'}), "

@@ -172,8 +172,6 @@ class CharmCodecMixin:
         # K2's device-resident tables (int32, uploaded once per setup)
         self._ytab = self._device_tables(self.codec_y)
         self._ztab = self._device_tables(self.codec_z)
-        self._zidx_cache = {}
-        self._analysis_batch = ANALYSIS_BATCH
 
         sub = net.subnet_opt
         enc, hyp = sub["encoder"], sub["hyperencoder"]
@@ -241,9 +239,9 @@ class CharmCodecMixin:
 
     def _analysis(self, x: Tensor, rate_ind: Tensor) -> Tuple[Tensor, Tensor]:
         """Analysis + hyper-analysis of NCHW ``x`` in calls of
-        ``_analysis_batch`` images (the last padded with zero images; None:
-        one call over the batch).  ``rate_ind`` is [1] or one per image."""
-        n, chunk = x.shape[0], self._analysis_batch or x.shape[0]
+        ``ANALYSIS_BATCH`` images, the last padded with zero images.
+        ``rate_ind`` is [1] or one per image."""
+        n, chunk = x.shape[0], ANALYSIS_BATCH
         pad = -n % chunk
         if pad:
             x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
@@ -456,26 +454,42 @@ class CharmCodecMixin:
         H, W = heads[0]["img_size"]
         if any(tuple(hd["img_size"]) != (H, W) for hd in heads[1:]):
             raise ValueError("decompress_batch requires equal image sizes")
-        rate_ind = [hd.get("rate_ind", 0.0) for hd in heads]
-        beta_arr = np.asarray(beta, np.float32).reshape(-1)
+        n = len(string_lists)
+        rates = np.asarray([hd.get("rate_ind", 0.0) for hd in heads],
+                           np.float32)
         padH = math.ceil(H / self.stride) * self.stride
         padW = math.ceil(W / self.stride) * self.stride
         zH, zW = padH // self.model_stride, padW // self.model_stride
         decode = (self._decompress_charm_device
                   if self.wire_format == "device" else self._decompress_charm)
+        timing: Dict[str, float] = {}
         with codec_numerics():
-            return decode(
+            ri = self._cond_arg(
+                rates[:1] if np.all(rates == rates[0]) else rates, n)
+            fake, z_hat, y_hat = decode(
                 [sl[1] for sl in string_lists], [sl[2] for sl in string_lists],
-                zH, zW, rate_ind, beta_arr, H, W)
+                zH, zW, ri, self._cond_arg(beta, n), timing)
+            t0 = time.perf_counter()
+            fake = fake.cpu().numpy()  # waits for the device's last steps
+            timing["fetch_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if fake.dtype == np.uint8:  # codec_uint8_io: the device sent uint8
+            fake = uint8_to_tensor(fake)
+            if self.convert_img_range:
+                fake = (fake + 1.0) / 2.0
+        fake = self.data_postprocess(fake, (H, W))
+        timing["postprocess_s"] = time.perf_counter() - t0
+        self.last_decode_timing = timing
+        return fake, z_hat.cpu().numpy(), y_hat.cpu().numpy()
 
-    def _decompress_charm(self, z_strs, y_strs, zH: int, zW: int, rate_ind,
-                          beta, H: int, W: int):
+    def _decompress_charm(self, z_strs, y_strs, zH: int, zW: int, ri: Tensor,
+                          bt: Tensor, timing: Dict[str, float]):
         """Serial Charm decode, batched over N streams: ``decode_begin``, then
         S-1 steps interleaved with the host rANS stream decode (one rANS state
-        per image), then ``decode_final``."""
+        per image), then ``decode_final``.  Returns (image NHWC, z_hat,
+        y_hat) on the device."""
         from ..runtime import RansStreamDecoder
 
-        timing = {}
         t0 = time.perf_counter()
         z_sym = self.codec_z.decompress(z_strs, (zH, zW))
         hm, hs, support, mu, _sigma, idx, z_hat = self.decode_begin(
@@ -484,10 +498,6 @@ class CharmCodecMixin:
 
         t0 = time.perf_counter()
         n, h, w, sc = mu.shape
-        rates = np.asarray(rate_ind, np.float32)
-        ri = self._cond_arg(rates[:1] if np.all(rates == rates[0]) else rates,
-                            n)
-        bt = self._cond_arg(beta, n)
         cy = self.codec_y
         decoders = [RansStreamDecoder(ys) for ys in y_strs]
         y_slices: List[Tensor] = []
@@ -508,18 +518,11 @@ class CharmCodecMixin:
             t0 = time.perf_counter()
             fake, y_hat = self.decode_final(hm, support, sym, mu, y_slices,
                                             ri, bt)
+            timing["decode_final_s"] = time.perf_counter() - t0
         finally:
             for d in decoders:
                 d.close()
-        fake = fake.cpu().numpy()
-        if fake.dtype == np.uint8:  # codec_uint8_io: the device sent uint8
-            fake = uint8_to_tensor(fake)
-            if self.convert_img_range:
-                fake = (fake + 1.0) / 2.0
-        fake = self.data_postprocess(fake, (H, W))
-        timing["decode_final_s"] = time.perf_counter() - t0
-        self.last_decode_timing = timing
-        return fake, z_hat.cpu().numpy(), y_hat.cpu().numpy()
+        return fake, z_hat, y_hat
 
     @staticmethod
     def _host_pmap(fn, n: int) -> List:
