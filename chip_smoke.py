@@ -8,8 +8,8 @@
 Phases, each asserted (any failure exits non-zero):
 
 1. card: the nvidia-smi name / power-limit line; the kernels build from the
-   checkout's sources (nvcc for K1 and K2, g++ for the host rANS coders, all
-   started together) into build/crdr_tpu_torch/.
+   checkout's sources (nvcc for K1, K2 and K3, g++ for the host rANS coders,
+   all started together) into build/crdr_tpu_torch/.
 2. K1 (the Charm SliceTransform kernel) at the main path's shapes: batch 4,
    a 32x48 latent (a 512x768 image), Cin 480 (mean / scale) and 512 (LRP),
    seeded weights in a 10-slice packed stack, slice 7.  The kernel against
@@ -33,7 +33,21 @@ Phases, each asserted (any failure exits non-zero):
    one): kernel == plain twin exactly (values, states, pointers), a flipped
    stream word changes the kernel's output, two launches are bit-identical;
    kernel / twin times and the bound of a batch-4 y round.
-6. one JSON line of kernel figures, then the last line:
+6. K3 (GDN / inverse GDN) at the GDN path's three shapes ([4, 192, 256x384
+   / 128x192 / 64x96] NCHW f32), both directions, seeded non-symmetric
+   gamma: kernel vs plain twin (TF32 off) elementwise within
+   2e-5 |plain| + 1e-6, a transposed gamma and the wrong direction fail that
+   by > 10x, bit-stable across calls and batch 1 vs 4; times of the kernel,
+   the twin and the cuBLAS f32 product x^2 . gamma^T (yardstick only), and
+   the bound.
+7. GDN path: the Balle18 mean-scale hyperprior (HyperpriorModel) at full
+   width from config/balle18_mean_scale.yaml on the same images, seeded
+   init with every GDN's gamma re-drawn non-symmetric, the last analysis
+   conv scaled so that y spans several bins, the scale half of the
+   hyper-decoder's last bias raised so that the y tables carry the rate:
+   the checks of phase 3 with 6 K3 launches per round trip and none of K1
+   or K2, and the timings.
+8. one JSON line of kernel figures, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -63,6 +77,13 @@ INT32_LANES_PER_SM = 64   # Hopper: 4 partitions x 16 INT32 units (NVIDIA
 H100_BYTES_PER_S = 3.35e12
 SMEM_LATENCY_CYCLES = 30   # a dependent shared-memory load on Hopper (an
 #                            assumption of K2's chain estimate, not measured)
+FP32_FLOPS_PER_SM_CLOCK = 256  # Hopper: 128 FP32 lanes x 2 (FMA); times the
+#                                SM count and max SM clock, the f32 peak
+# K3 vs its plain twin, elementwise |kernel - plain| <= K3_RTOL |plain| +
+# K3_ATOL: f32 sums of C non-negative terms in another order, then rsqrt
+K3_RTOL, K3_ATOL = 2e-5, 1e-6
+GDN_SHAPES = [(N_IMG, 192, IMG_H // s, IMG_W // s) for s in (2, 4, 8)]
+Y_STD = 4.0          # GDN path: y's spread after the analysis gain, in bins
 
 
 def fail(msg: str) -> None:
@@ -85,6 +106,7 @@ def card_line() -> str:
 
 def build_kernels() -> None:
     from crdr_tpu_torch import runtime
+    from crdr_tpu_torch.ops import gdn as k3
     from crdr_tpu_torch.ops import lane_decode as k2
     from crdr_tpu_torch.ops import slice_transform as k1
 
@@ -99,6 +121,7 @@ def build_kernels() -> None:
 
     for name, fn in (("slice_transform (nvcc sm_90a)", k1.build),
                      ("lane_decode (nvcc sm_90a)", k2.build),
+                     ("gdn (nvcc sm_90a)", k3.build),
                      ("host rANS (g++)", runtime.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
@@ -107,12 +130,19 @@ def build_kernels() -> None:
     for name, (res, dt) in results.items():
         check(not isinstance(res, Exception), f"build of {name}: {res}")
         print(f"built {name} in {dt:.1f} s -> {os.path.relpath(res, ROOT)}")
-    for k in (k1, k2):
+    for k in (k1, k2, k3):
         with open(k.build() + ".log") as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas {k.__name__.split('.')[-1]}:",
                           line.strip())
+
+
+def max_sm_clock_ghz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()[0]) / 1e3
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -233,9 +263,10 @@ def smooth_images(seed: int) -> np.ndarray:
     return np.clip(np.round(np.stack(imgs) * 255), 0, 255).astype(np.uint8)
 
 
-def profile_phase(fn, label: str, card: str) -> None:
+def profile_phase(fn, label: str, card: str, kernel: str = "") -> None:
     """Device time by kernel and the device's busy share over ``fn()``
-    (one stream: the kernels' summed time is the busy time)."""
+    (one stream: the kernels' summed time is the busy time); with
+    ``kernel``, the share of the device time whose name contains it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -261,6 +292,10 @@ def profile_phase(fn, label: str, card: str) -> None:
     for us, count, key in rows[:12]:
         print(f"  {us / 1e3:9.2f} ms {us / 1e4 / max(busy, 1e-9):6.1f}% "
               f"x{count:<5d} {key[:100]}")
+    if kernel:
+        mine = sum(r[0] for r in rows if kernel in r[2]) / 1e6
+        print(f"  {kernel}: {mine * 1e3:.3f} ms, {mine / max(busy, 1e-9):.3f} "
+              f"of the device time")
 
 
 def build_model(card: str):
@@ -310,11 +345,12 @@ def round_trip(model, imgs):
 def counted_round_trip(model, imgs):
     """One batch round trip with every kernel's launch count set to 0 just
     before it; returns (encs, decoded, enc s, dec s, {kernel: launches})."""
+    from crdr_tpu_torch.ops.gdn import gdn
     from crdr_tpu_torch.ops.lane_decode import lane_decode_round
     from crdr_tpu_torch.ops.slice_transform import slice_transform
 
     kernels = {"slice_transform": slice_transform,
-               "lane_decode_round": lane_decode_round}
+               "lane_decode_round": lane_decode_round, "gdn": gdn}
     for k in kernels.values():
         k.launches = 0
     out = round_trip(model, imgs)
@@ -356,20 +392,19 @@ def timed_runs(model, imgs, label: str, card: str) -> dict:
     return res
 
 
-def compressai_path(model, imgs, card: str):
-    """The compressai wire: counts, checks, batch-1 equality, times."""
+def host_wire_path(model, imgs, label: str, expected: dict, card: str):
+    """A model on the compressai wire: kernel counts (``expected``, by
+    kernel, per batch round trip), checks, batch-1 equality, times.  A model
+    without rates or beta ignores RATE and BETA."""
     import torch
 
     round_trip(model, imgs)  # warm-up: cuDNN / library initialization
     encs, (fake, _, y_hat), enc_s, dec_s, counts = \
         counted_round_trip(model, imgs)
-    k1_expected = 6 * model.num_slices  # 3 SliceTransforms a slice, twice
-    check(counts["slice_transform"] == k1_expected,
-          f"compressai wire: K1 launches in one batch round trip: "
-          f"{counts['slice_transform']} (expected {k1_expected})")
-    check(counts["lane_decode_round"] == 0,
-          "compressai wire: K2 launched on the host wire")
-    check_round_trip("compressai wire", encs, fake, y_hat)
+    check(counts == expected, f"{label}: kernel launches in one batch round "
+                              f"trip {counts} (expected {expected})")
+    check_round_trip(label, encs, fake, y_hat)
+    dec_timing = model.last_decode_timing  # of the batch decode
 
     # batch 1 is a new shape for the decode's cuDNN calls: warm it up first
     model.decompress(model.compress(imgs[:1], rate_ind=RATE)["string_list"],
@@ -383,20 +418,22 @@ def compressai_path(model, imgs, card: str):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     check(np.array_equal(y0, encs[0]["y_hat"]),
-          "batch-1 decode of stream 0 != encoder y_hat")
+          f"{label}: batch-1 decode of stream 0 != encoder y_hat")
     # the analysis runs at one fixed batch size: an image's stream does not
     # depend on the batch it was encoded in
     check(enc1["string_list"] == encs[0]["string_list"],
-          "batch-1 encode of image 0 != its batch-4 stream (y_hat max |diff| "
+          f"{label}: batch-1 encode of image 0 != its batch-4 stream (y_hat "
+          f"max |diff| "
           f"{float(np.abs(enc1['y_hat'] - encs[0]['y_hat']).max()):.3e})")
-    print(f"batch-1 encode of image 0 equals its batch-{N_IMG} stream")
-    print(f"compressai wire batch-1: encode {(t1 - t0) * 1e3:.1f} ms, decode "
+    print(f"{label}: batch-1 encode of image 0 equals its batch-{N_IMG} "
+          "stream")
+    print(f"{label} batch-1: encode {(t1 - t0) * 1e3:.1f} ms, decode "
           f"{(t2 - t1) * 1e3:.1f} ms; one batch round trip: encode "
           f"{enc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms; launches "
           f"{counts} [{card}]")
-    print(f"timing encode {json.dumps(encs[0]['timing'])} decode "
-          f"{json.dumps(model.last_decode_timing)}")
-    times = timed_runs(model, imgs, "compressai wire", card)
+    print(f"timing of the batch round trip: encode "
+          f"{json.dumps(encs[0]['timing'])} decode {json.dumps(dec_timing)}")
+    times = timed_runs(model, imgs, label, card)
     return encs, counts, times
 
 
@@ -425,14 +462,12 @@ def device_wire_path(model, imgs, y_compressai, card: str):
         codec_devicewire.lane_decode_round = real
     encs, (fake, _, y_hat), enc_s, dec_s, counts = \
         counted_round_trip(model, imgs)
-    check(counts["lane_decode_round"] == 1 + model.num_slices,
-          f"device wire: K2 launches in one batch decode: "
-          f"{counts['lane_decode_round']} (expected 1 z + "
-          f"{model.num_slices} y rounds)")
-    k1_expected = 6 * model.num_slices
-    check(counts["slice_transform"] == k1_expected,
-          f"device wire: K1 launches in one batch round trip: "
-          f"{counts['slice_transform']} (expected {k1_expected})")
+    # K2: 1 z + num_slices y rounds per decode; K1: 3 SliceTransforms a
+    # slice, each way
+    expected = {"slice_transform": 6 * model.num_slices,
+                "lane_decode_round": 1 + model.num_slices, "gdn": 0}
+    check(counts == expected, f"device wire: kernel launches in one batch "
+                              f"round trip {counts} (expected {expected})")
     check(all(e["string_list"][2][:4] == b"CRDW" for e in encs),
           "device wire: the y streams are not lane containers")
     check_round_trip("device wire", encs, fake, y_hat)
@@ -536,11 +571,8 @@ def k2_phase(recorded, rounds: int, card: str) -> dict:
     args = recorded[1]
     ms = cuda_time_ms(lambda: lane_decode_round(*args), 50, warmup=3)
     plain_ms = cuda_time_ms(lambda: lane_decode_round_instep(*args), 2, 1)
-    clock = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
-         "nounits"], capture_output=True, text=True, timeout=60,
-        check=True).stdout.split()[0]
-    bound = k2_bound(st, pt, pt_out, idx, cdf_len, float(clock) / 1e3)
+    clock = max_sm_clock_ghz()
+    bound = k2_bound(st, pt, pt_out, idx, cdf_len, clock)
     n, k = st.shape
     print(f"K2 y round N{n} K{k} m {m} (table {tuple(cdf.shape)}): kernel "
           f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
@@ -550,13 +582,146 @@ def k2_phase(recorded, rounds: int, card: str) -> dict:
           f"dependent-chain estimate {bound['chain_ms_est']:.4f} ms "
           f"(search depth: mean {bound['mean_search_depth']:.2f}, each "
           f"warp's deepest lane per step; {SMEM_LATENCY_CYCLES} cycles a "
-          f"dependent load at {clock} MHz); kernel == "
+          f"dependent load at {clock * 1e3:.0f} MHz); kernel == "
           f"twin on all {rounds} rounds, bit-stable, a flipped word of lane "
           f"{lane} "
           f"changes the output [{card}]")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                 shape=f"N{n} K{k} m {m}, y table {tuple(cdf.shape)}",
                 **bound)
+
+
+def k3_phase(card: str) -> list:
+    """K3 against its twin at the GDN path's shapes, both directions."""
+    import torch
+
+    from crdr_tpu_torch.ops.gdn import gdn, gdn_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(99)
+    clock = max_sm_clock_ghz()
+    f32_rate = (torch.cuda.get_device_properties(0).multi_processor_count
+                * FP32_FLOPS_PER_SM_CLOCK * clock * 1e9)
+
+    def excess(out, ref):  # max |out - ref| in units of the tolerance
+        return float(((out - ref).abs() / (K3_RTOL * ref.abs() + K3_ATOL))
+                     .max())
+
+    rows = []
+    for shape in GDN_SHAPES:
+        n, c, h, w = shape
+        x = torch.randn(shape, device=dev, generator=g)
+        beta = torch.empty(c, device=dev).uniform_(0.5, 2.0, generator=g)
+        # non-negative and non-symmetric: a transposed read must show
+        gamma = torch.empty((c, c), device=dev).uniform_(0.0, 0.1,
+                                                         generator=g)
+        for inverse in (False, True):
+            tag = f"K3 {list(shape)} {'inverse' if inverse else 'forward'}"
+            out = gdn(x, beta, gamma, inverse)
+            again = gdn(x, beta, gamma, inverse)
+            one = gdn(x[:1].contiguous(), beta, gamma, inverse)
+            plain = gdn_plain(x, beta, gamma, inverse)
+            torch.cuda.synchronize()
+            check(torch.isfinite(out).all(), f"{tag}: non-finite output")
+            check(torch.equal(out, again), f"{tag}: two launches differ")
+            check(torch.equal(out[:1], one),
+                  f"{tag}: image 0 alone != image 0 in the batch of {n}")
+            ex = excess(out, plain)
+            check(ex <= 1.0, f"{tag}: |kernel - plain| exceeds {K3_RTOL} "
+                             f"|plain| + {K3_ATOL} ({ex:.3f}x)")
+            ex_t = excess(out, gdn_plain(x, beta, gamma.t(), inverse))
+            ex_d = excess(out, gdn_plain(x, beta, gamma, not inverse))
+            check(min(ex_t, ex_d) > 10,
+                  f"{tag}: the check is blind to a transposed gamma "
+                  f"({ex_t:.1f}x) or the other direction ({ex_d:.1f}x)")
+            diff = (out - plain).abs()
+            big = plain.abs() >= 1e-3
+            row = dict(shape=list(shape), inverse=inverse, excess=ex,
+                       max_abs_err=float(diff.max()),
+                       max_rel_err=float((diff[big] / plain.abs()[big])
+                                         .max()))
+            row["ms"] = cuda_time_ms(lambda: gdn(x, beta, gamma, inverse),
+                                     20, 3)
+            row["plain_ms"] = cuda_time_ms(
+                lambda: gdn_plain(x, beta, gamma, inverse), 10, 2)
+            row["library_ms"] = None
+            if shape == GDN_SHAPES[0] and not inverse:
+                # yardstick only: cuBLAS's f32 product gamma . x^2 per image
+                x2 = (x * x).view(n, c, h * w)
+                saved = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+                try:
+                    row["library_ms"] = cuda_time_ms(
+                        lambda: torch.matmul(gamma, x2), 20, 3)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = saved
+                del x2
+            m = n * h * w
+            flops = 2.0 * m * c * c + 4.0 * m * c  # product + epilogue
+            nbytes = 4 * (2 * m * c + c * c + c)
+            t_ops, t_bytes = flops / f32_rate, nbytes / H100_BYTES_PER_S
+            row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       gflop=flops / 1e9, mbytes=nbytes / 1e6)
+            rows.append(row)
+            lib = ("" if row["library_ms"] is None else
+                   f", cuBLAS f32 product {row['library_ms']:.4f} ms")
+            print(f"{tag}: kernel {row['ms']:.4f} ms ({flops / row['ms'] / 1e9:.1f} "
+                  f"TFLOP/s), plain {row['plain_ms']:.4f} ms{lib}, bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                  f"{flops / 1e9:.2f} GFLOP at {f32_rate / 1e12:.2f} TFLOP/s "
+                  f"f32, {nbytes / 1e6:.1f} MB); max|err| "
+                  f"{row['max_abs_err']:.3e}, max rel err "
+                  f"{row['max_rel_err']:.3e} ({ex:.3f}x the tolerance; "
+                  f"transposed gamma {ex_t:.0f}x, other direction "
+                  f"{ex_d:.0f}x); bit-stable across calls and batch 1 vs "
+                  f"{n} [{card}]")
+        del x
+    total = sum(r["ms"] for r in rows)
+    bound = sum(r["bound_ms"] for r in rows)
+    print(f"K3, the six calls of a GDN round trip: {total:.4f} ms against a "
+          f"bound of {bound:.4f} ms [{card}]")
+    return rows
+
+
+def build_gdn_model(imgs, card: str):
+    """The GDN path's model: seeded init, then the edits of the module
+    doc (phase 7)."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.nn import GDN, NonNegativeParam
+    from crdr_tpu_torch.utils.config import Config
+
+    cfg = Config.from_file(os.path.join(ROOT, "config",
+                                        "balle18_mean_scale.yaml"))
+    t0 = time.perf_counter()
+    model = build_comp_model(cfg)  # the GPU; seeded init (cfg seed / 0)
+    net = model.net
+    g = torch.Generator(device=model.device).manual_seed(4321)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, GDN):  # about the init's weight, spread out
+                c = m.gamma.shape[0]
+                m.gamma.copy_(NonNegativeParam().init(torch.empty_like(
+                    m.gamma).uniform_(0.0, 2.0 / c, generator=g)))
+        # at the random init y sits within a bin of 0; a gain on the last
+        # analysis conv spreads it over ~Y_STD bins, and the scale half of
+        # the hyper-decoder's bias makes the y tables carry that rate
+        x = torch.from_numpy(imgs[:1]).to(model.device)
+        x = ((x.float() / 255.0 - 0.5) * 2.0).permute(0, 3, 1, 2)
+        gain = Y_STD / float(net.encoder(x.contiguous()).std())
+        net.encoder.conv_6.weight.mul_(gain)
+        net.encoder.conv_6.bias.mul_(gain)
+        half = net.hyperdecoder.c3.bias.numel() // 2
+        net.hyperdecoder.c3.bias[half:] += Y_STD
+    model.codec_setup()
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in net.parameters())
+    print(f"GDN path {cfg.model_type} (Balle18, mean-scale): "
+          f"{nparam / 1e6:.1f}M params, analysis gain {gain:.2f}, built in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return model
 
 
 def encode_ab_phase(model, imgs, card: str, pairs: int = 6) -> None:
@@ -662,7 +827,10 @@ def main() -> None:
     imgs = smooth_images(7)
     if "--ab-encode" in sys.argv[1:]:
         encode_ab_phase(model, imgs, card)
-    encs_c, counts_c, times_c = compressai_path(model, imgs, card)
+    encs_c, counts_c, times_c = host_wire_path(
+        model, imgs, "compressai wire",
+        {"slice_transform": 6 * model.num_slices,  # 3 a slice, each way
+         "lane_decode_round": 0, "gdn": 0}, card)
     if profiling:
         profile_phase(lambda: model.compress_batch(imgs, rate_ind=RATE),
                       f"compressai encode batch {N_IMG}", card)
@@ -681,10 +849,24 @@ def main() -> None:
           f"{times_c['encode_ms']:.1f} / decode {times_c['decode_ms']:.1f} ms; "
           f"device encode {times_d['encode_ms']:.1f} / decode "
           f"{times_d['decode_ms']:.1f} ms [{card}]")
+    del model, recorded
+    torch.cuda.empty_cache()
+
+    k3 = k3_phase(card)
+    gdn_model = build_gdn_model(imgs, card)
+    encs_g, counts_g, _ = host_wire_path(
+        gdn_model, imgs, "GDN path",  # 3 GDN in the analysis, 3 IGDN after
+        {"slice_transform": 0, "lane_decode_round": 0, "gdn": 6}, card)
+    if profiling:
+        profile_phase(lambda: gdn_model.compress_batch(imgs),
+                      f"GDN path encode batch {N_IMG}", card, "gdn_kernel")
+        profile_phase(lambda: gdn_model.decompress_batch(
+            [e["string_list"] for e in encs_g]),
+            f"GDN path decode batch {N_IMG}", card, "gdn_kernel")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1[480]
-    launches = {"compressai": counts_c, "device": counts_d}
+    launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",
@@ -707,6 +889,24 @@ def main() -> None:
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
         "chain_ms_est": k2["chain_ms_est"], "shape": k2["shape"],
+        "card": card}, {
+        "name": "gdn", "route": "cuda",
+        "source": "crdr_tpu_torch/csrc/gdn.cu",
+        "replaces": "crdr_tpu/ops/pallas_gdn.py:37",
+        "launches": counts_g["gdn"],
+        "launches_by_path": {p: c["gdn"] for p, c in launches.items()},
+        "max_abs_err": max(x["max_abs_err"] for x in k3),
+        "max_rel_err": max(x["max_rel_err"] for x in k3),
+        "ms": k3[0]["ms"], "plain_ms": k3[0]["plain_ms"],
+        "bound_ms": k3[0]["bound_ms"], "bound_by": k3[0]["bound_by"],
+        "library_ms": k3[0]["library_ms"],
+        "ms_by_call": {f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
+                       x["ms"] for x in k3},
+        "bound_ms_by_call": {
+            f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
+            x["bound_ms"] for x in k3},
+        "shape": f"{list(GDN_SHAPES[0])} NCHW f32 (ms, bound, plain, "
+                 "library); all six path calls in ms_by_call",
         "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

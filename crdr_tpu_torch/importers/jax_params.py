@@ -7,7 +7,8 @@ and the layout transform is inverted:
 
 * Conv2d      HWIO            -> OIHW               transpose(3, 2, 0, 1)
 * ConvTransp. HWIO, flipped   -> (in, out, kh, kw)  un-flip, transpose(2, 3, 0, 1)
-* Linear      (in, out)       -> (out, in)          .T
+* Linear      (in, out)       -> (out, in)          .T  (Dense weights only:
+  GDN's square ``gamma`` is [C_out, C_in] in both trees and passes as is)
 * InterpCA    (L, C)          -> (L, 1, C, 1, 1)
 * EntropyBottleneck matrices_K/biases_K/factors_K -> _matrixK/_biasK/_factorK
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..nn import ConvTranspose2d
+from ..nn import ConvTranspose2d, Dense
 
 _RULES: List[Tuple[str, str]] = [
     (r"\.interp_ca_list\.(\d+)\.", r".interp_ca_\1."),
@@ -70,12 +71,12 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _to_torch_layout(arr: np.ndarray, shape: Tuple[int, ...],
-                     transposed: bool) -> np.ndarray:
+                     kind: str) -> np.ndarray:
     if len(shape) == 5:          # InterpCA (L, C) -> (L, 1, C, 1, 1)
         out = arr.reshape(shape)
-    elif len(shape) == 2:        # Linear (in, out) -> (out, in)
+    elif kind == "dense":        # Linear (in, out) -> (out, in)
         out = arr.T
-    elif len(shape) == 4 and transposed:
+    elif len(shape) == 4 and kind == "deconv":
         out = arr[::-1, ::-1].transpose(2, 3, 0, 1)
     elif len(shape) == 4:
         out = arr.transpose(3, 2, 0, 1)
@@ -90,15 +91,17 @@ def export_state_dict(params: Dict, net: nn.Module, use_rate: bool,
                       use_beta: bool) -> Dict[str, torch.Tensor]:
     """Strict: every port key finds its flax leaf and every leaf is used."""
     flat = _flatten(params)
-    transposed = {f"{name}.weight" for name, m in net.named_modules()
-                  if isinstance(m, ConvTranspose2d)}
+    # the layout of a weight follows its module's type, not its shape
+    kinds = {f"{name}.weight": "deconv" if isinstance(m, ConvTranspose2d)
+             else "dense" for name, m in net.named_modules()
+             if isinstance(m, (ConvTranspose2d, Dense))}
     out, used = {}, set()
     for key, ref in net.state_dict().items():
         path = map_reference_name(key, use_rate, use_beta)
         if path not in flat:
             raise KeyError(f"{key}: no flax param {path}")
         out[key] = torch.from_numpy(_to_torch_layout(
-            flat[path], tuple(ref.shape), key in transposed))
+            flat[path], tuple(ref.shape), kinds.get(key, "")))
         used.add(path)
     unused = sorted(set(flat) - used)
     if unused:

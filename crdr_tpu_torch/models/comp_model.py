@@ -8,11 +8,13 @@ Counterpart of ``crdr_tpu/models/comp_model.py``.  Contracts kept:
   with the exact f32 formulas of ``uint8_to_tensor``;
 * ``transform_dtype: bfloat16`` runs the side-local analysis / synthesis
   transforms on bf16 copies of their weights; the hyper-decoder and the Charm
-  chain stay f32;
+  chain stay f32 (the GDN kernel takes f32 only, so the Balle18 family
+  raises on the card in bf16);
 * ``state_dict`` / ``load_state_dict`` use the reference torch names.
 
-Of the seven model classes only the flagship
-``BetaCondInterpCaHyperpriorCharmModel`` is ported so far.
+Of the seven model classes the flagship
+``BetaCondInterpCaHyperpriorCharmModel`` and the generic
+``HyperpriorModel`` (no rate, no beta, no Charm) are ported so far.
 """
 
 from __future__ import annotations
@@ -24,19 +26,20 @@ import numpy as np
 import torch
 
 from ..entropy import EntropyBottleneck
-from ..nn import Conv2d, ConvTranspose2d, Dense, InterpChAtt
+from ..nn import GDN, Conv2d, ConvTranspose2d, Dense, InterpChAtt
 from ..utils.config import ConfigDict
 from ..utils.device import resolve_device
 from ..utils.img_utils import crop_image, pad_image
 from ..utils.registry import MODEL_REGISTRY
-from .codec import CharmCodecMixin
+from .codec import CodecMixin
 from .codec_devicewire import DeviceWireCodecMixin
 from .net import CompNet
 
-_INIT_MODULES = (Conv2d, ConvTranspose2d, Dense, InterpChAtt, EntropyBottleneck)
+_INIT_MODULES = (Conv2d, ConvTranspose2d, Dense, InterpChAtt, EntropyBottleneck,
+                 GDN)
 
 
-class BaseModel(CharmCodecMixin, DeviceWireCodecMixin):
+class BaseModel(CodecMixin, DeviceWireCodecMixin):
     """Holds the network on its device, plus the codec state."""
 
     use_rate = False
@@ -74,7 +77,8 @@ class BaseModel(CharmCodecMixin, DeviceWireCodecMixin):
     def init_params(self, seed: int = 0) -> None:
         """Random init from ``seed`` with a ``torch.Generator`` on the model's
         device (torch-default / DCGAN / InterpCA / bottleneck initializers,
-        as the JAX package draws them; the values differ from JAX's)."""
+        as the JAX package draws them; the values differ from JAX's; GDN's
+        init is deterministic)."""
         g = torch.Generator(device=self.device).manual_seed(int(seed))
         for m in self.net.modules():
             if isinstance(m, _INIT_MODULES):
@@ -112,6 +116,11 @@ class BaseModel(CharmCodecMixin, DeviceWireCodecMixin):
         if self.convert_img_range:  # [0,1] -> [-1,1]
             img = (img - 0.5) * 2.0
         return np.clip(crop_image(img, *size), -1.0, 1.0)
+
+
+@MODEL_REGISTRY.register()
+class HyperpriorModel(BaseModel):
+    """Mean-scale hyperprior: the generic codec (``models/codec.py``)."""
 
 
 @MODEL_REGISTRY.register()

@@ -3,3 +3,4 @@ from .fourier import fourier_embed
 from .interp_ca import InterpChAtt
 from .layers import (BaseBlock, BetaCondBaseBlock, BetaCondResidualBottleneckBlocks,
                      ChengNLAM, NLAMResBlock, ResidualBottleneckBlocks, up_conv)
+from .norm import GDN, NonNegativeParam

@@ -13,9 +13,10 @@ from ..utils.config import ConfigDict
 from ..utils.registry import (CONTEXTMODEL_REGISTRY, DECODER_REGISTRY,
                               ENCODER_REGISTRY, ENTROPYMODEL_REGISTRY,
                               HYPERDECODER_REGISTRY, HYPERENCODER_REGISTRY)
-from .autoencoder import elic, elic_interpca, elic_interpca_beta_cond  # noqa: F401
+from .autoencoder import (balle18, elic, elic_interpca,  # noqa: F401
+                          elic_interpca_beta_cond)
 from .context_model import charm  # noqa: F401
-from .hyperprior import minnen20  # noqa: F401
+from .hyperprior import alt, minnen20  # noqa: F401
 
 _REGISTRIES = {
     "encoder": ENCODER_REGISTRY,
