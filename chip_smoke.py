@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (crdr_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py               # from the root of a checkout; one GPU
-    python3 chip_smoke.py --profile     # + device time by kernel, idle share
+    python3 chip_smoke.py --profile     # + device time by kernel, idle share,
+                                        #   K1's and K3's shares
     python3 chip_smoke.py --ab-encode   # + the fixed-batch analysis A/B
 
 Phases, each asserted (any failure exits non-zero):
@@ -12,10 +13,17 @@ Phases, each asserted (any failure exits non-zero):
    all started together) into build/crdr_tpu_torch/.
 2. K1 (the Charm SliceTransform kernel) at the main path's shapes: batch 4,
    a 32x48 latent (a 512x768 image), Cin 480 (mean / scale) and 512 (LRP),
-   seeded weights in a 10-slice packed stack, slice 7.  The kernel against
-   its plain PyTorch twin (TF32 off), bit-stability across calls and batch
-   sizes, and times: kernel, plain twin, a cuDNN bf16 conv chain (yardstick
-   only, never called by the port) and the bound.
+   seeded weights in a 10-slice packed stack, slice 7.  The library's SASS
+   must hold HGMMA (wgmma) and no HMMA (mma.sync).  The kernel against its
+   plain PyTorch twin (TF32 off), bit-stability across calls and batch
+   sizes, and times: kernel at batch 4 and 1, each of its four launches
+   (pad / cast, conv0, conv1, conv2) at batch 4 and 1 from the profiler,
+   its blocks per conv and their residency, plain twin, a cuDNN bf16 conv
+   chain from the same f32 x (yardstick only, never called by the port) and
+   the bound.  Kernel and cuDNN chain are timed as CUDA-graph replays
+   (device time; the eager call's time, host enqueue included, is printed
+   beside it).  Then K1's stage times at batch 4 and 1 for other cluster
+   splits than the plan's, each held against the twin.
 3. main path, compressai wire: the flagship BetaCondInterpCaHyperpriorCharmModel
    at full width from config/crdr_throughput.yaml, seeded random init, on 4
    seeded smooth synthetic 512x768 uint8 images: compress_batch ->
@@ -55,6 +63,8 @@ Imports nothing of JAX or of the JAX package.
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -65,7 +75,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_IMG, IMG_H, IMG_W = 4, 512, 768
 # kernel vs plain twin, max |diff|: a one-ulp f32 difference can flip a bf16
-# intermediate; measured 5.4e-4 / 5.9e-4 (Cin 480 / 512) on an H100 at
+# intermediate; measured 4.6e-4 / 4.7e-4 (Cin 480 / 512) on an H100 at
 # these inputs, outputs up to ~0.6 (PERF.md)
 K1_ATOL = 2e-3
 BPP_REL = 0.05       # real vs predicted bpp
@@ -160,10 +170,78 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, replayed between two events, so the host's enqueue time (Python,
+    the wrapper, the driver) is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def sass_counts(lib: str) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in a built library's
+    SASS; raises if cuobjdump is missing."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        raise RuntimeError("cuobjdump not found: K1's SASS cannot be counted")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: sum(1 for line in sass.splitlines()
+                    if re.search(rf"\b{op}\b", line))
+            for op in ("HGMMA", "HMMA")}
+
+
+def k1_stage_ms(fn, calls: int = 10) -> dict:
+    """Device time per stage of K1 (its four kernels in launch order: the
+    pad / cast pass, conv0, conv1, conv2), mean over ``calls`` calls of
+    ``fn``, from the profiler's kernel records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and "k1_" in e.name), key=lambda e: e.time_range.start)
+    check(len(evs) == 4 * calls, f"K1 profile: {len(evs)} kernel records "
+                                 f"for {calls} calls (expected 4 each)")
+    names = ("prep", "conv0", "conv1", "conv2")
+    out = {k: 0.0 for k in names}
+    for i, e in enumerate(evs):
+        want = "k1_prep" if i % 4 == 0 else "k1_conv"
+        check(want in e.name, f"K1 profile: record {i} is {e.name[:80]}")
+        out[names[i % 4]] += e.time_range.elapsed_us() / 1e3 / calls
+    return out
+
+
 def k1_phase(card: str) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from crdr_tpu_torch.ops import slice_transform as k1mod
     from crdr_tpu_torch.ops.slice_transform import (slice_transform,
                                                     slice_transform_plain)
 
@@ -171,6 +249,9 @@ def k1_phase(card: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(1234)
     n, h, w, S, idx = N_IMG, IMG_H // 16, IMG_W // 16, 10, 7
     c0, c1, cout = 224, 128, 32
+    sass = sass_counts(k1mod.build())
+    check(sass["HGMMA"] > 0 and sass["HMMA"] == 0,
+          f"K1's library must use wgmma and no mma.sync: {sass}")
     rows = []
     for cin in (480, 512):
         def uni(shape, fan_in):
@@ -210,23 +291,31 @@ def k1_phase(card: str) -> dict:
               f"K1 Cin {cin}: the check is blind to a dropped bias "
               f"({no_b4:.3e}) or another slice's weights ({wrong:.3e})")
 
-        # yardstick: cuDNN bf16 convolutions, channels-last (not used by the port)
-        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        # yardstick: cuDNN bf16 convolutions, channels-last, from the same
+        # f32 x (the cast is part of the work; not used by the port)
         wl = [t.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last) for t in own[0::2]]
 
         def library():
-            y = torch.relu(F.conv2d(xb, wl[0], own[1].to(torch.bfloat16),
+            y = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+            y = torch.relu(F.conv2d(y, wl[0], own[1].to(torch.bfloat16),
                                     padding=2))
             y = torch.relu(F.conv2d(y, wl[1], own[3].to(torch.bfloat16),
                                     padding=2))
             return F.conv2d(y, wl[2], own[5].to(torch.bfloat16), padding=1)
 
-        ms = cuda_time_ms(lambda: slice_transform(x, *args, idx), 20)
+        x1 = x[:1].contiguous()
+        # device time per call (CUDA graph), and the eager call's time with
+        # the host's enqueue in it
+        ms = graph_time_ms(lambda: slice_transform(x, *args, idx))
+        ms1 = graph_time_ms(lambda: slice_transform(x1, *args, idx))
+        eager_ms = cuda_time_ms(lambda: slice_transform(x, *args, idx), 20)
+        stages = k1_stage_ms(lambda: slice_transform(x, *args, idx))
+        stages1 = k1_stage_ms(lambda: slice_transform(x1, *args, idx))
         with torch.backends.cudnn.flags(enabled=True, benchmark=True,
                                          deterministic=False,
                                          allow_tf32=False):
-            lib_ms = cuda_time_ms(library, 20, warmup=3)
+            lib_ms = graph_time_ms(library)
         plain_ms = cuda_time_ms(lambda: slice_transform_plain(x, *own), 5, 1)
         flops = 2.0 * n * h * w * (25 * cin * c0 + 25 * c0 * c1 +
                                    9 * c1 * cout)
@@ -234,19 +323,80 @@ def k1_phase(card: str) -> dict:
                   + 2 * (25 * cin * c0 + 25 * c0 * c1 + 9 * c1 * cout)
                   + 4 * (c0 + c1 + cout))
         t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-        row = dict(cin=cin, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
+        plans = k1mod.slice_transform_plan(h, w, cin, c0, c1, cout)
+        grid = []
+        for j, p in enumerate(plans):
+            occ = k1mod.occupancy(p, last=j == 2)
+            tiles = -(-p["tiles_x"] * p["tiles_y"] // p["pair"]) * p["pair"]
+            blocks = p["split"] * tiles
+            grid.append(dict(blocks_batch1=blocks, blocks=n * blocks,
+                             split=p["split"], pair=p["pair"],
+                             n_inst=p["n_inst"], **occ))
+        row = dict(cin=cin, ms=ms, ms_batch1=ms1, eager_ms=eager_ms,
+                   plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   max_abs_err=err, out_max_abs=scale, gflop=flops / 1e9)
+                   max_abs_err=err, out_max_abs=scale, gflop=flops / 1e9,
+                   ms_by_stage=stages, ms_by_stage_batch1=stages1,
+                   grid=grid)
         rows.append(row)
         print(f"K1 Cin {cin}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-              f"TFLOP/s), plain {plain_ms:.4f} ms, cuDNN bf16 chain "
-              f"{lib_ms:.4f} ms, bound {row['bound_ms'] * 1e3:.1f} us "
-              f"({row['bound_by']}); max|err| {err:.3e} of |out| <= "
-              f"{scale:.3f} (dropped b4 would give {no_b4:.3e}, slice "
-              f"{idx - 1}'s weights {wrong:.3e}); bit-stable across calls "
-              f"and batch sizes [{card}]")
-    return {r["cin"]: r for r in rows}
+              f"TFLOP/s; eager, host enqueue included, {eager_ms:.4f} ms), "
+              f"batch 1 {ms1:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"cuDNN bf16 chain {lib_ms:.4f} ms, bound "
+              f"{row['bound_ms'] * 1e3:.1f} us ({row['bound_by']}); max|err| "
+              f"{err:.3e} of |out| <= {scale:.3f} (dropped b4 would give "
+              f"{no_b4:.3e}, slice {idx - 1}'s weights {wrong:.3e}); "
+              f"bit-stable across calls and batch sizes [{card}]")
+        print(f"K1 Cin {cin} by stage, batch {n}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+              + " ms; batch 1: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stages1.items())
+              + f" ms; blocks (batch 1 / {n}), split x multicast pair, "
+              "wgmma N, blocks per SM, clusters resident, shared memory: "
+              + "; ".join(f"conv{j} {q['blocks_batch1']} / {q['blocks']}, "
+                          f"{q['split']} x {q['pair']}, N {q['n_inst']}, "
+                          f"{q['blocks_per_sm']}/SM, {q['clusters']} "
+                          f"clusters, {q['smem_bytes']} B"
+                          for j, q in enumerate(grid)) + f" [{card}]")
+    print(f"K1 library SASS: {sass['HGMMA']} HGMMA, {sass['HMMA']} HMMA")
+    return {"by_cin": {r["cin"]: r for r in rows}, "sass": sass}
+
+
+def k1_split_phase(card: str, splits=((1, 1, 1), (2, 2, 2), (4, 4, 4),
+                                        (8, 8, 4), (8, 8, 8))) -> None:
+    """K1's device time by stage at batch 4 and 1 (Cin 480, 32x48) for other
+    cluster splits than the plan's: the measurement the default split was
+    chosen from."""
+    import torch
+
+    from crdr_tpu_torch.ops import slice_transform as k1mod
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    h, w, cin, c0, c1, cout = IMG_H // 16, IMG_W // 16, 480, 224, 128, 32
+    x = torch.randn((N_IMG, h, w, cin), device=dev, generator=g)
+    args = []
+    for shape in ((1, 5, 5, cin, c0), (1, c0), (1, 5, 5, c0, c1), (1, c1),
+                  (1, 3, 3, c1, cout), (1, cout)):
+        b = (1.0 / np.prod(shape[1:4]) ** 0.5 if len(shape) == 5 else 0.1)
+        args.append(torch.empty(shape, device=dev).uniform_(-b, b,
+                                                            generator=g))
+    plain = k1mod.slice_transform_plain(x, *(t[0] for t in args))
+    for j in (0, 2, 4):
+        args[j] = args[j].to(torch.bfloat16)
+    for sp in splits:
+        plan = tuple(k1mod.plan_ints(k1mod.slice_transform_plan(
+            h, w, cin, c0, c1, cout, sp)))
+        out = k1mod._launch(x, *args, 0, plan)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        check(err <= K1_ATOL, f"K1 split {sp}: max|kernel - plain| {err}")
+        for xb in (x, x[:1].contiguous()):
+            st = k1_stage_ms(lambda: k1mod._launch(xb, *args, 0, plan))
+            print(f"K1 split {sp} batch {xb.shape[0]}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+                  + f" ms, sum {sum(st.values()):.4f} ms [{card}]")
 
 
 def smooth_images(seed: int) -> np.ndarray:
@@ -823,6 +973,7 @@ def main() -> None:
     print(f"card: {card}")
     build_kernels()
     k1 = k1_phase(card)
+    k1_split_phase(card)
     model = build_model(card)
     imgs = smooth_images(7)
     if "--ab-encode" in sys.argv[1:]:
@@ -833,17 +984,17 @@ def main() -> None:
          "lane_decode_round": 0, "gdn": 0}, card)
     if profiling:
         profile_phase(lambda: model.compress_batch(imgs, rate_ind=RATE),
-                      f"compressai encode batch {N_IMG}", card)
+                      f"compressai encode batch {N_IMG}", card, "k1_")
         profile_phase(lambda: model.decompress_batch(
             [e["string_list"] for e in encs_c], beta=BETA),
-            f"compressai decode batch {N_IMG}", card)
+            f"compressai decode batch {N_IMG}", card, "k1_")
     y_c = np.concatenate([e["y_hat"] for e in encs_c])
     recorded, counts_d, times_d = device_wire_path(model, imgs, y_c, card)
     if profiling:
         encs_d = model.compress_batch(imgs, rate_ind=RATE)
         profile_phase(lambda: model.decompress_batch(
             [e["string_list"] for e in encs_d], beta=BETA),
-            f"device-wire decode batch {N_IMG}", card)
+            f"device-wire decode batch {N_IMG}", card, "k1_")
     k2 = k2_phase(recorded, 1 + model.num_slices, card)
     print(f"both wires, batch {N_IMG}, medians: compressai encode "
           f"{times_c['encode_ms']:.1f} / decode {times_c['decode_ms']:.1f} ms; "
@@ -865,7 +1016,7 @@ def main() -> None:
             f"GDN path decode batch {N_IMG}", card, "gdn_kernel")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    r = k1[480]
+    r = k1["by_cin"][480]
     launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
@@ -874,9 +1025,15 @@ def main() -> None:
         "launches": counts_d["slice_transform"],
         "launches_by_path": {p: c["slice_transform"]
                              for p, c in launches.items()},
-        "max_abs_err": max(x["max_abs_err"] for x in k1.values()),
+        "max_abs_err": max(x["max_abs_err"] for x in k1["by_cin"].values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "ms_batch1": r["ms_batch1"], "eager_ms": r["eager_ms"],
+        "ms_by_stage": r["ms_by_stage"],
+        "ms_by_stage_batch1": r["ms_by_stage_batch1"],
+        "hgmma": k1["sass"]["HGMMA"], "hmma": k1["sass"]["HMMA"],
+        "ms_cin512": k1["by_cin"][512]["ms"],
+        "library_ms_cin512": k1["by_cin"][512]["library_ms"],
         "shape": f"N{N_IMG} {IMG_H // 16}x{IMG_W // 16} Cin 480->224->128->32",
         "card": card}, {
         "name": "lane_decode_round", "route": "cuda",

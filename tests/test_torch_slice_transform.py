@@ -152,3 +152,109 @@ def test_packed_slice_transform_matches_own_weights(charm, kind, idx, fused):
             own = st(x_own.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             np.testing.assert_allclose(out.numpy(), own.numpy(), rtol=1e-5,
                                        atol=1e-5)
+
+
+# ---- the kernel's tiling plan (pure Python; the kernel runs it on the card) --
+
+from crdr_tpu_torch.ops import slice_transform as k1  # noqa: E402
+
+
+def _admitted_shapes():
+    """Latents fits_fused admits, sampled densely: every h x w with h, w in
+    a spread of sizes, the edges and the largest."""
+    sizes = [1, 2, 3, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 47, 48, 63, 64, 96]
+    return [(h, w) for h in sizes for w in sizes if fits_fused(h, w)] + [
+        (1, 6144), (6144, 1), (64, 96), (96, 64), (31, 47)]
+
+
+STAGES = [(480, 224, 5), (512, 224, 5), (224, 128, 5), (128, 32, 3),
+          (48, 224, 5), (16, 8, 3)]
+
+
+def test_plan_takes_no_batch_size():
+    import inspect
+    for fn in (k1.conv_plan, k1.slice_transform_plan):
+        names = set(inspect.signature(fn).parameters)
+        assert not names & {"n", "batch", "batch_size", "N"}, names
+    assert set(inspect.signature(k1.conv_plan).parameters) == {
+        "h", "w", "cin", "cout", "ksize", "split"}
+
+
+@pytest.mark.parametrize("cin,cout,ksize", STAGES)
+def test_plan_tiles_cover_every_position_once(cin, cout, ksize):
+    for h, w in _admitted_shapes():
+        p = k1.conv_plan(h, w, cin, cout, ksize)
+        assert p["cw"] * p["rb"] == k1.BOX_M
+        seen = np.zeros((h, w), np.int64)
+        for t in range(p["tiles_x"] * p["tiles_y"]):
+            pos = k1.plan_tile_positions(p, t)
+            assert len(set(pos)) == k1.TILE_M  # no row twice in a tile
+            for y, x in pos:
+                if y < h and x < w:
+                    seen[y, x] += 1
+        assert (seen == 1).all(), (h, w, cin, cout)
+        # the grid's extra tile (tiles rounded up to the pair) stores nothing
+        tiles = p["tiles_x"] * p["tiles_y"]
+        for t in range(tiles, -(-tiles // p["pair"]) * p["pair"]):
+            assert all(y >= h for y, _ in k1.plan_tile_positions(p, t))
+
+
+@pytest.mark.parametrize("cin,cout,ksize", STAGES)
+def test_plan_k_partition_covers_taps_and_channels_once(cin, cout, ksize):
+    for h, w in [(1, 1), (5, 7), (32, 48), (64, 96)]:
+        p = k1.conv_plan(h, w, cin, cout, ksize)
+        ranks = k1.plan_k_steps(p)
+        assert len(ranks) == p["split"] and all(ranks)
+        steps = [s for r in ranks for s in r]
+        # taps outer, 64-channel chunks inner, the ranks in order
+        want = [(t, c) for t in range(ksize * ksize)
+                for c in range(0, cin, k1.BK)]
+        assert steps == want
+        covered = {(t, c + j) for t, c in steps
+                   for j in range(min(k1.BK, cin - c))}
+        assert covered == {(t, c) for t in range(ksize * ksize)
+                           for c in range(cin)}
+        assert p == k1.conv_plan(h, w, cin, cout, ksize)  # one fixed order
+        assert p["cout"] <= p["n_inst"] and p["n_inst"] in k1.N_INST
+
+
+@pytest.mark.parametrize("hw,splits", [
+    ((32, 48), [2, 2, 2]),    # the flagship latent: 96 blocks at batch 4
+    ((64, 96), [1, 1, 1]),    # 192 tiles at batch 4 fill the card alone
+    ((1, 1), [8, 8, 4]),      # conv2's 9 taps x 2 chunks: 4 steps a rank
+])
+def test_plan_split_fills_one_wave_at_the_reference_batch(hw, splits):
+    plans = k1.slice_transform_plan(*hw, 480, 224, 128, 32)
+    assert [p["split"] for p in plans] == splits
+    for p in plans:
+        tiles = -(-p["tiles_x"] * p["tiles_y"] // p["pair"]) * p["pair"]
+        blocks = k1.REF_BATCH * tiles * p["split"]
+        assert blocks <= k1.RESIDENT_BLOCKS or p["split"] == 1
+        assert p["split"] * p["pair"] <= k1.MAX_SPLIT
+        shared = p["tiles_x"] * p["tiles_y"] > 1 and p["n_inst"] > 128
+        assert p["pair"] == (2 if shared else 1)
+    if hw == (32, 48):
+        assert [p["tiles_x"] * p["tiles_y"] for p in plans] == [12, 12, 12]
+        ints = k1.plan_ints(plans)
+        assert len(ints) == 3 * k1.PLAN_INTS
+        assert ints[:11] == [5, 480, 224, 224, 16, 4, 3, 4, 8, 2, 2]
+        assert [p["pair"] for p in plans] == [2, 1, 1]
+
+
+@pytest.mark.parametrize("args", [
+    (64, 97, 480, 224, 5),   # beyond fits_fused
+    (0, 48, 480, 224, 5),    # empty latent
+    (32, 48, 484, 224, 5),   # Cin not a multiple of 8
+    (32, 48, 480, 228, 5),   # Cout not a multiple of 8
+    (32, 48, 480, 232, 5),   # Cout beyond the widest wgmma N
+    (32, 48, 480, 224, 7),   # a kernel size the SliceTransform has not
+])
+def test_plan_raises_for_a_shape_it_cannot_serve(args):
+    with pytest.raises(ValueError, match="conv_plan"):
+        k1.conv_plan(*args)
+
+
+@pytest.mark.parametrize("split", [3, 16])
+def test_plan_raises_for_a_split_it_cannot_serve(split):
+    with pytest.raises(ValueError, match="conv_plan"):
+        k1.conv_plan(32, 48, 480, 224, 5, split)
