@@ -43,10 +43,13 @@ Phases, each asserted (any failure exits non-zero):
    kernel / twin times and the bound of a batch-4 y round.
 6. K3 (GDN / inverse GDN) at the GDN path's three shapes ([4, 192, 256x384
    / 128x192 / 64x96] NCHW f32), both directions, seeded non-symmetric
-   gamma: kernel vs plain twin (TF32 off) elementwise within
-   2e-5 |plain| + 1e-6, a transposed gamma and the wrong direction fail that
-   by > 10x, bit-stable across calls and batch 1 vs 4; times of the kernel,
-   the twin and the cuBLAS f32 product x^2 . gamma^T (yardstick only), and
+   gamma: kernel vs plain twin (TF32 off) bit for bit (the count of
+   differing elements printed) and elementwise within 2e-5 |plain| + 1e-6,
+   a transposed gamma and the wrong direction fail that by > 10x,
+   bit-stable across calls and batch 1 vs 4; the build's registers and
+   spills (none) from the ptxas report, blocks resident an SM; times of the
+   kernel (CUDA-graph replay, gamma^T copy included, and eager), the twin,
+   the cuBLAS f32 product gamma . x^2 at each shape (yardstick only) and
    the bound.
 7. GDN path: the Balle18 mean-scale hyperprior (HyperpriorModel) at full
    width from config/balle18_mean_scale.yaml on the same images, seeded
@@ -54,7 +57,9 @@ Phases, each asserted (any failure exits non-zero):
    conv scaled so that y spans several bins, the scale half of the
    hyper-decoder's last bias raised so that the y tables carry the rate:
    the checks of phase 3 with 6 K3 launches per round trip and none of K1
-   or K2, and the timings.
+   or K2, and the timings.  Then a yardstick of the synthesis: its
+   transposed convs conv_2 and conv_4 as the port runs them and as
+   sub-pixel convolutions plus pixel_shuffle (held within f32 tolerance).
 8. one JSON line of kernel figures, then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -114,7 +119,32 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def build_kernels() -> None:
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each entry function in a build's ptxas
+    report, {mangled name: {"registers": n, "spill_bytes": n}}; prints the
+    report's register and spill lines."""
+    res, entry = {}, None
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+                res[entry] = {"registers": None, "spill_bytes": 0}
+            if "registers" not in line and "spill" not in line:
+                continue
+            print(f"  ptxas {os.path.basename(log)}:", line.strip())
+            if entry and "spill stores" in line:
+                res[entry]["spill_bytes"] += sum(
+                    int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            m = re.search(r"Used (\d+) registers", line)
+            if entry and m:
+                res[entry]["registers"] = int(m.group(1))
+    return res
+
+
+def build_kernels() -> dict:
+    """Builds every library in parallel; returns each kernel module's ptxas
+    report, {"slice_transform" | "lane_decode" | "gdn": ptxas_report}."""
     from crdr_tpu_torch import runtime
     from crdr_tpu_torch.ops import gdn as k3
     from crdr_tpu_torch.ops import lane_decode as k2
@@ -140,12 +170,8 @@ def build_kernels() -> None:
     for name, (res, dt) in results.items():
         check(not isinstance(res, Exception), f"build of {name}: {res}")
         print(f"built {name} in {dt:.1f} s -> {os.path.relpath(res, ROOT)}")
-    for k in (k1, k2, k3):
-        with open(k.build() + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {k.__name__.split('.')[-1]}:",
-                          line.strip())
+    return {k.__name__.split(".")[-1]: ptxas_report(k.build() + ".log")
+            for k in (k1, k2, k3)}
 
 
 def max_sm_clock_ghz() -> float:
@@ -741,17 +767,35 @@ def k2_phase(recorded, rounds: int, card: str) -> dict:
                 **bound)
 
 
-def k3_phase(card: str) -> list:
-    """K3 against its twin at the GDN path's shapes, both directions."""
+def k3_phase(card: str, ptxas: dict) -> dict:
+    """K3 against its twin at the GDN path's shapes, both directions;
+    ``ptxas`` is the gdn library's ``ptxas_report``."""
     import torch
 
-    from crdr_tpu_torch.ops.gdn import gdn, gdn_plain
+    from crdr_tpu_torch.ops.gdn import gdn, gdn_plain, occupancy
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(99)
     clock = max_sm_clock_ghz()
     f32_rate = (torch.cuda.get_device_properties(0).multi_processor_count
                 * FP32_FLOPS_PER_SM_CLOCK * clock * 1e9)
+    build = {}  # {(C, float4 path): report} of each instantiation
+    for entry, r in ptxas.items():
+        m = re.search(r"gdn_kernelILi(\d+)ELb([01])E", entry)
+        if m:
+            build[(int(m.group(1)), m.group(2) == "1")] = r
+    check(len(build) == 8 and all(r["registers"] for r in build.values()),
+          f"K3's ptxas report: {ptxas}")
+    spills = {k: r["spill_bytes"] for k, r in build.items()
+              if r["spill_bytes"]}
+    check(not spills, f"K3 spills registers: {spills}")
+    occ = occupancy(192)
+    print("K3 build: registers by (C, float4 path) "
+          + ", ".join(f"{c}{'v' if v else 's'} {r['registers']}"
+                      for (c, v), r in sorted(build.items()))
+          + f"; no spills; at C 192: {occ['blocks_per_sm']} blocks an SM, "
+          f"{occ['tile_pixels']} pixels a block, {occ['smem_bytes']} B of "
+          f"shared memory a block [{card}]")
 
     def excess(out, ref):  # max |out - ref| in units of the tolerance
         return float(((out - ref).abs() / (K3_RTOL * ref.abs() + K3_ATOL))
@@ -765,6 +809,18 @@ def k3_phase(card: str) -> list:
         # non-negative and non-symmetric: a transposed read must show
         gamma = torch.empty((c, c), device=dev).uniform_(0.0, 0.1,
                                                          generator=g)
+        # yardstick only: cuBLAS's f32 product gamma . x^2 per image
+        x2 = (x * x).view(n, c, h * w)
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            lib_ms = graph_time_ms(lambda: torch.matmul(gamma, x2))
+            lib_eager_ms = cuda_time_ms(lambda: torch.matmul(gamma, x2), 20,
+                                        3)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        del x2
+        transpose_ms = graph_time_ms(lambda: gamma.t().contiguous())
         for inverse in (False, True):
             tag = f"K3 {list(shape)} {'inverse' if inverse else 'forward'}"
             out = gdn(x, beta, gamma, inverse)
@@ -779,6 +835,10 @@ def k3_phase(card: str) -> list:
             ex = excess(out, plain)
             check(ex <= 1.0, f"{tag}: |kernel - plain| exceeds {K3_RTOL} "
                              f"|plain| + {K3_ATOL} ({ex:.3f}x)")
+            # the kernel sums in the twin's order (cuDNN's f32 1x1 conv)
+            differing = int((out != plain).sum())
+            check(differing == 0, f"{tag}: {differing} elements differ from "
+                                  "the twin's bits")
             ex_t = excess(out, gdn_plain(x, beta, gamma.t(), inverse))
             ex_d = excess(out, gdn_plain(x, beta, gamma, not inverse))
             check(min(ex_t, ex_d) > 10,
@@ -787,50 +847,109 @@ def k3_phase(card: str) -> list:
             diff = (out - plain).abs()
             big = plain.abs() >= 1e-3
             row = dict(shape=list(shape), inverse=inverse, excess=ex,
-                       max_abs_err=float(diff.max()),
+                       differing=differing, max_abs_err=float(diff.max()),
                        max_rel_err=float((diff[big] / plain.abs()[big])
-                                         .max()))
-            row["ms"] = cuda_time_ms(lambda: gdn(x, beta, gamma, inverse),
-                                     20, 3)
+                                         .max()),
+                       library_ms=lib_ms, library_eager_ms=lib_eager_ms,
+                       transpose_ms=transpose_ms)
+            # device time per call (CUDA graph; the gamma^T copy inside),
+            # and the eager call's time with the host's enqueue in it
+            row["ms"] = graph_time_ms(lambda: gdn(x, beta, gamma, inverse))
+            row["eager_ms"] = cuda_time_ms(
+                lambda: gdn(x, beta, gamma, inverse), 20, 3)
             row["plain_ms"] = cuda_time_ms(
                 lambda: gdn_plain(x, beta, gamma, inverse), 10, 2)
-            row["library_ms"] = None
-            if shape == GDN_SHAPES[0] and not inverse:
-                # yardstick only: cuBLAS's f32 product gamma . x^2 per image
-                x2 = (x * x).view(n, c, h * w)
-                saved = torch.backends.cuda.matmul.allow_tf32
-                torch.backends.cuda.matmul.allow_tf32 = False
-                try:
-                    row["library_ms"] = cuda_time_ms(
-                        lambda: torch.matmul(gamma, x2), 20, 3)
-                finally:
-                    torch.backends.cuda.matmul.allow_tf32 = saved
-                del x2
             m = n * h * w
             flops = 2.0 * m * c * c + 4.0 * m * c  # product + epilogue
             nbytes = 4 * (2 * m * c + c * c + c)
             t_ops, t_bytes = flops / f32_rate, nbytes / H100_BYTES_PER_S
+            tiles = -(-h * w // occ["tile_pixels"]) * n
             row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       gflop=flops / 1e9, mbytes=nbytes / 1e6)
+                       gflop=flops / 1e9, mbytes=nbytes / 1e6, blocks=tiles)
             rows.append(row)
-            lib = ("" if row["library_ms"] is None else
-                   f", cuBLAS f32 product {row['library_ms']:.4f} ms")
-            print(f"{tag}: kernel {row['ms']:.4f} ms ({flops / row['ms'] / 1e9:.1f} "
-                  f"TFLOP/s), plain {row['plain_ms']:.4f} ms{lib}, bound "
+            print(f"{tag}: kernel {row['ms']:.4f} ms ("
+                  f"{flops / row['ms'] / 1e9:.1f} TFLOP/s; eager, host "
+                  f"enqueue included, {row['eager_ms']:.4f} ms; gamma^T copy "
+                  f"{transpose_ms:.4f} ms of it), {tiles} blocks, plain "
+                  f"{row['plain_ms']:.4f} ms, cuBLAS f32 product "
+                  f"{lib_ms:.4f} ms (eager {lib_eager_ms:.4f}), bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
                   f"{flops / 1e9:.2f} GFLOP at {f32_rate / 1e12:.2f} TFLOP/s "
-                  f"f32, {nbytes / 1e6:.1f} MB); max|err| "
-                  f"{row['max_abs_err']:.3e}, max rel err "
-                  f"{row['max_rel_err']:.3e} ({ex:.3f}x the tolerance; "
-                  f"transposed gamma {ex_t:.0f}x, other direction "
-                  f"{ex_d:.0f}x); bit-stable across calls and batch 1 vs "
-                  f"{n} [{card}]")
+                  f"f32, {nbytes / 1e6:.1f} MB); {differing} elements differ "
+                  f"from the twin, max|err| {row['max_abs_err']:.3e} "
+                  f"({ex:.3f}x the tolerance; transposed gamma {ex_t:.0f}x, "
+                  f"other direction {ex_d:.0f}x); bit-stable across calls "
+                  f"and batch 1 vs {n} [{card}]")
         del x
     total = sum(r["ms"] for r in rows)
+    eager = sum(r["eager_ms"] for r in rows)
     bound = sum(r["bound_ms"] for r in rows)
-    print(f"K3, the six calls of a GDN round trip: {total:.4f} ms against a "
-          f"bound of {bound:.4f} ms [{card}]")
+    print(f"K3, the six calls of a GDN round trip: {total:.4f} ms (graph "
+          f"replays; eager {eager:.4f} ms) against a bound of {bound:.4f} ms "
+          f"[{card}]")
+    r192 = build[(192, True)]
+    return {"rows": rows, "registers": r192["registers"],
+            "spill_bytes": sum(r["spill_bytes"] for r in build.values()),
+            **occ}
+
+
+def subpixel_weights(wt):
+    """A 5x5 stride-2 ConvTranspose2d's weight [Cin, Cout, 5, 5] (padding
+    2, output padding 1) as one stride-1 3x3 conv's [4 Cout, Cin, 3, 3]:
+    the four output phases (a, b) stacked in pixel_shuffle's channel order,
+    phase (a, b) at tap (ty, tx) taking w[4 - 2 ty + a, 4 - 2 tx + b]."""
+    cin, cout = wt.shape[:2]
+    w4 = wt.new_zeros(cout, 2, 2, cin, 3, 3)
+    for a in (0, 1):
+        for b in (0, 1):
+            for ty in range(3):
+                for tx in range(3):
+                    ky, kx = 4 - 2 * ty + a, 4 - 2 * tx + b
+                    if ky <= 4 and kx <= 4:
+                        w4[:, a, b, :, ty, tx] = wt[:, :, ky, kx].t()
+    return w4.reshape(4 * cout, cin, 3, 3).contiguous()
+
+
+def deconv_phase(model, card: str) -> list:
+    """A yardstick only (the port's synthesis is unchanged): one
+    ConvTranspose2d of the Balle18 decoder at two path shapes, as the port
+    runs it (cuDNN, codec numerics) and as four stride-1 sub-pixel
+    convolutions in one conv plus pixel_shuffle, held within f32 tolerance
+    of the first."""
+    import torch
+    import torch.nn.functional as F
+
+    from crdr_tpu_torch.models.codec import codec_numerics
+
+    g = torch.Generator(device=model.device).manual_seed(17)
+    rows = []
+    dec = model.net.decoder
+    for name, (h, w) in (("conv_2", (IMG_H // 8, IMG_W // 8)),
+                         ("conv_4", (IMG_H // 4, IMG_W // 4))):
+        conv = getattr(dec, name)
+        x = torch.randn((N_IMG, conv.weight.shape[0], h, w),
+                        device=model.device, generator=g)
+        with codec_numerics():
+            w4 = subpixel_weights(conv.weight)
+            b4 = conv.bias.repeat_interleave(4)
+            ref = conv(x)
+            sub = F.pixel_shuffle(F.conv2d(x, w4, b4, padding=1), 2)
+            torch.cuda.synchronize()
+            err = float((ref - sub).abs().max())
+            scale = float(ref.abs().max())
+            check(err <= 1e-5 * scale + 1e-6,
+                  f"sub-pixel {name}: max|diff| {err:.3e} of {scale:.3e}")
+            port_ms = cuda_time_ms(lambda: conv(x), 10, 2)
+            sub_ms = cuda_time_ms(lambda: F.pixel_shuffle(
+                F.conv2d(x, w4, b4, padding=1), 2), 10, 2)
+        rows.append(dict(layer=name, shape=list(x.shape), port_ms=port_ms,
+                         subpixel_ms=sub_ms, max_abs_diff=err))
+        print(f"GDN synthesis {name} {list(x.shape)} -> "
+              f"{list(ref.shape[2:])}: ConvTranspose2d as the port runs it "
+              f"{port_ms:.4f} ms, as sub-pixel conv + pixel_shuffle "
+              f"{sub_ms:.4f} ms (max|diff| {err:.3e} of |out| <= "
+              f"{scale:.3f}); codec numerics, yardstick only [{card}]")
     return rows
 
 
@@ -971,7 +1090,7 @@ def main() -> None:
 
     card = card_line()
     print(f"card: {card}")
-    build_kernels()
+    ptxas = build_kernels()
     k1 = k1_phase(card)
     k1_split_phase(card)
     model = build_model(card)
@@ -1003,11 +1122,12 @@ def main() -> None:
     del model, recorded
     torch.cuda.empty_cache()
 
-    k3 = k3_phase(card)
+    k3 = k3_phase(card, ptxas["gdn"])
     gdn_model = build_gdn_model(imgs, card)
     encs_g, counts_g, _ = host_wire_path(
         gdn_model, imgs, "GDN path",  # 3 GDN in the analysis, 3 IGDN after
         {"slice_transform": 0, "lane_decode_round": 0, "gdn": 6}, card)
+    deconv = deconv_phase(gdn_model, card)
     if profiling:
         profile_phase(lambda: gdn_model.compress_batch(imgs),
                       f"GDN path encode batch {N_IMG}", card, "gdn_kernel")
@@ -1017,6 +1137,7 @@ def main() -> None:
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
+    k3r = k3["rows"]
     launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
@@ -1052,18 +1173,31 @@ def main() -> None:
         "replaces": "crdr_tpu/ops/pallas_gdn.py:37",
         "launches": counts_g["gdn"],
         "launches_by_path": {p: c["gdn"] for p, c in launches.items()},
-        "max_abs_err": max(x["max_abs_err"] for x in k3),
-        "max_rel_err": max(x["max_rel_err"] for x in k3),
-        "ms": k3[0]["ms"], "plain_ms": k3[0]["plain_ms"],
-        "bound_ms": k3[0]["bound_ms"], "bound_by": k3[0]["bound_by"],
-        "library_ms": k3[0]["library_ms"],
+        "max_abs_err": max(x["max_abs_err"] for x in k3r),
+        "max_rel_err": max(x["max_rel_err"] for x in k3r),
+        "differing": sum(x["differing"] for x in k3r),
+        "ms": k3r[0]["ms"],
+        "eager_ms": k3r[0]["eager_ms"], "plain_ms": k3r[0]["plain_ms"],
+        "bound_ms": k3r[0]["bound_ms"], "bound_by": k3r[0]["bound_by"],
+        "library_ms": k3r[0]["library_ms"],
+        "transpose_ms": k3r[0]["transpose_ms"],
+        "registers": k3["registers"], "spill_bytes": k3["spill_bytes"],
+        "blocks_per_sm": k3["blocks_per_sm"],
+        "tile_pixels": k3["tile_pixels"],
         "ms_by_call": {f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
-                       x["ms"] for x in k3},
+                       x["ms"] for x in k3r},
+        "eager_ms_by_call": {
+            f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
+            x["eager_ms"] for x in k3r},
         "bound_ms_by_call": {
             f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
-            x["bound_ms"] for x in k3},
-        "shape": f"{list(GDN_SHAPES[0])} NCHW f32 (ms, bound, plain, "
-                 "library); all six path calls in ms_by_call",
+            x["bound_ms"] for x in k3r},
+        "library_ms_by_shape": {str(x["shape"]): x["library_ms"]
+                                for x in k3r},
+        "shape": f"{list(GDN_SHAPES[0])} NCHW f32 (ms: CUDA-graph replay, "
+                 "gamma^T copy included; bound, plain, library); all six "
+                 "path calls in ms_by_call",
+        "deconv_yardstick": deconv,
         "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,64 +2,119 @@
 //
 // Replaces the Pallas TPU kernel crdr_tpu/ops/pallas_gdn.py (pallas_gdn,
 // body _gdn_kernel): out = x * (beta + (x*x) . gamma^T)^(-1/2), or ^(+1/2)
-// for the inverse, with gamma stored [C_out, C_in] (the torch conv1x1
-// layout of nn.norm.GDN) and the product accumulated in f32.  The TPU kernel
-// runs it on [M, C] rows with the product on the MXU inside its body; this
-// kernel computes the product itself, in f32 FFMA (no TF32: the Balle18
-// transforms run at `highest`).
+// for the inverse, with gamma [C_out, C_in] (the torch conv1x1 layout of
+// nn.norm.GDN) and the product accumulated in f32.  The TPU kernel runs it
+// on [M, C] rows with the product on the MXU inside its body; this kernel
+// computes the product itself, in f32 FFMA (no TF32: the Balle18 transforms
+// run at `highest`).
 //
 // Layout.  x and out are NCHW f32, read and written as they lie: for image n,
 // out[:, p] = x[:, p] * rsqrt(beta + gamma . x[:, p]^2), a [C x C] . [C x P]
-// product per image with the pixels contiguous, so there is no permute.
+// product per image with the pixels contiguous, so there is no permute.  The
+// wrapper hands the kernel gamma^T [C_in, C_out] (one 37K-float copy a call
+// at C = 192), so a chunk of input channels is a contiguous block of rows.
 //
 // Bound.  At the Balle18 path's largest call ([4, 192, 256, 384]) the
 // product is 2 * M * C^2 = 29.0 GFLOP against 604 MB moved (x read once,
 // out written once): about 0.43 ms at the H100's ~67 TFLOP/s f32 rate and
 // 0.18 ms at 3.35 TB/s, so the call is bound by operations.
 //
-// Design (simple and right first).  One block per (64-pixel tile, image),
-// 256 threads as 16 pixel groups x 16 channel groups.  The tile's x^2
-// ([C x 64] f32, 48 KB at C = 192) sits in shared memory for the whole
-// block; gamma is staged in 32-column chunks, transposed to [k][o] so that a
-// thread reads its output channels as float4s.  Each thread accumulates a
-// (C/16 out-channels x 4 pixels) register tile, then applies + beta,
-// rsqrt / sqrt and * x, and stores along the pixels (float4 when the pixel
-// count and the pointers allow it).  Every output sums c = 0..C-1 in one
-// fixed order, with no split-K and no atomics, so a pixel's result does not
-// depend on its tile, its image or the batch size: a batch-1 stream equals
-// its batch-4 stream.  C is a multiple of 64, at most 256 (the shared-memory
-// plan: 97 KB at C = 256).
+// What held v1 back (one block per 64-pixel tile, the tile's x^2 resident
+// in shared memory, gamma re-staged for every tile in 32-column chunks
+// through a transposing store, two barriers a chunk and no copy in flight
+// meanwhile), measured on v1 at [4, 192, 256, 384] (PERF.md, section 7;
+// NVIDIA H100 80GB HBM3, 700 W): 1.363 ms as it was; 0.874 with gamma staged
+// once instead of six times; 1.923 at 1 block an SM instead of 2; 1.614 with
+// a store mapping free of bank conflicts (its global reads in 4-row pieces).
+// So the serialised re-staging and too little in flight to hide it were the
+// cost, not the store's 4-way conflict.
+//
+// Design (v2).  One block of 256 threads per (64-pixel tile, image),
+// whatever C (the plan is a function of C alone).  The k loop runs in
+// 16-row chunks: a chunk is 16 rows of gamma^T ([16, C]) and the tile's 16
+// x rows ([16, 64]), copied with 16-byte cp.async into a 4-stage ring, so
+// the copies of chunks j + 1..j + 3 overlap the FFMAs on chunk j, with one
+// barrier a chunk and no transposing store.  The thread that copied an x float4
+// squares it in place (one rounded f32 product) once its copy has landed,
+// before the chunk's barrier.  Threads are 16 pixel groups x 16 channel
+// groups; each holds a (C/16 output channels x 4 pixels) register tile (48
+// f32 accumulators at C = 192): the x float4s of a warp are conflict-free,
+// its gamma^T float4s broadcasts.  A 128-pixel tile (96 accumulators at
+// C = 192) halves gamma's L2 reads but spills at the 128 registers that 2
+// blocks an SM allow, and measured 0.80 ms against 0.65 for 64 pixels.
+// Measured at 64 pixels (six calls of the path): 2, 3 and 4 stages 1.710,
+// 1.744 and 1.705 ms; 3 blocks an SM (at most 85 registers) 1.852.
+// The epilogue re-reads x (from L2), applies + beta, rsqrt / sqrt and * x,
+// and stores along the pixels (float4 when the pixel count and the
+// pointers allow it), masking the ragged tail.
+//
+// Arithmetic, identical to v1's: acc = 0, then acc = fmaf(gamma[o][k],
+// x[k]^2, acc) for k = 0..C-1 in order, then acc + beta[o], then rsqrtf or
+// sqrtf, times x.  No split-K, no atomics: a pixel's result depends neither
+// on its tile nor on the batch, so a batch-1 stream equals its batch-4 one.
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int TP = 64;                 // pixels per block (one image)
-constexpr int KC = 32;                 // gamma columns (input channels) a chunk
-constexpr int PG = TP / 4;             // pixel groups of 4
-constexpr int CG = 16;                 // channel groups
-constexpr int NT = PG * CG;            // threads per block
+constexpr int TP = 64;      // pixels a block (one image)
+constexpr int PG = TP / 4;  // pixel groups of 4
+constexpr int CG = 16;      // channel groups
+constexpr int NT = PG * CG; // threads a block
+constexpr int KC = 16;      // input channels (rows of gamma^T and x) a chunk
+constexpr int STAGES = 4;   // ring depth: chunk j + STAGES - 1 copies during j
 constexpr int MAX_DEV = 64;
 
-__host__ __device__ constexpr int gamma_pitch(int c) { return c + 4; }
+template <int C>
+struct Plan {
+  static constexpr int CPT = C / CG;              // output channels a thread
+  static constexpr int STAGE = KC * (C + TP);     // floats a ring stage
+  static constexpr size_t SMEM = static_cast<size_t>(STAGES) * STAGE *
+                                 sizeof(float);
+  static constexpr int GSLOTS = KC * C / 4 / NT;  // gamma^T float4s a thread
+  static_assert(C % (4 * CG) == 0 && C % KC == 0, "channel plan");
+  static_assert(GSLOTS * 4 * NT == KC * C, "gamma^T copy plan");
+  static_assert(KC * TP == 4 * NT, "x copy plan: one float4 a thread");
+};
 
-__host__ __device__ constexpr size_t smem_bytes(int c) {
-  return (static_cast<size_t>(c) * TP + static_cast<size_t>(KC) *
-          gamma_pitch(c)) * sizeof(float);
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-template <int CPT, bool VEC>
-__global__ void __launch_bounds__(NT)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int C, bool VEC>
+__global__ void __launch_bounds__(NT, 2)
 gdn_kernel(const float* __restrict__ x, const float* __restrict__ beta,
-           const float* __restrict__ gamma, float* __restrict__ out, int P,
+           const float* __restrict__ gamma_t, float* __restrict__ out, int P,
            bool inverse) {
-  constexpr int C = CPT * CG;
-  constexpr int GP = gamma_pitch(C);
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;               // [C][TP]   x^2 of the tile
-  float* gs = smem + C * TP;      // [KC][GP]  gamma[o][c0 + k] at gs[k][o]
+  using PL = Plan<C>;
+  constexpr int CPT = PL::CPT;
+  constexpr int NCHUNK = C / KC;
+  extern __shared__ __align__(16) float smem[];  // STAGES x {[KC][C], [KC][TP]}
+  // x float4 (row tid / PG, pixels 4 * pg) of a chunk is this thread's copy
 
   const int tid = threadIdx.x;
   const int pg = tid % PG;
@@ -69,12 +124,28 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ beta,
   const float* xn = x + base;
   float* on = out + base;
 
-  for (int i = tid; i < C * TP; i += NT) {
-    const int c = i / TP;
-    const int p = p0 + i % TP;
-    const float v = p < P ? xn[static_cast<size_t>(c) * P + p] : 0.0f;
-    xs[i] = v * v;
-  }
+  // chunk j: gamma^T rows j*KC.. (contiguous) and the tile's x rows j*KC..;
+  // pixels past P are zero-filled (src size 0, from an in-range address)
+  auto issue = [&](int j) {
+    float* gs = smem + (j % STAGES) * PL::STAGE;
+    float* xs = gs + KC * C;
+    const float* gsrc = gamma_t + static_cast<size_t>(j) * KC * C;
+#pragma unroll
+    for (int i = 0; i < PL::GSLOTS; ++i) {
+      const int f = tid + i * NT;
+      cp_async16(gs + 4 * f, gsrc + 4 * f, 16);
+    }
+    const int p = p0 + 4 * pg;
+    const float* src = xn + static_cast<size_t>(j * KC + cg) * P + p;
+    if constexpr (VEC) {
+      cp_async16(xs + 4 * tid, p < P ? src : xn, p < P ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        cp_async4(xs + 4 * tid + e, p + e < P ? src + e : xn,
+                  p + e < P ? 4 : 0);
+    }
+  };
 
   float acc[CPT][4];
 #pragma unroll
@@ -82,40 +153,57 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ beta,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
 
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    __syncthreads();  // the tile is written; the previous chunk is consumed
-    for (int i = tid; i < KC * C; i += NT) {
-      const int o = i / KC;
-      const int k = i % KC;
-      gs[k * GP + o] = gamma[static_cast<size_t>(o) * C + c0 + k];
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < NCHUNK) issue(s);
+    cp_async_commit();  // one group a chunk, empty past the end
+  }
+
+  for (int j = 0; j < NCHUNK; ++j) {
+    const int stage = j % STAGES;
+    float* gs = smem + stage * PL::STAGE;
+    float* xs = gs + KC * C;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk j landed
+    {  // square its x float4 in place
+      float4* v = reinterpret_cast<float4*>(xs) + tid;
+      float4 t = *v;
+      t.x = __fmul_rn(t.x, t.x);
+      t.y = __fmul_rn(t.y, t.y);
+      t.z = __fmul_rn(t.z, t.z);
+      t.w = __fmul_rn(t.w, t.w);
+      *v = t;
     }
+    // chunk j is visible to all; every thread is done with chunk j - 1,
+    // whose stage the next copy reuses
     __syncthreads();
-#pragma unroll 4
+    if (j + STAGES - 1 < NCHUNK) issue(j + STAGES - 1);
+    cp_async_commit();
+
+    const float* g = gs + cg * CPT;
+    const float* xr = xs + 4 * pg;
+#pragma unroll
     for (int k = 0; k < KC; ++k) {
-      const float4 xv =
-          *reinterpret_cast<const float4*>(xs + (c0 + k) * TP + pg * 4);
-      const float* g = gs + k * GP + cg * CPT;
+      const float4 t = *reinterpret_cast<const float4*>(xr + k * TP);
+      const float xv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
-      for (int j = 0; j < CPT; j += 4) {
-        const float4 gv = *reinterpret_cast<const float4*>(g + j);
-        const float gj[4] = {gv.x, gv.y, gv.z, gv.w};
+      for (int u = 0; u < CPT; u += 4) {
+        const float4 gv = *reinterpret_cast<const float4*>(g + k * C + u);
+        const float gu[4] = {gv.x, gv.y, gv.z, gv.w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          acc[j + u][0] = fmaf(gj[u], xv.x, acc[j + u][0]);
-          acc[j + u][1] = fmaf(gj[u], xv.y, acc[j + u][1]);
-          acc[j + u][2] = fmaf(gj[u], xv.z, acc[j + u][2]);
-          acc[j + u][3] = fmaf(gj[u], xv.w, acc[j + u][3]);
-        }
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[u + a][e] = fmaf(gu[a], xv[e], acc[u + a][e]);
       }
     }
   }
 
-  const int pp = p0 + pg * 4;
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {
     const int o = cg * CPT + j;
     const float b = beta[o];
     const size_t row = static_cast<size_t>(o) * P;
+    const int pp = p0 + 4 * pg;
     if constexpr (VEC) {
       if (pp < P) {  // P % 4 == 0: the group's 4 pixels are all in range
         const float4 xv = *reinterpret_cast<const float4*>(xn + row + pp);
@@ -143,36 +231,53 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ beta,
 }
 
 // Raises the kernel's dynamic shared-memory cap once per device.
-template <int CPT, bool VEC>
-cudaError_t launch(const float* x, const float* beta, const float* gamma,
-                   float* out, int n, int P, bool inverse,
-                   cudaStream_t stream) {
+template <int C, bool VEC>
+cudaError_t prepare() {
   static bool ready[MAX_DEV] = {false};
-  constexpr int C = CPT * CG;
-  const size_t smem = smem_bytes(C);
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return e;
   if (device < 0 || device >= MAX_DEV) return cudaErrorInvalidDevice;
   if (!ready[device]) {
-    e = cudaFuncSetAttribute(gdn_kernel<CPT, VEC>,
+    e = cudaFuncSetAttribute(gdn_kernel<C, VEC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+                             static_cast<int>(Plan<C>::SMEM));
     if (e != cudaSuccess) return e;
     ready[device] = true;
   }
+  return cudaSuccess;
+}
+
+template <int C, bool VEC>
+cudaError_t launch(const float* x, const float* beta, const float* gamma_t,
+                   float* out, int n, int P, bool inverse,
+                   cudaStream_t stream) {
+  cudaError_t e = prepare<C, VEC>();
+  if (e != cudaSuccess) return e;
   const dim3 grid((P + TP - 1) / TP, n);
-  gdn_kernel<CPT, VEC><<<grid, NT, smem, stream>>>(x, beta, gamma, out, P,
-                                                    inverse);
+  gdn_kernel<C, VEC><<<grid, NT, Plan<C>::SMEM, stream>>>(
+      x, beta, gamma_t, out, P, inverse);
   return cudaGetLastError();
 }
 
-template <int CPT>
-cudaError_t dispatch(const float* x, const float* beta, const float* gamma,
+// blocks resident an SM (float4 path), pixels a block, shared bytes a block
+template <int C>
+cudaError_t occupancy(int* res) {
+  cudaError_t e = prepare<C, true>();
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      res, gdn_kernel<C, true>, NT, Plan<C>::SMEM);
+  res[1] = TP;
+  res[2] = static_cast<int>(Plan<C>::SMEM);
+  return e;
+}
+
+template <int C>
+cudaError_t dispatch(const float* x, const float* beta, const float* gamma_t,
                      float* out, int n, int P, bool inverse, bool vec,
                      cudaStream_t stream) {
-  return vec ? launch<CPT, true>(x, beta, gamma, out, n, P, inverse, stream)
-             : launch<CPT, false>(x, beta, gamma, out, n, P, inverse, stream);
+  return vec ? launch<C, true>(x, beta, gamma_t, out, n, P, inverse, stream)
+             : launch<C, false>(x, beta, gamma_t, out, n, P, inverse, stream);
 }
 
 }  // namespace
@@ -180,12 +285,13 @@ cudaError_t dispatch(const float* x, const float* beta, const float* gamma,
 extern "C" {
 
 // GDN (inverse = 0) or inverse GDN (inverse = 1) of x [n, c, P] f32 (NCHW
-// with P = H * W) into out [n, c, P]; beta [c], gamma [c, c] ([C_out, C_in])
-// f32, all contiguous.  vec = 1 takes float4 pixel loads and stores (P % 4
-// == 0 and x, out 16-byte aligned).  Returns the cudaError_t of the launch
-// (0 on success), or cudaErrorInvalidValue for shapes the kernel does not
-// take (c not in {64, 128, 192, 256}).
-int crdr_gdn(const float* x, const float* beta, const float* gamma,
+// with P = H * W) into out [n, c, P]; beta [c], gamma_t [c, c] = gamma^T
+// ([C_in, C_out]) f32, all contiguous, gamma_t 16-byte aligned.  vec = 1
+// takes float4 pixel copies, loads and stores (P % 4 == 0 and x, out 16-byte
+// aligned).  Returns the cudaError_t of the launch (0 on success), or
+// cudaErrorInvalidValue for shapes the kernel does not take (c not in {64,
+// 128, 192, 256}).
+int crdr_gdn(const float* x, const float* beta, const float* gamma_t,
              float* out, int n, int c, int P, int inverse, int vec,
              void* stream) {
   if (n <= 0 || n > 65535 || P <= 0)
@@ -195,10 +301,25 @@ int crdr_gdn(const float* x, const float* beta, const float* gamma,
   const bool v = vec != 0;
   cudaError_t e;
   switch (c) {
-    case 64: e = dispatch<4>(x, beta, gamma, out, n, P, inv, v, st); break;
-    case 128: e = dispatch<8>(x, beta, gamma, out, n, P, inv, v, st); break;
-    case 192: e = dispatch<12>(x, beta, gamma, out, n, P, inv, v, st); break;
-    case 256: e = dispatch<16>(x, beta, gamma, out, n, P, inv, v, st); break;
+    case 64: e = dispatch<64>(x, beta, gamma_t, out, n, P, inv, v, st); break;
+    case 128: e = dispatch<128>(x, beta, gamma_t, out, n, P, inv, v, st); break;
+    case 192: e = dispatch<192>(x, beta, gamma_t, out, n, P, inv, v, st); break;
+    case 256: e = dispatch<256>(x, beta, gamma_t, out, n, P, inv, v, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(e);
+}
+
+// The plan of channel count c: res[0] blocks resident an SM (the occupancy
+// calculator's, with the kernel's shared memory), res[1] pixels a block,
+// res[2] shared-memory bytes a block.  Returns a cudaError_t.
+int crdr_gdn_occupancy(int c, int* res) {
+  cudaError_t e;
+  switch (c) {
+    case 64: e = occupancy<64>(res); break;
+    case 128: e = occupancy<128>(res); break;
+    case 192: e = occupancy<192>(res); break;
+    case 256: e = occupancy<256>(res); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(e);

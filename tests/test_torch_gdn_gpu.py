@@ -6,7 +6,12 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
 Without a GPU its tests skip (the kernel has no CPU mode; the twin's CPU
 tests are in ``tests/test_torch_gdn.py``).  ``gamma`` is non-symmetric, so a
-kernel that reads it transposed fails the tolerance.
+kernel that reads it transposed fails the tolerance.  The edges of the tile
+plan (64 pixels a block): every channel count, P of 1, 35 (P % 4 != 0),
+1961 (37x53) and 385 (a multiple of the tile plus 1), and an x that is not
+16-byte aligned.  The gradient on the card is held against autograd through
+the twin in float64 on the CPU, and through the twin on the card in f32
+(TF32 off).
 """
 
 import pytest
@@ -60,6 +65,84 @@ def test_kernel_matches_plain_on_gpu(cuda, shape, inverse):
     for i in range(shape[0]):
         assert torch.equal(out[i:i + 1], gdn(x[i:i + 1], beta, gamma,
                                              inverse))
+
+
+def _check(x, beta, gamma, inverse):
+    """Kernel vs twin within the tolerance; a transposed gamma and the other
+    direction miss it by > 10x; two launches bit-equal; each image equal to
+    its batch-1 launch."""
+    before = gdn.launches
+    out = gdn(x, beta, gamma, inverse)
+    again = gdn(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert gdn.launches == before + 2
+    assert torch.equal(out, again)
+    ref = gdn_plain(x, beta, gamma, inverse)
+    assert _excess(out, ref) <= 1.0
+    assert _excess(out, gdn_plain(x, beta, gamma.t(), inverse)) > 10
+    assert _excess(out, gdn_plain(x, beta, gamma, not inverse)) > 10
+    for i in range(x.shape[0]):
+        assert torch.equal(out[i:i + 1], gdn(x[i:i + 1].contiguous(), beta,
+                                             gamma, inverse))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("hw", [(1, 1), (5, 7), (37, 53), (5, 77)])
+@pytest.mark.parametrize("c", [64, 128, 192, 256])
+def test_kernel_edges_on_gpu(cuda, c, hw, inverse):
+    x, beta, gamma = _make(cuda, 2, c, *hw, c + hw[0] * hw[1] + inverse)
+    _check(x, beta, gamma, inverse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(16, 24), (5, 7)])
+@pytest.mark.parametrize("c", [64, 192])
+def test_kernel_takes_an_unaligned_x(cuda, c, hw):
+    """x at a 4-byte offset from a 16-byte boundary (a contiguous view of a
+    flat buffer at an odd offset): the kernel takes its scalar path."""
+    x, beta, gamma = _make(cuda, 2, c, *hw, 7 * c + hw[0])
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    assert xo.is_contiguous() and xo.data_ptr() % 16 == 4
+    for inverse in (False, True):
+        out = gdn(xo, beta, gamma, inverse)
+        assert torch.equal(out, gdn(x, beta, gamma, inverse))
+        _check(xo, beta, gamma, inverse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True])
+def test_kernel_gradient_on_gpu(cuda, inverse):
+    """With requires_grad, one launch and a grad_fn; gradients of x, beta and
+    gamma within tolerance of autograd through the twin run in float64 on
+    the CPU (independent of the card's f32 path), and of the twin on the
+    card with TF32 off."""
+    x, beta, gamma = _make(cuda, 2, 192, 9, 13, 40 + inverse)
+    w = torch.randn(x.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+
+    def grads(fn, dev, dtype):
+        args = [t.to(dev, dtype, copy=True).requires_grad_()
+                for t in (x, beta, gamma)]
+        out = fn(*args, inverse)
+        assert out.grad_fn is not None
+        # the twin's own backward convolutions in f32 too
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                         deterministic=True, allow_tf32=False):
+            (out * w.to(dev, dtype)).sum().backward()
+        return [a.grad.to("cpu", torch.float64) for a in args]
+
+    before = gdn.launches
+    got = grads(gdn, cuda, torch.float32)
+    assert gdn.launches == before + 1
+    for ref in (grads(gdn_plain, "cpu", torch.float64),
+                grads(gdn_plain, cuda, torch.float32)):
+        for g, want in zip(got, ref):
+            # f32 sums of up to 234 pixels' terms against the f64 twin
+            torch.testing.assert_close(g, want, rtol=1e-4,
+                                       atol=1e-5 * float(want.abs().max()))
 
 
 @pytest.mark.gpu
