@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py               # from the root of a checkout; one GPU
     python3 chip_smoke.py --profile     # + device time by kernel, idle share,
-                                        #   K1's and K3's shares
+                                        #   K1's, K2's and K3's shares
     python3 chip_smoke.py --ab-encode   # + the fixed-batch analysis A/B
 
 Phases, each asserted (any failure exits non-zero):
@@ -37,10 +37,18 @@ Phases, each asserted (any failure exits non-zero):
    real vs predicted bpp, the decode chain enqueued with no host sync, and
    both wires' timings.
 5. K2 (one lane-rans decode round) on the inputs the device-wire decode
-   gave it (11 rounds: z, then the 10 y slices; the y table is the real
-   one): kernel == plain twin exactly (values, states, pointers), a flipped
-   stream word changes the kernel's output, two launches are bit-identical;
-   kernel / twin times and the bound of a batch-4 y round.
+   gave it (11 rounds: z, then the 10 y slices; the tables are the real
+   ones, with their kernel-ready buffers): kernel == plain twin exactly
+   (values, states, pointers), a flipped stream word changes the kernel's
+   output, two launches are bit-identical, the global-table instantiation
+   equals the plan's; the build's registers and spills (none) from the
+   ptxas report and the plan's shared memory a block; times of a batch-4 y
+   round and of the z round as CUDA-graph replays (eager beside them), of
+   the prologue alone (m = 0), of the global-table instantiation and of the
+   twin; cycles a step, measured ((round - prologue) x SM clock / steps,
+   the clock sampled with nvidia-smi while the y round runs); the bound;
+   and, as text only, two chain estimates (v1's binary search and v2's
+   bucket search, at an assumed shared-memory latency).
 6. K3 (GDN / inverse GDN) at the GDN path's three shapes ([4, 192, 256x384
    / 128x192 / 64x96] NCHW f32), both directions, seeded non-symmetric
    gamma: kernel vs plain twin (TF32 off) bit for bit (the count of
@@ -90,8 +98,11 @@ INT32_LANES_PER_SM = 64   # Hopper: 4 partitions x 16 INT32 units (NVIDIA
 #                           H100 architecture white paper); times the SM count
 #                           and max SM clock, the card's INT32 issue rate
 H100_BYTES_PER_S = 3.35e12
-SMEM_LATENCY_CYCLES = 30   # a dependent shared-memory load on Hopper (an
-#                            assumption of K2's chain estimate, not measured)
+SMEM_LATENCY_CYCLES = 30   # an ASSUMED latency of a dependent shared-memory
+#                            load on Hopper, not measured: K2's chain
+#                            estimates only, printed as text and kept out of
+#                            the kernels line (K2's measured figure there is
+#                            cycles_per_step)
 FP32_FLOPS_PER_SM_CLOCK = 256  # Hopper: 128 FP32 lanes x 2 (FMA); times the
 #                                SM count and max SM clock, the f32 peak
 # K3 vs its plain twin, elementwise |kernel - plain| <= K3_RTOL |plain| +
@@ -179,6 +190,30 @@ def max_sm_clock_ghz() -> float:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
          "nounits"], capture_output=True, text=True, timeout=60,
         check=True).stdout.split()[0]) / 1e3
+
+
+def sm_clock_under_load_ghz(fn, seconds: float = 1.5):
+    """The SM clock while ``fn`` runs back to back for ``seconds``: the
+    median of nvidia-smi's 100 ms samples taken meanwhile, in GHz, or None
+    when nvidia-smi gave none."""
+    import torch
+
+    mon = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "100"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        mon.terminate()
+        out = mon.communicate(timeout=60)[0]
+    samples = sorted(float(v) for v in out.split()
+                     if re.fullmatch(r"\d+(\.\d+)?", v))
+    return samples[len(samples) // 2] / 1e3 if samples else None
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -439,10 +474,10 @@ def smooth_images(seed: int) -> np.ndarray:
     return np.clip(np.round(np.stack(imgs) * 255), 0, 255).astype(np.uint8)
 
 
-def profile_phase(fn, label: str, card: str, kernel: str = "") -> None:
+def profile_phase(fn, label: str, card: str, kernels=()) -> None:
     """Device time by kernel and the device's busy share over ``fn()``
-    (one stream: the kernels' summed time is the busy time); with
-    ``kernel``, the share of the device time whose name contains it."""
+    (one stream: the kernels' summed time is the busy time); for each name
+    in ``kernels``, the share of the device time whose name contains it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -468,7 +503,7 @@ def profile_phase(fn, label: str, card: str, kernel: str = "") -> None:
     for us, count, key in rows[:12]:
         print(f"  {us / 1e3:9.2f} ms {us / 1e4 / max(busy, 1e-9):6.1f}% "
               f"x{count:<5d} {key[:100]}")
-    if kernel:
+    for kernel in kernels:
         mine = sum(r[0] for r in rows if kernel in r[2]) / 1e6
         print(f"  {kernel}: {mine * 1e3:.3f} ms, {mine / max(busy, 1e-9):.3f} "
               f"of the device time")
@@ -679,8 +714,8 @@ def device_wire_path(model, imgs, y_compressai, card: str):
 
 
 def k2_bound(st, pt_in, pt_out, idx, cdf_len, clock_ghz: float) -> dict:
-    """Bytes / operations / dependent-chain figures of one K2 round on these
-    inputs (the words it consumed, each symbol's search depth)."""
+    """Bytes / operations figures of one K2 round on these inputs (the words
+    it consumed, each symbol's binary-search depth over its row)."""
     import torch
 
     n, m = idx.shape
@@ -695,28 +730,50 @@ def k2_bound(st, pt_in, pt_out, idx, cdf_len, clock_ghz: float) -> dict:
     int32_rate = (torch.cuda.get_device_properties(0).multi_processor_count
                   * INT32_LANES_PER_SM * clock_ghz * 1e9)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / int32_rate
-    # the chain: a warp's step takes its deepest lane's search (+ ~4
-    # dependent loads around it); the round waits for the slowest warp
-    t_steps, warps = -(-m // k), -(-k // 32)
-    d = torch.nn.functional.pad(depth, (0, t_steps * k - m))
-    d = torch.nn.functional.pad(d.reshape(n, t_steps, k),
-                                (0, warps * 32 - k))
-    warp_steps = (d.reshape(n, t_steps, warps, 32).amax(-1) + 4).sum(1)
-    chain_s = (float(warp_steps.max()) * SMEM_LATENCY_CYCLES
-               / (clock_ghz * 1e9))
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, ops=ops, int32_rate=int32_rate,
-                chain_ms_est=chain_s * 1e3,
                 mean_search_depth=float(depth.double().mean()))
 
 
-def k2_phase(recorded, rounds: int, card: str) -> dict:
-    """K2 against its twin on the main path's recorded rounds."""
+def k2_chain_ms(levels, k: int, loads: int, clock_ghz: float) -> float:
+    """A chain estimate of one round: a warp's step waits for its deepest
+    lane's ``levels`` (search loads, [N, m]) plus ``loads`` other dependent
+    loads, each SMEM_LATENCY_CYCLES; the round waits for its slowest warp."""
+    import torch
+
+    n, m = levels.shape
+    t_steps, warps = -(-m // k), -(-k // 32)
+    d = torch.nn.functional.pad(levels.long(), (0, t_steps * k - m))
+    d = torch.nn.functional.pad(d.reshape(n, t_steps, k),
+                                (0, warps * 32 - k))
+    warp_steps = (d.reshape(n, t_steps, warps, 32).amax(-1) + loads).sum(1)
+    return float(warp_steps.max()) * SMEM_LATENCY_CYCLES / clock_ghz * 1e-6
+
+
+def k2_launch_global(args):
+    """One launch of K2's global-table instantiation on a round's inputs,
+    past the plan, for its time; the wrapper's launch count does not see
+    it."""
+    from crdr_tpu_torch.ops.lane_decode import launch_round
+
+    return launch_round(*args, plan={"in_smem": False})
+
+
+def k2_phase(recorded, rounds: int, card: str, ptxas: dict) -> dict:
+    """K2 against its twin on the main path's recorded rounds (z, then the
+    y slices), then its times; ``ptxas`` is the lane_decode library's
+    ``ptxas_report``."""
     import torch
 
     from crdr_tpu_torch.ops.device_rans import lane_decode_round_instep
-    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
+    from crdr_tpu_torch.ops.lane_decode import (lane_decode_round,
+                                                lane_decode_round_lookup,
+                                                lane_plan, smem_cap)
+
+    def plain(st, pt, words, idx, table, m):
+        return lane_decode_round_instep(st, pt, words, idx, table.cdf,
+                                        table.cdf_len, table.cdf_off, m)
 
     check(len(recorded) == rounds, f"recorded {len(recorded)} K2 rounds, "
                                    f"expected {rounds}")
@@ -724,9 +781,9 @@ def k2_phase(recorded, rounds: int, card: str) -> dict:
     for r, args in enumerate(recorded):
         got = lane_decode_round(*args)
         again = lane_decode_round(*args)
-        plain = lane_decode_round_instep(*args)
+        ref = plain(*args)
         torch.cuda.synchronize()
-        for a, b, c, name in zip(got, again, plain,
+        for a, b, c, name in zip(got, again, ref,
                                  ("values", "states", "pointers")):
             check(torch.equal(a, b), f"K2 round {r}: two launches differ in "
                                      f"{name}")
@@ -734,36 +791,95 @@ def k2_phase(recorded, rounds: int, card: str) -> dict:
             check(torch.equal(a, c), f"K2 round {r}: kernel != plain twin in "
                                      f"{name}")
     # the check's power: one flipped word of a lane this round reads
-    st, pt, words, idx, cdf, cdf_len, cdf_off, m = recorded[1]  # y slice 0
-    _, _, pt_out = lane_decode_round(*recorded[1])
+    y, z = recorded[1], recorded[0]  # y slice 0, the z round
+    st, pt, words, idx, table, m = y
+    _, _, pt_out = lane_decode_round(*y)
     lane = int(torch.argmax((pt_out - pt)[0]))
     bad = words.clone()
     bad[0, lane, int(pt[0, lane])] ^= 0x5A5A
-    flipped = lane_decode_round(st, pt, bad, idx, cdf, cdf_len, cdf_off, m)
-    ref = lane_decode_round(*recorded[1])
+    flipped = lane_decode_round(st, pt, bad, idx, table, m)
+    ref = lane_decode_round(*y)
     check(not all(torch.equal(a, b) for a, b in zip(flipped, ref)),
           "K2: a flipped stream word left the output unchanged")
+    glob = k2_launch_global(y)
+    check(all(torch.equal(a, b) for a, b in zip(glob, ref)),
+          "K2: the global-table instantiation != the shared-memory one")
 
-    args = recorded[1]
-    ms = cuda_time_ms(lambda: lane_decode_round(*args), 50, warmup=3)
-    plain_ms = cuda_time_ms(lambda: lane_decode_round_instep(*args), 2, 1)
-    clock = max_sm_clock_ghz()
-    bound = k2_bound(st, pt, pt_out, idx, cdf_len, clock)
+    # the build: every instantiation's registers, no spills
+    build = {e: r for e, r in ptxas.items() if "lane_decode_round_kernel" in e}
+    check(len(build) == 2 and all(r["registers"] for r in build.values()),
+          f"K2's ptxas report: {ptxas}")
+    check(not any(r["spill_bytes"] for r in build.values()),
+          f"K2 spills registers: {build}")
+
+    def inst(plan):  # the instantiation's mangled-name tail
+        return f"ILb{int(plan['in_smem'])}E"
+
+    cap = smem_cap(st.device)
+    plan_y = lane_plan(st.shape[1], table.buf.numel(), cap)
+    plan_z = lane_plan(z[0].shape[1], z[4].buf.numel(), cap)
+    regs = next(r["registers"] for e, r in build.items() if inst(plan_y) in e)
+    max_clock = max_sm_clock_ghz()
+    ms = graph_time_ms(lambda: lane_decode_round(*y))
+    eager_ms = cuda_time_ms(lambda: lane_decode_round(*y), 50, warmup=3)
+    z_ms = graph_time_ms(lambda: lane_decode_round(*z))
+    z_eager_ms = cuda_time_ms(lambda: lane_decode_round(*z), 50, warmup=3)
+    pro_ms = graph_time_ms(lambda: lane_decode_round(*y[:5], 0))
+    pro_z_ms = graph_time_ms(lambda: lane_decode_round(*z[:5], 0))
+    glob_ms = graph_time_ms(lambda: k2_launch_global(y))
+    plain_ms = cuda_time_ms(lambda: plain(*y), 2, 1)
+    # cycles a step at the SM clock sampled while the y round runs, else
+    # (no sample) at the card's max SM clock, and labelled so
+    clock = sm_clock_under_load_ghz(lambda: lane_decode_round(*y))
+    clock_src = "sampled under load" if clock else "max SM clock"
+    clock = clock or max_clock
     n, k = st.shape
-    print(f"K2 y round N{n} K{k} m {m} (table {tuple(cdf.shape)}): kernel "
-          f"{ms:.4f} ms, plain twin {plain_ms:.4f} ms, bound "
+    t_y, t_z = -(-m // k), -(-z[5] // z[0].shape[1])
+    cyc = (ms - pro_ms) * 1e-3 * clock * 1e9 / t_y
+    cyc_z = (z_ms - pro_z_ms) * 1e-3 * clock * 1e9 / t_z
+    bound = k2_bound(st, pt, pt_out, idx, table.cdf_len, max_clock)
+    levels = lane_decode_round_lookup(*y, levels=True)[3]
+    depth = torch.ceil(torch.log2((table.cdf_len.long()[idx.long()] - 1)
+                                  .clamp(min=1).double())).long()
+    # v1: the binary search + ~4 dependent loads around it; v2: the bucket
+    # search + the lookup and the low / freq loads
+    chain_v1 = k2_chain_ms(depth, k, 4, max_clock)
+    chain_v2 = k2_chain_ms(levels, k, 2, max_clock)
+    print(f"K2 build: registers "
+          + ", ".join(f"{e[e.index('ILb'):e.index('ILb') + 5]} "
+                      f"{r['registers']}" for e, r in sorted(build.items()))
+          + f", no spills; plan y {plan_y}, z {plan_z} [{card}]")
+    print(f"K2 y round N{n} K{k} m {m} (table {tuple(table.cdf.shape)}, "
+          f"buffer {4 * table.buf.numel()} B): kernel {ms:.4f} ms as a "
+          f"CUDA-graph replay (eager {eager_ms:.4f}), prologue (m = 0) "
+          f"{pro_ms:.4f} ms, {cyc:.1f} cycles a step over {t_y} steps at "
+          f"{clock * 1e3:.0f} MHz ({clock_src}); global-table instantiation "
+          f"{glob_ms:.4f} "
+          f"ms; plain twin {plain_ms:.4f} ms; bound "
           f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}: "
           f"{bound['bytes'] / 1e6:.3f} MB, {bound['ops'] / 1e6:.2f} M int "
-          f"ops at {bound['int32_rate'] / 1e12:.2f} T/s INT32), "
-          f"dependent-chain estimate {bound['chain_ms_est']:.4f} ms "
-          f"(search depth: mean {bound['mean_search_depth']:.2f}, each "
-          f"warp's deepest lane per step; {SMEM_LATENCY_CYCLES} cycles a "
-          f"dependent load at {clock * 1e3:.0f} MHz); kernel == "
-          f"twin on all {rounds} rounds, bit-stable, a flipped word of lane "
-          f"{lane} "
-          f"changes the output [{card}]")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                shape=f"N{n} K{k} m {m}, y table {tuple(cdf.shape)}",
+          f"ops at {bound['int32_rate'] / 1e12:.2f} T/s INT32); chain "
+          f"estimates, not measured, at an ASSUMED {SMEM_LATENCY_CYCLES} "
+          f"cycles a dependent load and the max SM clock: v1 "
+          f"{chain_v1:.4f} ms (binary depth mean "
+          f"{bound['mean_search_depth']:.2f}), v2 {chain_v2:.4f} ms (bucket "
+          f"levels mean {float(levels.double().mean()):.4f}) [{card}]")
+    print(f"K2 z round N{z[0].shape[0]} K{z[0].shape[1]} m {z[5]} (table "
+          f"{tuple(z[4].cdf.shape)}, buffer {4 * z[4].buf.numel()} B): "
+          f"kernel {z_ms:.4f} ms (eager {z_eager_ms:.4f}), prologue "
+          f"{pro_z_ms:.4f} ms, {cyc_z:.1f} cycles a step over {t_z} steps; "
+          f"kernel == twin on all {rounds} rounds, bit-stable, a flipped "
+          f"word of lane {lane} changes the output [{card}]")
+    return dict(ms=ms, eager_ms=eager_ms, z_ms=z_ms, z_eager_ms=z_eager_ms,
+                prologue_ms=pro_ms, prologue_z_ms=pro_z_ms,
+                global_table_ms=glob_ms, plain_ms=plain_ms,
+                max_abs_err=err, cycles_per_step=cyc,
+                cycles_per_step_z=cyc_z, cycles_clock_mhz=clock * 1e3,
+                cycles_clock=clock_src, registers=regs,
+                spill_bytes=sum(r["spill_bytes"] for r in build.values()),
+                smem_bytes=plan_y["smem_bytes"],
+                smem_bytes_z=plan_z["smem_bytes"],
+                shape=f"N{n} K{k} m {m}, y table {tuple(table.cdf.shape)}",
                 **bound)
 
 
@@ -1103,18 +1219,20 @@ def main() -> None:
          "lane_decode_round": 0, "gdn": 0}, card)
     if profiling:
         profile_phase(lambda: model.compress_batch(imgs, rate_ind=RATE),
-                      f"compressai encode batch {N_IMG}", card, "k1_")
+                      f"compressai encode batch {N_IMG}", card, ("k1_",))
         profile_phase(lambda: model.decompress_batch(
             [e["string_list"] for e in encs_c], beta=BETA),
-            f"compressai decode batch {N_IMG}", card, "k1_")
+            f"compressai decode batch {N_IMG}", card, ("k1_",))
     y_c = np.concatenate([e["y_hat"] for e in encs_c])
     recorded, counts_d, times_d = device_wire_path(model, imgs, y_c, card)
     if profiling:
         encs_d = model.compress_batch(imgs, rate_ind=RATE)
         profile_phase(lambda: model.decompress_batch(
             [e["string_list"] for e in encs_d], beta=BETA),
-            f"device-wire decode batch {N_IMG}", card, "k1_")
-    k2 = k2_phase(recorded, 1 + model.num_slices, card)
+            f"device-wire decode batch {N_IMG}", card,
+            ("k1_", "lane_decode_round_kernel"))
+    k2 = k2_phase(recorded, 1 + model.num_slices, card,
+                  ptxas["lane_decode"])
     print(f"both wires, batch {N_IMG}, medians: compressai encode "
           f"{times_c['encode_ms']:.1f} / decode {times_c['decode_ms']:.1f} ms; "
           f"device encode {times_d['encode_ms']:.1f} / decode "
@@ -1130,10 +1248,11 @@ def main() -> None:
     deconv = deconv_phase(gdn_model, card)
     if profiling:
         profile_phase(lambda: gdn_model.compress_batch(imgs),
-                      f"GDN path encode batch {N_IMG}", card, "gdn_kernel")
+                      f"GDN path encode batch {N_IMG}", card,
+                      ("gdn_kernel",))
         profile_phase(lambda: gdn_model.decompress_batch(
             [e["string_list"] for e in encs_g]),
-            f"GDN path decode batch {N_IMG}", card, "gdn_kernel")
+            f"GDN path decode batch {N_IMG}", card, ("gdn_kernel",))
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
@@ -1166,7 +1285,11 @@ def main() -> None:
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
-        "chain_ms_est": k2["chain_ms_est"], "shape": k2["shape"],
+        **{key: k2[key] for key in (
+            "eager_ms", "z_ms", "z_eager_ms", "prologue_ms", "prologue_z_ms",
+            "global_table_ms", "cycles_per_step", "cycles_per_step_z",
+            "cycles_clock_mhz", "cycles_clock", "registers", "spill_bytes",
+            "smem_bytes", "smem_bytes_z", "shape")},
         "card": card}, {
         "name": "gdn", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/gdn.cu",

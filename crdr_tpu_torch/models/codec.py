@@ -183,7 +183,8 @@ class CodecMixin:
         self.codec_y.update_scale_table(get_scale_table())
         self._table = torch.as_tensor(self.codec_y.scale_table,
                                       dtype=torch.float32, device=self.device)
-        # K2's device-resident tables (int32, uploaded once per setup)
+        # K2's device-resident tables (the dense int32 ones and the kernel-
+        # ready buffer, built and uploaded once per setup)
         self._ytab = self._device_tables(self.codec_y)
         self._ztab = self._device_tables(self.codec_z)
 

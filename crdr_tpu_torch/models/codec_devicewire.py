@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from ..ops.device_rans import apply_fixups, init_lane_state
-from ..ops.lane_decode import lane_decode_round
+from ..ops.lane_decode import (LaneTable, lane_decode_round,
+                               prepare_lane_table)
 from ..runtime.lane_rans import (LANE_MAGIC, lane_encode, pack_lane_container,
                                  unpack_lane_container)
 
@@ -45,12 +46,11 @@ def _is_lane(blob: bytes) -> bool:
 
 
 class DeviceWireCodecMixin:
-    def _device_tables(self, codec) -> Tuple[Tensor, Tensor, Tensor]:
-        """A codec's CDF tables as device int32 tensors (cdf, len, off)."""
-        return tuple(torch.as_tensor(np.asarray(a, np.int32),
-                                     device=self.device)
-                     for a in (codec.quantized_cdf, codec.cdf_length,
-                               codec.offset))
+    def _device_tables(self, codec) -> LaneTable:
+        """A codec's CDF tables on the device, in K2's two forms: the dense
+        int32 tensors (cdf, len, off) and the kernel-ready buffer."""
+        return prepare_lane_table(codec.quantized_cdf, codec.cdf_length,
+                                  codec.offset, device=self.device)
 
     def _lane_k(self, m: int) -> int:
         """Lane count for an ``m``-symbols-per-round stream: the config value,
@@ -134,7 +134,8 @@ class DeviceWireCodecMixin:
                             device=self.device).repeat(n, zh * zw)
 
     @staticmethod
-    def _rans_round(lanes: Lanes, state, idx: Tensor, lo: int, tables
+    def _rans_round(lanes: Lanes, state, idx: Tensor, lo: int,
+                    table: LaneTable
                     ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
         """One K2 round over ``idx`` [N, ...] (CDF rows in decode order) with
         the fixups of [lo, lo + m) overlaid.  ``state`` (states, ptrs) carries
@@ -146,7 +147,7 @@ class DeviceWireCodecMixin:
         n = idx.shape[0]
         m = idx[0].numel()
         vals, states, ptrs = lane_decode_round(
-            *state, words, idx.reshape(n, m), *tables, m)
+            *state, words, idx.reshape(n, m), table, m)
         vals = apply_fixups(vals, fix_pos, fix_val, fix_act, lo, m)
         return vals.reshape(idx.shape).to(torch.float32), (states, ptrs)
 

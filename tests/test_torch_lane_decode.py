@@ -6,6 +6,15 @@
   ``lane_decode_round_instep``, the Pallas kernel in interpret mode and the
   host C++ ``LaneStreamDecoder``, round after round with the states and
   pointers carried: exact integers.
+* K2's kernel-ready table (``ops/lane_decode.prepare_lane_table``) and the
+  kernel's lookup search in plain PyTorch
+  (``ops/lane_decode.lane_decode_round_lookup``, which reads only the
+  prepared buffer) equal the twin, and through it JAX, the Pallas
+  interpreter and the host decoder: on the same cases, the flagship y table,
+  a flagship-width z table, rows of length 2 and 3, and states whose 16-bit
+  slot sits on every bucket edge, the slot before it and in each row's last
+  bucket; the plan keeps the flagship y table and the rings at K 128 inside
+  a block's 227 KB.
 
 Inputs are random tables and symbols from a numpy seed, escapes included,
 at several (N, K, m) with m not a multiple of K, and the flagship's real y
@@ -22,9 +31,13 @@ import torch
 from crdr_tpu.ops import device_rans as jdr
 from crdr_tpu.ops.pallas_lane_decode import pallas_lane_decode_round
 from crdr_tpu.runtime import lane_rans as jlr
-from crdr_tpu_torch.entropy import GaussianConditionalCodec, get_scale_table
+from crdr_tpu_torch.entropy import (EntropyBottleneckCodec,
+                                    GaussianConditionalCodec,
+                                    SteEntropyBottleneck, get_scale_table)
 from crdr_tpu_torch.ops import device_rans as tdr
-from crdr_tpu_torch.ops.lane_decode import lane_decode_round
+from crdr_tpu_torch.ops.lane_decode import (RING, lane_decode_round,
+                                            lane_decode_round_lookup,
+                                            lane_plan, prepare_lane_table)
 from crdr_tpu_torch.runtime import lane_rans as tlr
 from tests.test_lane_rans import _random_tables
 
@@ -213,7 +226,7 @@ def test_wrapper_runs_the_twin_on_cpu_tensors():
     idx = torch.from_numpy(np.stack([e[1][0] for e in imgs]))
     tt = [torch.from_numpy(a) for a in tables]
     before = lane_decode_round.launches
-    got = lane_decode_round(st, pt, w, idx, *tt, 40)
+    got = lane_decode_round(st, pt, w, idx, prepare_lane_table(*tables), 40)
     ref = tdr.lane_decode_round_instep(st, pt, w, idx, *tt, 40)
     assert lane_decode_round.launches == before  # no kernel on the CPU
     for a, b in zip(got, ref):
@@ -244,3 +257,200 @@ def test_container_overflow_raises():
 def test_unpack_names_the_config_key():
     with pytest.raises(ValueError, match="wire_format: compressai"):
         tlr.unpack_lane_container(b"not a lane container")
+
+
+# ---- K2's kernel-ready table and its lookup search ------------------------
+
+def _z_tables():
+    """A z table at the flagship's width: 192 channels of the bottleneck's
+    seeded init."""
+    m = SteEntropyBottleneck(192)
+    m.reset_parameters(torch.Generator().manual_seed(0))
+    codec = EntropyBottleneckCodec(
+        {k: v.detach().numpy() for k, v in m.named_parameters()})
+    codec.update()
+    return codec.quantized_cdf, codec.cdf_length, codec.offset
+
+
+def _lookup_fn(table, m):
+    def fn(st, pt, words, idx, i):
+        v, st, pt = lane_decode_round_lookup(
+            torch.from_numpy(st), torch.from_numpy(pt),
+            torch.from_numpy(words), torch.from_numpy(idx), table, m)
+        return v.numpy(), st.numpy(), pt.numpy()
+    return fn
+
+
+@pytest.mark.parametrize("seed,n,s,m,k,esc", CASES)
+def test_lookup_search_matches_twin_jax_pallas_and_host(seed, n, s, m, k,
+                                                        esc):
+    """The prepared buffer and the kernel's search on the twin's cases,
+    round after round with the states carried."""
+    rng = np.random.default_rng(seed)
+    tables = _random_tables(rng)
+    imgs = _case(rng, tables, n, s, m, k, esc)
+    jt = [jnp.asarray(a) for a in tables]
+
+    def jax_pallas(st, pt, words, idx, i):
+        v, st, pt = pallas_lane_decode_round(
+            jnp.asarray(st.astype(np.uint32)), jnp.asarray(pt),
+            jnp.asarray(words.astype(np.uint32)), jnp.asarray(idx), *jt, m,
+            interpret=True)
+        return (np.asarray(v), np.asarray(st).astype(np.int64),
+                np.asarray(pt))
+
+    def twin(st, pt, words, idx, i):
+        v, st, pt = tdr.lane_decode_round_instep(
+            torch.from_numpy(st), torch.from_numpy(pt),
+            torch.from_numpy(words), torch.from_numpy(idx),
+            *(torch.from_numpy(a) for a in tables), m)
+        return v.numpy(), st.numpy(), pt.numpy()
+
+    got, _ = _decode_all(imgs, s, m, _lookup_fn(prepare_lane_table(*tables),
+                                                m))
+    for ref_fn in (twin, jax_pallas):
+        ref, _ = _decode_all(imgs, s, m, ref_fn)
+        for a, b in zip(got, ref):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x, y)
+    for b, (_, idx, (words, lens, _, _)) in enumerate(imgs):
+        dec = tlr.LaneStreamDecoder(words, lens)
+        for i in range(s):
+            np.testing.assert_array_equal(
+                got[i][0][b], dec.decode(idx[i], *tables))
+
+
+@pytest.mark.parametrize("which", ["y", "z"])
+def test_lookup_search_on_the_flagship_tables(which):
+    """The flagship's 64-row y table (rows up to 3133 entries) and a
+    192-channel z table: streams of seeded symbols, two rounds, against the
+    twin and JAX."""
+    rng = np.random.default_rng(14)
+    tables = _y_tables() if which == "y" else _z_tables()
+    s, m, k = 2, 150, 16
+    imgs = _case(rng, tables, 2, s, m, k, 0.01)
+    table = prepare_lane_table(*tables)
+    jt = [jnp.asarray(a) for a in tables]
+
+    def jax_xla(st, pt, words, idx, i):
+        v, st, pt = jdr.lane_decode_round_instep(
+            jnp.asarray(st.astype(np.uint32)), jnp.asarray(pt),
+            jnp.asarray(words.astype(np.uint32)), jnp.asarray(idx), *jt, m)
+        return (np.asarray(v), np.asarray(st).astype(np.int64),
+                np.asarray(pt))
+
+    got, _ = _decode_all(imgs, s, m, _lookup_fn(table, m))
+    ref, _ = _decode_all(imgs, s, m, jax_xla)
+    for a, b in zip(got, ref):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for b, (v, idx, (words, lens, _, _)) in enumerate(imgs):
+        dec = tlr.LaneStreamDecoder(words, lens)
+        for i in range(s):
+            np.testing.assert_array_equal(got[i][0][b],
+                                          dec.decode(idx[i], *tables))
+
+
+def _short_tables():
+    """Rows of length 2 and 3 (one or two symbols), and a degenerate row
+    of length 1 and 0, beside a longer one."""
+    cdf = np.zeros((6, 5), np.int32)
+    cdf[0, :2] = [0, 65536]
+    cdf[1, :3] = [0, 40000, 65536]
+    cdf[2, :3] = [0, 1, 65536]
+    cdf[3, :1] = [7]
+    cdf[4, :1] = [3]          # len 0: the twin still reads cdf[r, 0]
+    cdf[5, :5] = [0, 256, 257, 65279, 65536]
+    return (cdf, np.asarray([2, 3, 3, 1, 0, 5], np.int32),
+            np.asarray([0, -1, 2, 5, -3, 4], np.int32))
+
+
+def _edge_mods(bits):
+    """Every bucket edge u * 2^(16-bits), the slot before it, and the last
+    bucket's last slot."""
+    edges = np.arange(1 << bits, dtype=np.int64) << (16 - bits)
+    return np.unique(np.concatenate([edges, edges - 1, [65535]]))[1:]
+
+
+@pytest.mark.parametrize("which,bits", [("y", 8), ("z", 8), ("short", 8),
+                                        ("y", 4), ("short", 0)])
+def test_lookup_search_at_every_bucket_edge(which, bits):
+    """One step per lane from states whose slot (x & 0xFFFF) is each bucket
+    edge, the slot before it and the last slot, on every row: the
+    emulation's values, states and pointers equal the twin's."""
+    tables = {"y": _y_tables, "z": _z_tables, "short": _short_tables}[which]()
+    table = prepare_lane_table(*tables, bits=bits)
+    mods = _edge_mods(bits)
+    rng = np.random.default_rng(15)
+    tt = [torch.from_numpy(np.asarray(a, np.int32)) for a in tables]
+    rows = tables[0].shape[0]
+    for r0 in range(0, rows, 8):
+        rr = np.arange(r0, min(r0 + 8, rows))
+        r_of, mod_of = (a.reshape(1, -1) for a in np.meshgrid(rr, mods,
+                                                             indexing="ij"))
+        k = r_of.shape[1]
+        hi = rng.integers(1, 1 << 16, (1, k))
+        st = torch.from_numpy((hi << 16) | mod_of)
+        pt = torch.full((1, k), 2, dtype=torch.int32)
+        words = torch.from_numpy(rng.integers(0, 1 << 16, (1, k, 4))
+                                 .astype(np.int32))
+        idx = torch.from_numpy(r_of.astype(np.int32))
+        got = lane_decode_round_lookup(st, pt, words, idx, table, k)
+        ref = tdr.lane_decode_round_instep(st, pt, words, idx, *tt, k)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+
+
+def test_prepared_table_layout():
+    """Headers, the lookup's counts and the packed entries, read back."""
+    cdf, ln, off = _short_tables()
+    t = prepare_lane_table(cdf, ln, off, bits=2)
+    buf = t.buf.numpy()
+    assert t.rows == 6 and t.bits == 2 and buf.size % 4 == 0
+    hdr = buf[:24].reshape(6, 4)
+    np.testing.assert_array_equal(hdr[:, 1], ln)
+    np.testing.assert_array_equal(hdr[:, 2], off)
+    lk = buf[24:24 + 15].view(np.uint16)[:30].reshape(6, 5)
+    # row 5: entries 0, 256, 257, 65279 | 65536; slots 0, 16384, 32768,
+    # 49152; the last entry is len - 1
+    np.testing.assert_array_equal(lk[5], [1, 3, 3, 3, 4])
+    np.testing.assert_array_equal(lk[1], [1, 1, 1, 2, 2])
+    np.testing.assert_array_equal(lk[3], [0, 0, 0, 0, 0])
+    for r in range(6):
+        n = max(ln[r], 1)
+        np.testing.assert_array_equal(buf[hdr[r, 0]:hdr[r, 0] + n],
+                                      cdf[r, :n])
+    for a, b in zip(t[:3], (cdf, ln, off)):
+        np.testing.assert_array_equal(a.numpy(), b)
+
+
+def test_prepare_lane_table_raises():
+    cdf, ln, off = _short_tables()
+    bad = cdf.copy()
+    bad[5, 2] = 100  # decreasing
+    with pytest.raises(ValueError, match="decreases"):
+        prepare_lane_table(bad, ln, off)
+    with pytest.raises(ValueError, match="cdf_len"):
+        prepare_lane_table(cdf, ln + 3, off)
+    with pytest.raises(ValueError, match="bits"):
+        prepare_lane_table(cdf, ln, off, bits=17)
+
+
+def test_flagship_table_fits_beside_the_rings():
+    """The flagship y buffer (8-bit lookup) and the rings of 8 fit an H100
+    block's 227 KB at K 128 and at 1024 lanes; a table too large goes to
+    global memory."""
+    cap = 227 * 1024  # an H100's opt-in shared memory a block
+    t = prepare_lane_table(*_y_tables())
+    n = t.buf.numel()
+    assert 4 * n == 142944  # 64 headers, 64 x 257 u16, 27,256 entries
+    assert RING == 8
+    plan = lane_plan(128, n, cap)
+    assert plan == {"in_smem": True, "smem_bytes": 16 + 8 * 8 * 128 + 4 * n}
+    assert plan["smem_bytes"] <= cap
+    assert lane_plan(1024, n, cap) == {
+        "in_smem": True, "smem_bytes": 16 + 8 * 8 * 1024 + 4 * n}
+    assert lane_plan(64, 64 * 1000 + 8480, cap) == {
+        "in_smem": False, "smem_bytes": 16 + 8 * 8 * 64}
+    z = prepare_lane_table(*_z_tables())
+    assert lane_plan(128, z.buf.numel(), cap)["in_smem"]
