@@ -17,7 +17,8 @@ Phases, each asserted (any failure exits non-zero):
    must hold HGMMA (wgmma) and no HMMA (mma.sync).  The kernel against its
    plain PyTorch twin (TF32 off), bit-stability across calls and batch
    sizes, and times: kernel at batch 4 and 1, each of its four launches
-   (pad / cast, conv0, conv1, conv2) at batch 4 and 1 from the profiler,
+   (pad / cast, conv0, conv1, conv2) at batch 4 and 1 from the profiler
+   (printed as not measured when the profiler records no device activity),
    its blocks per conv and their residency, plain twin, a cuDNN bf16 conv
    chain from the same f32 x (yardstick only, never called by the port) and
    the bound.  Kernel and cuDNN chain are timed as CUDA-graph replays
@@ -68,7 +69,31 @@ Phases, each asserted (any failure exits non-zero):
    or K2, and the timings.  Then a yardstick of the synthesis: its
    transposed convs conv_2 and conv_4 as the port runs them and as
    sub-pixel convolutions plus pixel_shuffle (held within f32 tolerance).
-8. one JSON line of kernel figures, then the last line:
+8. model classes: the five other config/_base_/model/*.yaml at full width
+   (elic_hyperprior, elic_charm, interp_ca_elic_hyperprior,
+   interp_ca_elic_charm, beta_cond_interp_ca_elic_hyperprior) with
+   crdr_throughput.yaml's codec options laid over each, seeded init, the y
+   scale heads raised: the checks of phase 3 with K1 60 launches a round
+   trip on the two Charm classes and none on the three hyperprior ones;
+   interp_ca_elic_charm also on the device wire (the checks of phase 4,
+   K2 11).  Each model is freed before the next.
+9. TF32 chain: config/crdr_fastchain.yaml (codec_precision: default) on the
+   flagship with K1 on, then off, each on both wires (the checks of phases
+   3 and 4); TF32 really ran: the hyper-decoder's output on one z under
+   TF32 differs from the f32 chain's, by at most 1e-2 of its range; then
+   on each wire crdr_throughput.yaml and the two variants timed in turns.
+10. entry points: the codec's uint8 -> f32 conversion on the card equals the
+   host's uint8_to_tensor on all 256 values; run_model on the flagship at
+   rates 0..4 (the encoder's last InterpCA gains spread so the rate
+   matters), bpp / PSNR / MS-SSIM finite, bpp rising with the rate;
+   validation (beta = max_beta / 2) per image, its bpp within 1e-3 of
+   run_model's; then the CLI (python -m crdr_tpu_torch.cli.compress
+   config/crdr_throughput.yaml --decompress --batch 4) as a subprocess on
+   each wire: each .bin equals compress_batch's streams (of the PNGs read
+   back; equal to those of the uint8 images), each .png decompress_batch's
+   image, _avg_bitrate.json their mean real bpp.
+11. one JSON line of kernel figures (launches by path, every path above),
+   then the last line:
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -271,22 +296,34 @@ def sass_counts(lib: str) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
-def k1_stage_ms(fn, calls: int = 10) -> dict:
+def k1_stage_ms(fn, calls: int = 10, tries: int = 3):
     """Device time per stage of K1 (its four kernels in launch order: the
     pad / cast pass, conv0, conv1, conv2), mean over ``calls`` calls of
-    ``fn``, from the profiler's kernel records."""
+    ``fn``, from the profiler's kernel records.  None when the profiler
+    records no device activity at all in ``tries`` sessions: CUPTI allows
+    one subscriber a process, so a tracer outside this script, or a CUPTI
+    that fails to start, leaves torch.profiler blind.  K1's own time is
+    taken with CUDA events and does not depend on this."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    evs = sorted((e for e in prof.events()
-                  if str(getattr(e, "device_type", "")).endswith("CUDA")
-                  and "k1_" in e.name), key=lambda e: e.time_range.start)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        if dev:
+            break
+    else:
+        print(f"K1 stage times: not measured (torch.profiler recorded no "
+              f"device activity in {tries} sessions)")
+        return None
+    evs = sorted((e for e in dev if "k1_" in e.name),
+                 key=lambda e: e.time_range.start)
     check(len(evs) == 4 * calls, f"K1 profile: {len(evs)} kernel records "
                                  f"for {calls} calls (expected 4 each)")
     names = ("prep", "conv0", "conv1", "conv2")
@@ -296,6 +333,14 @@ def k1_stage_ms(fn, calls: int = 10) -> dict:
         check(want in e.name, f"K1 profile: record {i} is {e.name[:80]}")
         out[names[i % 4]] += e.time_range.elapsed_us() / 1e3 / calls
     return out
+
+
+def stage_text(st) -> str:
+    """K1's stage times as printed, or why there are none."""
+    if st is None:
+        return "not measured (the profiler saw no device activity)"
+    return (", ".join(f"{k} {v:.4f}" for k, v in st.items())
+            + f" ms, sum {sum(st.values()):.4f} ms")
 
 
 def k1_phase(card: str) -> dict:
@@ -409,12 +454,10 @@ def k1_phase(card: str) -> dict:
               f"{err:.3e} of |out| <= {scale:.3f} (dropped b4 would give "
               f"{no_b4:.3e}, slice {idx - 1}'s weights {wrong:.3e}); "
               f"bit-stable across calls and batch sizes [{card}]")
-        print(f"K1 Cin {cin} by stage, batch {n}: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-              + " ms; batch 1: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in stages1.items())
-              + f" ms; blocks (batch 1 / {n}), split x multicast pair, "
-              "wgmma N, blocks per SM, clusters resident, shared memory: "
+        print(f"K1 Cin {cin} by stage, batch {n}: {stage_text(stages)}; "
+              f"batch 1: {stage_text(stages1)}; blocks (batch 1 / {n}), "
+              "split x multicast pair, wgmma N, blocks per SM, clusters "
+              "resident, shared memory: "
               + "; ".join(f"conv{j} {q['blocks_batch1']} / {q['blocks']}, "
                           f"{q['split']} x {q['pair']}, N {q['n_inst']}, "
                           f"{q['blocks_per_sm']}/SM, {q['clusters']} "
@@ -455,9 +498,8 @@ def k1_split_phase(card: str, splits=((1, 1, 1), (2, 2, 2), (4, 4, 4),
         check(err <= K1_ATOL, f"K1 split {sp}: max|kernel - plain| {err}")
         for xb in (x, x[:1].contiguous()):
             st = k1_stage_ms(lambda: k1mod._launch(xb, *args, 0, plan))
-            print(f"K1 split {sp} batch {xb.shape[0]}: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
-                  + f" ms, sum {sum(st.values()):.4f} ms [{card}]")
+            print(f"K1 split {sp} batch {xb.shape[0]}: {stage_text(st)} "
+                  f"[{card}]")
 
 
 def smooth_images(seed: int) -> np.ndarray:
@@ -509,6 +551,22 @@ def profile_phase(fn, label: str, card: str, kernels=()) -> None:
               f"of the device time")
 
 
+def raise_y_scales(model, bias: float = 8.0) -> None:
+    """At the random init y is near 0 and z carries most of the rate;
+    biasing the y scale heads (sigma ~ 8) makes the y Gaussian tables carry
+    it, so the real-vs-predicted check exercises them (within 1% at 128x192
+    on the CPU twin).  The heads: the Charm scale transforms' last conv, or
+    the hyper-decoder's scale half."""
+    import torch
+
+    with torch.no_grad():
+        if model.use_charm:
+            for st in model.net.context_model.scale_slice_transforms:
+                st.model[4].bias += bias
+        else:
+            model.net.hyperdecoder.hd_std.conv3.bias += bias
+
+
 def build_model(card: str):
     import torch
 
@@ -519,13 +577,7 @@ def build_model(card: str):
                                         "crdr_throughput.yaml"))
     t0 = time.perf_counter()
     model = build_comp_model(cfg)  # the GPU; seeded init (cfg seed / 0)
-    # at the random init y is near 0 and z carries most of the rate; biasing
-    # the scale heads (sigma ~ 8) makes the y Gaussian tables carry it, so
-    # the real-vs-predicted check exercises them (within 1% at 128x192 on
-    # the CPU twin)
-    with torch.no_grad():
-        for st in model.net.context_model.scale_slice_transforms:
-            st.model[4].bias += 8.0
+    raise_y_scales(model)
     model.codec_setup()
     torch.cuda.synchronize()
     nparam = sum(p.numel() for p in model.net.parameters())
@@ -648,7 +700,8 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str):
     return encs, counts, times
 
 
-def device_wire_path(model, imgs, y_compressai, card: str):
+def device_wire_path(model, imgs, y_compressai, card: str,
+                     label: str = "device wire"):
     """The device wire on the same model: counts, checks, a sync-free decode
     chain, times.  Returns the K2 inputs the warm-up decode recorded."""
     import torch
@@ -673,21 +726,22 @@ def device_wire_path(model, imgs, y_compressai, card: str):
         codec_devicewire.lane_decode_round = real
     encs, (fake, _, y_hat), enc_s, dec_s, counts = \
         counted_round_trip(model, imgs)
-    # K2: 1 z + num_slices y rounds per decode; K1: 3 SliceTransforms a
-    # slice, each way
-    expected = {"slice_transform": 6 * model.num_slices,
+    # K2: 1 z + num_slices y rounds per decode; K1 (when on): 3
+    # SliceTransforms a slice, each way
+    expected = {"slice_transform": 6 * model.num_slices
+                if model.fused_slice_kernel else 0,
                 "lane_decode_round": 1 + model.num_slices, "gdn": 0}
-    check(counts == expected, f"device wire: kernel launches in one batch "
+    check(counts == expected, f"{label}: kernel launches in one batch "
                               f"round trip {counts} (expected {expected})")
     check(all(e["string_list"][2][:4] == b"CRDW" for e in encs),
-          "device wire: the y streams are not lane containers")
-    check_round_trip("device wire", encs, fake, y_hat)
+          f"{label}: the y streams are not lane containers")
+    check_round_trip(label, encs, fake, y_hat)
     check(np.array_equal(y_hat, y_compressai),
-          "device-wire y_hat != compressai-wire y_hat of the same images")
+          f"{label}: y_hat != the compressai wire's y_hat of the same images")
 
     # the decode chain enqueues every launch without a host sync
     strings = [e["string_list"] for e in encs]
-    with codec_numerics():
+    with codec_numerics(model._chain_tf32):
         z, y_lanes = model._device_wire_inputs(
             [s[1] for s in strings], [s[2] for s in strings],
             IMG_H // model.model_stride, IMG_W // model.model_stride)
@@ -701,15 +755,15 @@ def device_wire_path(model, imgs, y_compressai, card: str):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     check(np.array_equal(chain[2].cpu().numpy(), y_hat),
-          "device wire: the checked decode chain gave another y_hat")
-    print("device-wire decode chain (z round, decode_begin, the slice "
-          "steps with their K2 rounds, decode_final) enqueued with no host "
-          "sync (sync debug mode 'error')")
-    print(f"device wire one batch round trip: encode {enc_s * 1e3:.1f} ms, "
+          f"{label}: the checked decode chain gave another y_hat")
+    print(f"{label}: decode chain (z round, decode_begin, the slice steps "
+          "with their K2 rounds, decode_final) enqueued with no host sync "
+          "(sync debug mode 'error')")
+    print(f"{label} one batch round trip: encode {enc_s * 1e3:.1f} ms, "
           f"decode {dec_s * 1e3:.1f} ms; launches {counts} [{card}]")
     print(f"timing encode {json.dumps(encs[0]['timing'])} decode "
           f"{json.dumps(model.last_decode_timing)}")
-    times = timed_runs(model, imgs, "device wire", card)
+    times = timed_runs(model, imgs, label, card)
     return recorded, counts, times
 
 
@@ -1191,6 +1245,313 @@ def encode_ab_phase(model, imgs, card: str, pairs: int = 6) -> None:
               f"{len(same)} [{card}]")
 
 
+# the five model configs besides the flagship's (config/_base_/model/)
+CLASS_CONFIGS = ("elic_hyperprior", "elic_charm", "interp_ca_elic_hyperprior",
+                 "interp_ca_elic_charm", "beta_cond_interp_ca_elic_hyperprior")
+# the codec options of config/crdr_throughput.yaml (and crdr.yaml under it)
+THROUGHPUT_OPTIONS = ("codec_uint8_io", "transform_precision",
+                      "transform_dtype", "fused_slice_kernel",
+                      "fused_decode_loop")
+TF32_REL = 1e-2      # fastchain vs highest hyper-decoder, max |diff| / max |ref|
+BPP_AGREE = 1e-3     # validation (batch 1) vs run_model (batch 4) bpp
+
+
+def class_model(name: str, card: str):
+    """A model config at full width with crdr_throughput.yaml's codec
+    options laid over it; seeded init, y scales raised."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.utils.config import Config
+
+    cfg = Config.from_file(os.path.join(ROOT, "config", "_base_", "model",
+                                        f"{name}.yaml"))
+    served = Config.from_file(os.path.join(ROOT, "config",
+                                           "crdr_throughput.yaml"))
+    for key in THROUGHPUT_OPTIONS:
+        cfg[key] = served[key]
+    t0 = time.perf_counter()
+    model = build_comp_model(cfg)
+    raise_y_scales(model)
+    model.codec_setup()
+    torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in model.net.parameters())
+    print(f"{name} ({cfg.model_type}): {nparam / 1e6:.1f}M params, "
+          f"fused_slice_kernel={model.fused_slice_kernel}, built in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return model
+
+
+def model_class_phase(imgs, card: str):
+    """Each of CLASS_CONFIGS on the compressai wire (K1 60 a round trip on
+    the Charm classes, none on the others), interp_ca_elic_charm also on the
+    device wire (K2 11); the checks and times of host_wire_path /
+    device_wire_path.  Returns ({path: launches}, {path: times})."""
+    import torch
+
+    counts, times = {}, {}
+    for name in CLASS_CONFIGS:
+        model = class_model(name, card)
+        k1 = 6 * model.num_slices if model.use_charm else 0
+        encs, counts[name], times[name] = host_wire_path(
+            model, imgs, name,
+            {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card)
+        if name == "interp_ca_elic_charm":
+            y_c = np.concatenate([e["y_hat"] for e in encs])
+            label = f"{name} device wire"
+            _, counts[label], times[label] = device_wire_path(
+                model, imgs, y_c, card, label)
+        del model, encs
+        torch.cuda.empty_cache()
+    return counts, times
+
+
+def tf32_chain_phase(imgs, card: str):
+    """config/crdr_fastchain.yaml (codec_precision: default: TF32 in the
+    hyper-decoder and, with K1 off, in every Charm conv) on the flagship,
+    K1 on and off, each on both wires with the checks of host_wire_path /
+    device_wire_path; then, on each wire, the times of crdr_throughput.yaml
+    and of both variants in turns (A B C C B A, TIMED_RUNS round trips
+    each).  Returns ({path: launches}, {variant: TF32 max |diff|})."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.models.codec import codec_numerics
+    from crdr_tpu_torch.utils.config import Config
+
+    counts, diffs, models = {}, {}, {"crdr_throughput": build_model(card)}
+    for fused in (True, False):
+        cfg = Config.from_file(os.path.join(ROOT, "config",
+                                            "crdr_fastchain.yaml"))
+        cfg["fused_slice_kernel"] = fused
+        model = build_comp_model(cfg)
+        raise_y_scales(model)
+        model.codec_setup()
+        check(model._chain_tf32 and model.fused_slice_kernel == fused,
+              "crdr_fastchain.yaml must set codec_precision: default")
+        tag = f"fastchain K1 {'on' if fused else 'off'}"
+        k1 = 6 * model.num_slices if fused else 0
+        encs, counts[tag], _ = host_wire_path(
+            model, imgs, tag,
+            {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card)
+
+        # TF32 really ran: the hyper-decoder on one z_sym, f32 vs TF32
+        with codec_numerics(False):
+            x = torch.from_numpy(imgs[:1]).to(model.device)
+            _, z_sym, _ = model.encode_head(x, model._cond_arg(RATE, 1))
+            ref = torch.cat(model._hyper_decode(z_sym)[0], -1)
+        with codec_numerics(True):
+            tf = torch.cat(model._hyper_decode(z_sym)[0], -1)
+        diff = float((tf - ref).abs().max())
+        scale = float(ref.abs().max())
+        diffs[tag] = diff
+        print(f"{tag}: hyper-decoder output under TF32 vs f32 on one z: "
+              f"max |diff| {diff:.3e} of max |out| {scale:.3f} "
+              f"({diff / scale:.2e} relative) [{card}]")
+        check(0 < diff <= TF32_REL * scale,
+              f"{tag}: TF32 changed the hyper-decoder by {diff} (must be > 0 "
+              f"and <= {TF32_REL} x {scale})")
+
+        y_c = np.concatenate([e["y_hat"] for e in encs])
+        label = f"{tag} device wire"
+        _, counts[label], _ = device_wire_path(model, imgs, y_c, card, label)
+        models[tag] = model
+        del encs
+
+    mpix = N_IMG * IMG_H * IMG_W / 1e6
+    for wire in ("compressai", "device"):
+        for model in models.values():
+            model.opt.update(wire_format=wire, device_wire_encoder="host")
+            model.codec_setup()
+        runs = {name: ([], []) for name in models}
+        for name in list(models) + list(models)[::-1]:
+            t = timed_runs(models[name], imgs, f"{name} {wire} wire, in turns",
+                           card)
+            runs[name][0].extend(t["encode_runs_ms"])
+            runs[name][1].extend(t["decode_runs_ms"])
+        for name, (enc, dec) in runs.items():
+            e, d = float(np.median(enc)), float(np.median(dec))
+            print(f"TF32 chain, {wire} wire, batch {N_IMG}, median of "
+                  f"{len(enc)} in turns (A B C C B A): {name}: encode "
+                  f"{e:.1f} ms, decode {d:.1f} ms, "
+                  f"{mpix / (e + d) * 1e3:.4f} Mpix/s (decode runs "
+                  f"{[round(v, 1) for v in dec]}) [{card}]")
+    del models
+    torch.cuda.empty_cache()
+    return counts, diffs
+
+
+def spread_rates(model) -> None:
+    """At the random init every InterpCA gain is 1 at every rate, so the
+    rate changes nothing; give the encoder's last InterpCA gains 2^q
+    (softplus^-1 of them), so y, and with it the bpp, grows with the rate
+    (at gains below 1 the init's y rounds to 0 everywhere)."""
+    import torch
+
+    ca = model.net.encoder.interp_ca_list[-1]
+    with torch.no_grad():
+        for q in range(ca.weight.shape[0]):
+            gain = torch.tensor(2.0 ** q)
+            ca.weight[q] = torch.log(torch.expm1(gain))
+
+
+def entry_point_phase(imgs, card: str) -> dict:
+    """run_model / validation on the flagship at every rate, then the CLI
+    as a subprocess on each wire, held against compress_batch /
+    decompress_batch.  Returns {path: launches} of the in-process calls."""
+    import tempfile
+
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.models.codec import device_uint8_to_tensor
+    from crdr_tpu_torch.ops.gdn import gdn
+    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
+    from crdr_tpu_torch.ops.slice_transform import slice_transform
+    from crdr_tpu_torch.utils import codec_utils
+    from crdr_tpu_torch.utils.config import Config
+    from crdr_tpu_torch.utils.img_utils import (calc_ms_ssim, calc_psnr,
+                                                imread, read_png,
+                                                tensor_to_uint8,
+                                                uint8_to_tensor, write_png)
+
+    cfg_path = os.path.join(ROOT, "config", "crdr_throughput.yaml")
+    model = build_comp_model(Config.from_file(cfg_path))
+    spread_rates(model)
+
+    # the codec's on-device uint8 conversion (encode_head) is the host's
+    # uint8_to_tensor, bit for bit; a CPU-scalar divisor would not be
+    # (CUDA divides by one as a multiply by its f32 reciprocal)
+    v = torch.arange(256, dtype=torch.uint8, device=model.device)
+    host = torch.from_numpy(uint8_to_tensor(np.arange(256, dtype=np.uint8)))
+    scalar = ((v.float() / 255.0 - 0.5) * 2.0).cpu()
+    exact = device_uint8_to_tensor(v).cpu()
+    print(f"uint8 -> f32 on the card: a CPU-scalar divisor differs from the "
+          f"host's uint8_to_tensor in {int((scalar != host).sum())} of 256 "
+          f"values, the codec's device-tensor divisor in "
+          f"{int((exact != host).sum())} [{card}]")
+    check(torch.equal(exact, host), "the codec's uint8 conversion is not "
+                                    "the host's")
+    x = uint8_to_tensor(imgs)
+    beta = model.max_beta / 2
+    counts = {}
+    kernels = {"slice_transform": slice_transform,
+               "lane_decode_round": lane_decode_round, "gdn": gdn}
+    for k in kernels.values():
+        k.launches = 0
+    by_rate = []
+    for q in range(model.rate_level):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.run_model(x, rate_ind=float(q), beta=beta, is_train=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        psnr = calc_psnr(out["real_images"], out["fake_images"])
+        msssim = calc_ms_ssim(out["real_images"], out["fake_images"])
+        by_rate.append(out["bpp"])
+        print(f"run_model rate {q} beta {beta}: bpp {np.round(out['bpp'], 4)}"
+              f" (mean {out['bpp'].mean():.4f}, qbpp "
+              f"{out['qbpp'].mean():.4f}), PSNR {psnr:.3f} dB, MS-SSIM "
+              f"{msssim:.5f}; {dt * 1e3:.1f} ms for {N_IMG} images [{card}]")
+        check(np.isfinite(out["bpp"]).all() and np.isfinite(psnr)
+              and np.isfinite(msssim) and 0 < msssim <= 1,
+              f"run_model rate {q}: non-finite metrics")
+    counts["run_model"] = {n: k.launches for n, k in kernels.items()}
+    means = [float(b.mean()) for b in by_rate]
+    check(all(a < b for a, b in zip(means, means[1:])),
+          f"run_model: bpp does not rise with the rate: {means}")
+
+    t0 = time.perf_counter()
+    rows = model.validation([{"real_images": x[i:i + 1]}
+                             for i in range(N_IMG)])
+    torch.cuda.synchronize()
+    print(f"validation: {len(rows)} images x {model.rate_level} rates in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    check(len(rows) == N_IMG, f"validation gave {len(rows)} rows")
+    for row in rows:
+        print("validation row " + json.dumps(
+            {k: round(v, 5) for k, v in row.items()}))
+        for q in range(model.rate_level):
+            bpp = row[f"bpp_{q + 1}"]
+            check(np.isfinite([bpp, row[f"psnr_{q + 1}"],
+                               row[f"ms_ssim_{q + 1}"]]).all(),
+                  f"validation row {row['idx']}: non-finite metrics")
+            want = float(by_rate[q][row["idx"] - 1])
+            check(abs(bpp - want) <= BPP_AGREE * want,
+                  f"validation bpp_{q + 1} of image {row['idx']}: {bpp} vs "
+                  f"run_model's {want}")
+    del model
+    torch.cuda.empty_cache()
+
+    # the CLI, as a user runs it: crdr_throughput.yaml, seeded init
+    model = build_comp_model(Config.from_file(cfg_path))
+    model.codec_setup()
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        img_dir = os.path.join(tmp, "img")
+        names = [f"img{i}" for i in range(N_IMG)]
+        for name, img in zip(names, imgs):
+            write_png(os.path.join(img_dir, f"{name}.png"), img)
+        for wire in ("compressai", "device"):
+            if wire == "device":
+                model.opt.update(wire_format="device",
+                                 device_wire_encoder="host")
+                model.codec_setup()
+            out = os.path.join(tmp, wire)
+            cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.compress",
+                   "config/crdr_throughput.yaml", "--img_dir", img_dir,
+                   "--save_dir", out, "-q", str(RATE), "-b", str(BETA),
+                   "--decompress", "--batch", str(N_IMG)]
+            if wire == "device":
+                cmd += ["--wire", "device"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=600)
+            dt = time.perf_counter() - t0
+            check(proc.returncode == 0, f"the CLI ({wire}) exited "
+                  f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                  f"{proc.stderr[-3000:]}")
+            print(f"CLI {wire} wire: {' '.join(cmd[1:])} ran in {dt:.1f} s "
+                  f"(process start, model build and codec setup included) "
+                  f"[{card}]")
+            with open(os.path.join(out, "_bitrates.csv")) as f:
+                print(f.read().strip())
+            floats = np.stack([imread(os.path.join(img_dir, f"{n}.png"))
+                               for n in names])
+            for k in kernels.values():
+                k.launches = 0
+            encs = model.compress_batch(floats, rate_ind=RATE)
+            fake, _, _ = model.decompress_batch(
+                [e["string_list"] for e in encs], beta=BETA)
+            counts[f"cli check {wire}"] = {n: k.launches
+                                           for n, k in kernels.items()}
+            check(all(e["string_list"] == u["string_list"] for e, u in
+                      zip(encs, model.compress_batch(imgs, rate_ind=RATE))),
+                  f"{wire}: the float and the uint8 input give other streams")
+            real = []
+            for name, enc, img in zip(names, encs, fake):
+                got = codec_utils.load_byte_strings(
+                    os.path.join(out, f"{name}.bin"))
+                check(got == enc["string_list"],
+                      f"CLI {wire}: {name}.bin != compress_batch's streams")
+                size = len(codec_utils.pack_byte_strings(enc["string_list"]))
+                real.append(size * 8 / (IMG_H * IMG_W))
+                check(np.array_equal(read_png(os.path.join(
+                    out, f"{name}.png")), tensor_to_uint8(img)),
+                    f"CLI {wire}: {name}.png != decompress_batch's image")
+            with open(os.path.join(out, "_avg_bitrate.json")) as f:
+                avg = json.load(f)["avg_bpp"]
+            check(avg == float(np.mean(real)), f"CLI {wire}: avg_bpp {avg} "
+                  f"!= compress_batch's mean real bpp {np.mean(real)}")
+            print(f"CLI {wire} wire: {N_IMG} .bin equal to compress_batch's "
+                  f"streams, {N_IMG} .png equal to decompress_batch's "
+                  f"images, avg_bpp {avg:.6f} == their mean real bpp")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -1254,10 +1615,18 @@ def main() -> None:
             [e["string_list"] for e in encs_g]),
             f"GDN path decode batch {N_IMG}", card, ("gdn_kernel",))
 
+    del gdn_model
+    torch.cuda.empty_cache()
+
+    counts_m, _ = model_class_phase(imgs, card)
+    counts_t, _ = tf32_chain_phase(imgs, card)
+    counts_e = entry_point_phase(imgs, card)
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
-    launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g}
+    launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g,
+                **counts_m, **counts_t, **counts_e}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",

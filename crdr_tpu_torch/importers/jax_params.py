@@ -45,8 +45,11 @@ _RULES: List[Tuple[str, str]] = [
 _ELIC_BODY_LAYERS = r"(conv[1-4]|block[1-3]|attn[1-4])"
 
 
-def map_reference_name(name: str, use_rate: bool, use_beta: bool) -> str:
-    """Reference torch state_dict key -> flax param path (dot-joined)."""
+def map_reference_name(name: str, use_rate: bool, use_beta: bool,
+                       pixel_shuffle: bool = False) -> str:
+    """Reference torch state_dict key -> flax param path (dot-joined).  The
+    ELIC decoder's up-convs are ``convN.deconv`` in the flax tree, or
+    ``convN.conv_0`` with ``pixel_shuffle``."""
     for pat, rep in _RULES:
         name = re.sub(pat, rep, name)
     if use_rate:
@@ -55,8 +58,9 @@ def map_reference_name(name: str, use_rate: bool, use_beta: bool) -> str:
         if not use_beta:
             name = re.sub(rf"^decoder\.{_ELIC_BODY_LAYERS}\.",
                           r"decoder.body.\1.", name)
+    inner = "conv_0" if pixel_shuffle else "deconv"
     return re.sub(r"^decoder\.(body\.)?conv([1-4])\.(weight|bias)$",
-                  r"decoder.\1conv\2.deconv.\3", name)
+                  rf"decoder.\1conv\2.{inner}.\3", name)
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -88,7 +92,8 @@ def _to_torch_layout(arr: np.ndarray, shape: Tuple[int, ...],
 
 
 def export_state_dict(params: Dict, net: nn.Module, use_rate: bool,
-                      use_beta: bool) -> Dict[str, torch.Tensor]:
+                      use_beta: bool, pixel_shuffle: bool = False
+                      ) -> Dict[str, torch.Tensor]:
     """Strict: every port key finds its flax leaf and every leaf is used."""
     flat = _flatten(params)
     # the layout of a weight follows its module's type, not its shape
@@ -97,7 +102,7 @@ def export_state_dict(params: Dict, net: nn.Module, use_rate: bool,
              if isinstance(m, (ConvTranspose2d, Dense))}
     out, used = {}, set()
     for key, ref in net.state_dict().items():
-        path = map_reference_name(key, use_rate, use_beta)
+        path = map_reference_name(key, use_rate, use_beta, pixel_shuffle)
         if path not in flat:
             raise KeyError(f"{key}: no flax param {path}")
         out[key] = torch.from_numpy(_to_torch_layout(

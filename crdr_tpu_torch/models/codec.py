@@ -18,11 +18,16 @@ hyper-decode, mean / scale, CDF rows) the decoder calls, then symbols around
 its mean.  Encode and decode therefore agree when that chain computes the
 same bits at both ends, which the codec path secures by:
 
-* running every codec entry point under ``codec_numerics()``: TF32 off for
-  convolutions and matmuls (cuDNN allows TF32 by default), deterministic cuDNN
-  algorithms and no benchmark autotuning.  Only the side-local analysis /
-  synthesis transforms may use TF32, when ``transform_precision`` asks for
-  less than ``highest`` (JAX's default precision is TF32 on a GPU): the
+* running every codec entry point under ``codec_numerics(tf32)``:
+  deterministic cuDNN algorithms, no benchmark autotuning, and TF32 for
+  convolutions and matmuls only as ``codec_precision`` says (``highest``:
+  off, cuDNN allows it by default; ``default``: on, as JAX's default
+  precision is TF32 on a GPU).  The setting is the model's, read at
+  ``codec_setup``, and the same at encode and decode, on both wires (the
+  device-wire chain calls the same ``charm_step``).  With the K1 kernel on,
+  TF32 reaches the hyper-decoder only; with it off, every Charm conv too.
+  The side-local analysis / synthesis transforms follow
+  ``transform_precision`` (``codec_precision`` by default) instead: the
   decoder never re-runs the encoder's transform, so that cannot desync.
   The flags are process-wide; a module lock serializes the codec calls
   that set them, so concurrent calls cannot restore them under each other;
@@ -47,10 +52,8 @@ and ``wire_format: device`` (lane rans32, decoded on the GPU by K2:
 ``device_wire_encoder: host`` only.  ``fused_decode_loop`` is accepted and
 changes nothing: in JAX it merges the same per-slice programs into one
 ``lax.scan`` with byte-identical streams, and eager PyTorch runs one loop
-either way.
-``codec_precision`` other than ``highest`` (the f32 chain) is not ported;
-``codec_setup`` raises for what is not, the generic device wire and the
-checkerboard family included.
+either way.  ``codec_setup`` raises for what is not ported: the generic
+device wire, the device-side lane encoder and the checkerboard family.
 """
 
 from __future__ import annotations
@@ -87,20 +90,37 @@ ANALYSIS_BATCH = 4
 _numerics_lock = threading.RLock()
 
 
+_F32_PRECISIONS = ("highest", "float32")
+_TF32_PRECISIONS = ("default", "high", "tensorfloat32")
+
+
+def precision_allows_tf32(precision: str) -> bool:
+    """A JAX matmul-precision name of the config (``codec_precision``,
+    ``transform_precision``) -> whether TF32 may run: ``highest`` /
+    ``float32`` no; ``default`` / ``high`` / ``tensorfloat32`` yes (TF32 is
+    what JAX's default precision runs on a GPU)."""
+    if precision in _F32_PRECISIONS:
+        return False
+    if precision in _TF32_PRECISIONS:
+        return True
+    raise ValueError(f"precision {precision!r}: one of "
+                     f"{_F32_PRECISIONS + _TF32_PRECISIONS}")
+
+
 @contextlib.contextmanager
-def codec_numerics():
-    """Numerics of the codec path: full-f32 convolutions and matmuls (no
-    TF32), deterministic cuDNN algorithms, no autotuning.  These are
-    process-wide torch flags, restored on exit; the block holds a module
-    lock, so codec calls from several threads run one after another and never
-    see each other's flags.  Torch work outside the codec that runs in
-    another thread meanwhile sees them too."""
+def codec_numerics(tf32: bool = False):
+    """Numerics of the codec path: deterministic cuDNN algorithms, no
+    autotuning, and TF32 for convolutions and matmuls only if ``tf32`` (the
+    model's ``codec_precision``; f32 by default).  These are process-wide
+    torch flags, restored on exit; the block holds a module lock, so codec
+    calls from several threads run one after another and never see each
+    other's flags.  Torch work outside the codec that runs in another thread
+    meanwhile sees them too."""
     b = torch.backends
     with _numerics_lock:
         saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
                  b.cudnn.deterministic, b.cudnn.benchmark)
-        b.cudnn.allow_tf32 = False
-        b.cuda.matmul.allow_tf32 = False
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = bool(tf32)
         b.cudnn.deterministic = True
         b.cudnn.benchmark = False
         try:
@@ -121,6 +141,15 @@ def _tf32(allowed: bool):
         yield
     finally:
         b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = saved
+
+
+def device_uint8_to_tensor(x: Tensor) -> Tensor:
+    """``uint8_to_tensor`` on the tensor's device, bit for bit.  The divisor
+    is a device tensor: CUDA divides by a CPU scalar as a multiply by its
+    f32 reciprocal, one ulp off x / 255 for about half of the 256 values,
+    and a stream would then depend on whether its image came as uint8."""
+    return (x.to(torch.float32) / torch.full((), 255.0, device=x.device)
+            - 0.5) * 2.0
 
 
 def _nhwc(t: Tensor) -> Tensor:
@@ -165,11 +194,8 @@ class CodecMixin:
                 f"device_wire_encoder {lane_enc!r} is not ported: "
                 "wire_format: device runs with device_wire_encoder: host")
         # fused_decode_loop is accepted and read by nothing (module doc)
-        chain_prec = self.opt.get("codec_precision", "highest")
-        if chain_prec not in ("highest", "float32"):
-            # the hyper-decoder + Charm chain always runs in f32 here
-            raise NotImplementedError(
-                f"codec_precision {chain_prec!r} is not ported")
+        self._chain_tf32 = self.chain_tf32
+        self._transform_tf32 = precision_allows_tf32(self.transform_precision)
         net = self.net
         self.header_handler = (MultiRateHeaderHandler() if self.use_rate
                                else HeaderHandler())
@@ -207,8 +233,6 @@ class CodecMixin:
             if self.fused_slice_kernel:
                 self._packed.update(kernel_stacks(self._packed))
 
-        prec = self.opt.get("transform_precision", chain_prec)
-        self._transform_tf32 = prec not in ("highest", "float32")
         tdt = self.transform_dtype
         if tdt is None:
             self._enc_t, self._henc_t, self._dec_t = (
@@ -236,8 +260,8 @@ class CodecMixin:
         x: [N, H, W, 3] uint8 (codec_uint8_io) or f32; ``rate_ind`` None for
         a model without rates.  Returns (y NHWC f32, z symbols NHWC f32,
         predicted z bits [N])."""
-        if x.dtype == torch.uint8:  # uint8_to_tensor, bit for bit
-            x = (x.to(torch.float32) / 255.0 - 0.5) * 2.0
+        if x.dtype == torch.uint8:
+            x = device_uint8_to_tensor(x)
             if self.convert_img_range:
                 x = (x + 1.0) / 2.0
         x = _nchw(x)
@@ -410,7 +434,7 @@ class CodecMixin:
             if real_images.dtype == np.uint8:
                 real_images = uint8_to_tensor(real_images)
             x = self.data_preprocess(real_images)
-        with codec_numerics():
+        with codec_numerics(self._chain_tf32):
             x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
             return self._compress(x, N, H, W, rate_ind)
 
@@ -515,7 +539,7 @@ class CodecMixin:
         else:
             decode = self._decompress_charm
         timing: Dict[str, float] = {}
-        with codec_numerics():
+        with codec_numerics(self._chain_tf32):
             ri = bt = None
             if self.use_rate:
                 rates = np.asarray([hd["rate_ind"] for hd in heads],

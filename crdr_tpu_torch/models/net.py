@@ -4,7 +4,9 @@ Counterpart of ``crdr_tpu/models/net.py``.  Submodule names are the
 reference's own (encoder, decoder, hyperencoder, hyperdecoder,
 entropy_model_z, entropy_model_y, context_model), so ``state_dict`` keys are
 the reference torch names.  Only inference is ported: the eval forward and
-the pieces the codec programs call.
+the pieces the codec programs call.  In the eval forward the quantized
+likelihoods (``q_likelihoods``) are the likelihoods themselves: y and z are
+rounded either way.
 """
 
 from __future__ import annotations
@@ -89,4 +91,5 @@ class CompNet(nn.Module):
             "likelihoods": {"y": y_likelihood, "z": z_likelihood},
             "latent_code": {"y": y, "z": z},
             "quantized_code": {"y": y_hat, "z": z_hat},
+            "q_likelihoods": {"y": y_likelihood, "z": z_likelihood},
         }

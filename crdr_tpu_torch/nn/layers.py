@@ -3,8 +3,8 @@ module names so ``state_dict`` keys are the reference's own.
 
 Counterpart of ``crdr_tpu/nn/layers.py``; architecture contracts:
 * ``BaseBlock`` / ``ResidualBottleneckBlocks``: elic_layers.py:23-53
-* ``up_conv``: elic_layers.py:14-21 (ConvTranspose k5 s2 p2 op1; the
-  conv+PixelShuffle variant is not ported: no config uses it)
+* ``up_conv``: elic_layers.py:14-21 (ConvTranspose k5 s2 p2 op1, or a k5
+  conv to 4x the channels + PixelShuffle(2))
 * ``ChengNLAM`` / ``NLAMResBlock``: cheng_nlam.py:5-47
 * ``BetaCondBaseBlock`` / ``BetaCondResidualBottleneckBlocks``:
   elic_interpca_beta_cond_autoencoder.py:42-85
@@ -13,6 +13,7 @@ Counterpart of ``crdr_tpu/nn/layers.py``; architecture contracts:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .conv import Conv2d, ConvTranspose2d
@@ -47,8 +48,25 @@ class ResidualBottleneckBlocks(nn.Module):
         return x + y if self.res_in_res else y
 
 
-def up_conv(in_ch: int, out_ch: int, w_init: str = "torch") -> nn.Module:
-    """2x upsampler: ConvTranspose(k5, s2, p2, op1)."""
+class PixelShuffleUpConv(Conv2d):
+    """2x upsampler: a k5 stride-1 conv to ``4 * out_ch`` channels, then
+    ``pixel_shuffle(2)`` (torch's channel order, as the JAX package's
+    ``nn/conv.py::pixel_shuffle`` reproduces it)."""
+
+    def __init__(self, in_ch: int, out_ch: int, w_init: str = "torch"):
+        super().__init__(in_ch, 4 * out_ch, 5, 1, 2, w_init=w_init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.pixel_shuffle(super().forward(x), 2)
+
+
+def up_conv(in_ch: int, out_ch: int, pixel_shuffle: bool = False,
+            w_init: str = "torch") -> nn.Module:
+    """2x upsampler: ConvTranspose(k5, s2, p2, op1), or the pixel-shuffle
+    conv.  Either way the parameters are the module's own ``weight`` and
+    ``bias`` (reference name ``decoder.convN.weight``)."""
+    if pixel_shuffle:
+        return PixelShuffleUpConv(in_ch, out_ch, w_init=w_init)
     return ConvTranspose2d(in_ch, out_ch, 5, 2, 2, 1, w_init=w_init)
 
 

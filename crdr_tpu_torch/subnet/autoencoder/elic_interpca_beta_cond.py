@@ -33,25 +33,23 @@ class ElicInterpCaBetaCondDecoder(nn.Module):
                  use_tanh: bool = True, pixel_shuffle: bool = False,
                  res_in_res: bool = False, ca_kwargs: Dict = None):
         super().__init__()
-        if pixel_shuffle:
-            raise NotImplementedError("the pixel-shuffle up-conv is not ported")
         self.L, self.max_beta = L, max_beta
         self.use_pi, self.include_x, self.use_tanh = use_pi, include_x, use_tanh
         wi = "dcgan" if weight_init else "torch"
         m, mid, cch = main_ch, block_mid_ch, cond_ch
 
         self.attn1 = ChengNLAM(in_ch, w_init=wi)
-        self.conv1 = up_conv(in_ch, m, w_init=wi)
+        self.conv1 = up_conv(in_ch, m, pixel_shuffle, wi)
         self.block1 = BetaCondResidualBottleneckBlocks(
             m, mid, cch, num_blocks, res_in_res, w_init=wi)
-        self.conv2 = up_conv(m, m, w_init=wi)
+        self.conv2 = up_conv(m, m, pixel_shuffle, wi)
         self.attn2 = ChengNLAM(m, w_init=wi)
         self.block2 = BetaCondResidualBottleneckBlocks(
             m, mid, cch, num_blocks, res_in_res, w_init=wi)
-        self.conv3 = up_conv(m, m, w_init=wi)
+        self.conv3 = up_conv(m, m, pixel_shuffle, wi)
         self.block3 = BetaCondResidualBottleneckBlocks(
             m, mid, cch, num_blocks, res_in_res, w_init=wi)
-        self.conv4 = up_conv(m, out_ch, w_init=wi)
+        self.conv4 = up_conv(m, out_ch, pixel_shuffle, wi)
 
         chs = [in_ch] * 2 + [m] * 7
         self.interp_ca_list = nn.ModuleList(

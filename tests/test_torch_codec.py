@@ -167,11 +167,20 @@ def test_state_dict_uses_reference_names(model):
 @pytest.mark.parametrize("key,value", [("codec_precision", "default"),
                                        ("wire_format", "device")])
 def test_unported_codec_options_raise(key, value):
-    """A config the port would run as another function than JAX's raises
-    (codec_precision: default is config/crdr_fastchain.yaml; wire_format:
-    device with JAX's default device_wire_encoder: device, whose encoder is
-    not ported)."""
+    """A config the port would run as another function than JAX's raises:
+    wire_format: device with JAX's default device_wire_encoder: device,
+    whose encoder is not ported.  codec_precision: default
+    (config/crdr_fastchain.yaml) is ported: it sets up with TF32 in the
+    chain and the transforms, and a precision name the port cannot map
+    raises."""
     m = build_comp_model(_opt(**{key: value}), device="cpu")
+    if key == "codec_precision":
+        m.codec_setup()
+        assert m._chain_tf32 and m._transform_tf32
+        m = build_comp_model(_opt(codec_precision="bfloat16_3x"), device="cpu")
+        with pytest.raises(ValueError, match="precision"):
+            m.codec_setup()
+        return
     with pytest.raises(NotImplementedError, match=key):
         m.codec_setup()
 
