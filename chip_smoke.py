@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py               # from the root of a checkout; one GPU
     python3 chip_smoke.py --profile     # + device time by kernel, idle share,
-                                        #   K1's, K2's and K3's shares
+                                        #   K1's, K2's and K3's shares (and
+                                        #   the checkerboard's decode)
     python3 chip_smoke.py --ab-encode   # + the fixed-batch analysis A/B
 
 Phases, each asserted (any failure exits non-zero):
 
 1. card: the nvidia-smi name / power-limit line; the kernels build from the
-   checkout's sources (nvcc for K1, K2 and K3, g++ for the host rANS coders,
-   all started together) into build/crdr_tpu_torch/.
+   checkout's sources (nvcc for K1, K2, K3 and E1, g++ for the host rANS
+   coders, all started together) into build/crdr_tpu_torch/.
 2. K1 (the Charm SliceTransform kernel) at the main path's shapes: batch 4,
    a 32x48 latent (a 512x768 image), Cin 480 (mean / scale) and 512 (LRP),
    seeded weights in a 10-slice packed stack, slice 7.  The library's SASS
@@ -92,10 +93,41 @@ Phases, each asserted (any failure exits non-zero):
    each wire: each .bin equals compress_batch's streams (of the PNGs read
    back; equal to those of the uint8 images), each .png decompress_batch's
    image, _avg_bitrate.json their mean real bpp.
-11. one JSON line of kernel figures (launches by path, every path above),
-   then the last line:
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-
+11. the device encoder on the flagship's device wire (crdr_throughput.yaml
+   built again from its seed, device_wire_encoder: device): the checks of
+   phase 4 with K1 60 / K2 11 / E1 2 (a y and a z call) a round trip,
+   streams byte-equal to phase 4's host-encoder streams, the encode timed
+   in turns with the host encoder; then y spread by a gain on the last
+   analysis conv (~20 bins) so symbols leave their CDF rows, with a fixup
+   cap of half the fewest escapes an image has: E1 keeps every escape, the
+   host coder is never called, the streams equal the host encoder's and
+   decode exactly.  E1's calls are recorded.
+12. E1 (the device wire's lane encoder) on those calls (y: 10 rounds, K
+   128, T 3,840; z: one round of 18,432): kernel == plain twin element for
+   element, containers byte-equal to the host coder's, a flipped symbol
+   changes the words, two launches bit-identical, on the escape run every
+   escape (more than the cap) stored and equal to the host coder's;
+   registers and
+   spills from the ptxas report; times of the kernel and of the whole
+   wrapper (operands, kernel, fixups) on y and z as CUDA-graph replays
+   (eager beside them), of the twin and of the host coder on the same
+   symbols; the bound; and, as text only, a serial-chain estimate.
+13. checkerboard: config/cb_stage2.yaml (InterpCaHyperpriorCharmModel with
+   ElicCheckerboardCharmContextModel) with crdr_throughput.yaml's codec
+   options laid over it, seeded init (the spatial convs non-zero), y scales
+   raised: the checks of phase 3 with K1 60 a round trip; the device wire
+   with each encoder (the checks of phase 4: K2 21 a decode, 1 z + 2 a
+   slice, y_hat equal to the compressai wire's, a sync-free chain; streams
+   equal across the encoders); then K1 off on the compressai wire (the
+   plain chain, K1 0).
+14. the generic device wire: beta_cond_interp_ca_elic_hyperprior (rate
+   and beta headers) and the GDN path (balle18_mean_scale.yaml, K3 6 a
+   round trip), each on the compressai wire, then the device wire with
+   each encoder (K2 2 a decode, y_hat equal to the compressai wire's,
+   streams equal across the encoders, real vs predicted bpp), and K2
+   against its twin on the long y round (m 491,520, T 3,840 a lane).
+   Each model is freed before the next.
+15. one JSON line of kernel figures (launches by path, every path above),
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -180,10 +212,12 @@ def ptxas_report(log: str) -> dict:
 
 def build_kernels() -> dict:
     """Builds every library in parallel; returns each kernel module's ptxas
-    report, {"slice_transform" | "lane_decode" | "gdn": ptxas_report}."""
+    report, {"slice_transform" | "lane_decode" | "gdn" | "lane_encode":
+    ptxas_report}."""
     from crdr_tpu_torch import runtime
     from crdr_tpu_torch.ops import gdn as k3
     from crdr_tpu_torch.ops import lane_decode as k2
+    from crdr_tpu_torch.ops import lane_encode as e1
     from crdr_tpu_torch.ops import slice_transform as k1
 
     results, threads = {}, []
@@ -198,6 +232,7 @@ def build_kernels() -> dict:
     for name, fn in (("slice_transform (nvcc sm_90a)", k1.build),
                      ("lane_decode (nvcc sm_90a)", k2.build),
                      ("gdn (nvcc sm_90a)", k3.build),
+                     ("lane_encode (nvcc sm_90a)", e1.build),
                      ("host rANS (g++)", runtime.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
@@ -207,7 +242,7 @@ def build_kernels() -> dict:
         check(not isinstance(res, Exception), f"build of {name}: {res}")
         print(f"built {name} in {dt:.1f} s -> {os.path.relpath(res, ROOT)}")
     return {k.__name__.split(".")[-1]: ptxas_report(k.build() + ".log")
-            for k in (k1, k2, k3)}
+            for k in (k1, k2, k3, e1)}
 
 
 def max_sm_clock_ghz() -> float:
@@ -608,16 +643,23 @@ def round_trip(model, imgs):
 def counted_round_trip(model, imgs):
     """One batch round trip with every kernel's launch count set to 0 just
     before it; returns (encs, decoded, enc s, dec s, {kernel: launches})."""
-    from crdr_tpu_torch.ops.gdn import gdn
-    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
-    from crdr_tpu_torch.ops.slice_transform import slice_transform
-
-    kernels = {"slice_transform": slice_transform,
-               "lane_decode_round": lane_decode_round, "gdn": gdn}
+    kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
     out = round_trip(model, imgs)
     return out + ({n: k.launches for n, k in kernels.items()},)
+
+
+def kernel_wrappers() -> dict:
+    """{name: wrapper} of every kernel (each wrapper counts its launches)."""
+    from crdr_tpu_torch.ops.gdn import gdn
+    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
+    from crdr_tpu_torch.ops.lane_encode import lane_encode_rounds
+    from crdr_tpu_torch.ops.slice_transform import slice_transform
+
+    return {"slice_transform": slice_transform,
+            "lane_decode_round": lane_decode_round, "gdn": gdn,
+            "lane_encode_rounds": lane_encode_rounds}
 
 
 def check_round_trip(label, encs, fake, y_hat) -> None:
@@ -661,6 +703,7 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str):
     without rates or beta ignores RATE and BETA."""
     import torch
 
+    expected = {"lane_encode_rounds": 0, **expected}
     round_trip(model, imgs)  # warm-up: cuDNN / library initialization
     encs, (fake, _, y_hat), enc_s, dec_s, counts = \
         counted_round_trip(model, imgs)
@@ -700,16 +743,44 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str):
     return encs, counts, times
 
 
+def device_wire_expected(model, encoder: str, gdn: int = 0) -> dict:
+    """Kernel launches of one device-wire batch round trip: K2 1 z round +
+    a round per slice (Charm), two per slice (checkerboard) or one
+    (generic); K1 (when on) 3 SliceTransforms a slice each way; E1 a y and
+    a z call per encode with the device encoder; ``gdn`` K3 calls."""
+    if model._is_checkerboard:
+        k2 = 1 + 2 * model.num_slices
+    elif model.use_charm:
+        k2 = 1 + model.num_slices
+    else:
+        k2 = 2
+    k1 = 6 * model.num_slices if model.use_charm and \
+        model.fused_slice_kernel else 0
+    return {"slice_transform": k1, "lane_decode_round": k2, "gdn": gdn,
+            "lane_encode_rounds": 2 if encoder == "device" else 0}
+
+
+def device_chain(model):
+    """The family's device-wire decode chain (launches only)."""
+    if model._is_checkerboard:
+        return model._cb_device_chain
+    return model._charm_device_chain if model.use_charm \
+        else model._generic_device_chain
+
+
 def device_wire_path(model, imgs, y_compressai, card: str,
-                     label: str = "device wire"):
-    """The device wire on the same model: counts, checks, a sync-free decode
-    chain, times.  Returns the K2 inputs the warm-up decode recorded."""
+                     label: str = "device wire", encoder: str = "host",
+                     gdn: int = 0):
+    """The device wire on the same model, lane-encoded by ``encoder``:
+    counts, checks, a sync-free decode chain, a batch-1 stream equal to its
+    batch-4 stream, times.  Returns (the K2 inputs the warm-up decode
+    recorded, counts, times, the batch's encodings)."""
     import torch
 
     from crdr_tpu_torch.models import codec_devicewire
     from crdr_tpu_torch.models.codec import codec_numerics
 
-    model.opt.update(wire_format="device", device_wire_encoder="host")
+    model.opt.update(wire_format="device", device_wire_encoder=encoder)
     model.codec_setup()
     check(model.wire_format == "device", "the device wire is not set")
     real, recorded = codec_devicewire.lane_decode_round, []
@@ -726,11 +797,7 @@ def device_wire_path(model, imgs, y_compressai, card: str,
         codec_devicewire.lane_decode_round = real
     encs, (fake, _, y_hat), enc_s, dec_s, counts = \
         counted_round_trip(model, imgs)
-    # K2: 1 z + num_slices y rounds per decode; K1 (when on): 3
-    # SliceTransforms a slice, each way
-    expected = {"slice_transform": 6 * model.num_slices
-                if model.fused_slice_kernel else 0,
-                "lane_decode_round": 1 + model.num_slices, "gdn": 0}
+    expected = device_wire_expected(model, encoder, gdn)
     check(counts == expected, f"{label}: kernel launches in one batch "
                               f"round trip {counts} (expected {expected})")
     check(all(e["string_list"][2][:4] == b"CRDW" for e in encs),
@@ -738,33 +805,46 @@ def device_wire_path(model, imgs, y_compressai, card: str,
     check_round_trip(label, encs, fake, y_hat)
     check(np.array_equal(y_hat, y_compressai),
           f"{label}: y_hat != the compressai wire's y_hat of the same images")
+    rate = {"rate_ind": RATE} if model.use_rate else {}
+    one = model.compress(imgs[:1], **rate)
+    check(one["string_list"] == encs[0]["string_list"],
+          f"{label}: batch-1 encode of image 0 != its batch-4 stream")
 
     # the decode chain enqueues every launch without a host sync
     strings = [e["string_list"] for e in encs]
+    zh, zw = IMG_H // model.model_stride, IMG_W // model.model_stride
     with codec_numerics(model._chain_tf32):
         z, y_lanes = model._device_wire_inputs(
-            [s[1] for s in strings], [s[2] for s in strings],
-            IMG_H // model.model_stride, IMG_W // model.model_stride)
-        ri, bt = model._cond_arg(RATE, N_IMG), model._cond_arg(BETA, N_IMG)
+            [s[1] for s in strings], [s[2] for s in strings], zh, zw)
+        ri = model._cond_arg(RATE, N_IMG) if model.use_rate else None
+        bt = model._cond_arg(BETA, N_IMG) if model.use_beta else None
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            chain = model._charm_device_chain(
-                z, y_lanes, IMG_H // model.model_stride,
-                IMG_W // model.model_stride, ri, bt)
+            chain = device_chain(model)(z, y_lanes, zh, zw, ri, bt)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     check(np.array_equal(chain[2].cpu().numpy(), y_hat),
           f"{label}: the checked decode chain gave another y_hat")
-    print(f"{label}: decode chain (z round, decode_begin, the slice steps "
-          "with their K2 rounds, decode_final) enqueued with no host sync "
-          "(sync debug mode 'error')")
+    print(f"{label}: decode chain ({chain_name(model)}) enqueued with no "
+          "host sync (sync debug mode 'error'); batch-1 encode of image 0 "
+          f"equals its batch-{N_IMG} stream")
     print(f"{label} one batch round trip: encode {enc_s * 1e3:.1f} ms, "
           f"decode {dec_s * 1e3:.1f} ms; launches {counts} [{card}]")
     print(f"timing encode {json.dumps(encs[0]['timing'])} decode "
           f"{json.dumps(model.last_decode_timing)}")
     times = timed_runs(model, imgs, label, card)
-    return recorded, counts, times
+    return recorded, counts, times, encs
+
+
+def chain_name(model) -> str:
+    if model._is_checkerboard:
+        return ("z round, cb_begin, per slice cb_a_dev, a K2 anchor round, "
+                "cb_b_dev, a K2 non-anchor round, cb_final")
+    if model.use_charm:
+        return ("z round, decode_begin, the slice steps with their K2 "
+                "rounds, decode_final")
+    return "z round, generic_params, one K2 round, + mean, synthesis"
 
 
 def k2_bound(st, pt_in, pt_out, idx, cdf_len, clock_ghz: float) -> dict:
@@ -1299,7 +1379,7 @@ def model_class_phase(imgs, card: str):
         if name == "interp_ca_elic_charm":
             y_c = np.concatenate([e["y_hat"] for e in encs])
             label = f"{name} device wire"
-            _, counts[label], times[label] = device_wire_path(
+            _, counts[label], times[label], _ = device_wire_path(
                 model, imgs, y_c, card, label)
         del model, encs
         torch.cuda.empty_cache()
@@ -1354,7 +1434,8 @@ def tf32_chain_phase(imgs, card: str):
 
         y_c = np.concatenate([e["y_hat"] for e in encs])
         label = f"{tag} device wire"
-        _, counts[label], _ = device_wire_path(model, imgs, y_c, card, label)
+        _, counts[label], _, _ = device_wire_path(model, imgs, y_c, card,
+                                                  label)
         models[tag] = model
         del encs
 
@@ -1405,9 +1486,6 @@ def entry_point_phase(imgs, card: str) -> dict:
 
     from crdr_tpu_torch.models import build_comp_model
     from crdr_tpu_torch.models.codec import device_uint8_to_tensor
-    from crdr_tpu_torch.ops.gdn import gdn
-    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
-    from crdr_tpu_torch.ops.slice_transform import slice_transform
     from crdr_tpu_torch.utils import codec_utils
     from crdr_tpu_torch.utils.config import Config
     from crdr_tpu_torch.utils.img_utils import (calc_ms_ssim, calc_psnr,
@@ -1435,8 +1513,7 @@ def entry_point_phase(imgs, card: str) -> dict:
     x = uint8_to_tensor(imgs)
     beta = model.max_beta / 2
     counts = {}
-    kernels = {"slice_transform": slice_transform,
-               "lane_decode_round": lane_decode_round, "gdn": gdn}
+    kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
     by_rate = []
@@ -1552,6 +1629,419 @@ def entry_point_phase(imgs, card: str) -> dict:
     return counts
 
 
+# ---------------- phases 11-14: the device encoder (E1), the checkerboard,
+# the generic device wire ------------------------------------------------------
+
+Y_STD_ESCAPES = 20.0  # phase 11: y's spread in bins for the escape run
+STEP_CHAIN_INSTR = 25  # E1's chain estimate: dependent integer instructions
+#                        a step (the division by freq), an ASSUMED count
+INT_LATENCY_CYCLES = 4  # an ASSUMED latency of one dependent integer
+#                         instruction on Hopper, not measured
+
+
+def record_e1(model, fn):
+    """Runs ``fn()`` with E1's wrapper recorded where the codec calls it;
+    returns the calls' argument tuples (tensors cloned)."""
+    import torch
+
+    from crdr_tpu_torch.models import codec_devicewire
+
+    real, calls = codec_devicewire.lane_encode_rounds, []
+
+    def recorder(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return real(*args)
+
+    codec_devicewire.lane_encode_rounds = recorder
+    try:
+        fn()
+    finally:
+        codec_devicewire.lane_encode_rounds = real
+    return calls
+
+
+def encoders_in_turns(model, imgs, label: str, card: str) -> dict:
+    """Batch encode ms with the device encoder (E1) and the host lane coder,
+    in turns (A B B A, TIMED_RUNS each): medians by encoder."""
+    import torch
+
+    runs = {"device": [], "host": []}
+    for enc in ("device", "host", "host", "device"):
+        model.opt.update(device_wire_encoder=enc)
+        model.codec_setup()
+        model.compress_batch(imgs, rate_ind=RATE)  # warm-up
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.compress_batch(imgs, rate_ind=RATE)
+            torch.cuda.synchronize()
+            runs[enc].append((time.perf_counter() - t0) * 1e3)
+    med = {e: float(np.median(r)) for e, r in runs.items()}
+    print(f"{label} encode, batch {N_IMG}, median of {2 * TIMED_RUNS} in "
+          f"turns (A B B A): device encoder {med['device']:.1f} ms, host "
+          f"encoder {med['host']:.1f} ms (runs device "
+          f"{[round(v, 1) for v in runs['device']]}, host "
+          f"{[round(v, 1) for v in runs['host']]}) [{card}]")
+    return med
+
+
+def n_fixups(container: bytes) -> int:
+    """The fixup count of a lane container (u16 after the magic and K)."""
+    return int(np.frombuffer(container, np.uint16, 1, 7)[0])
+
+
+def flagship_device_encoder_phase(imgs, host_streams, card: str):
+    """Phase 11: the flagship on the device wire with the device encoder:
+    the checks of phase 4 (K1 60, K2 11, E1 2 a round trip), streams equal
+    to phase 4's host-encoder streams, the encode timed in turns with the
+    host encoder; then y spread by an analysis gain until symbols leave
+    their CDF rows, with a fixup cap of half the fewest escapes an image
+    has: E1 keeps every escape and gives the host coder's bytes without
+    calling it.  Returns (E1's recorded calls, those of the escape run, the
+    cap, the lane statics, counts, encode medians)."""
+    import torch
+
+    from crdr_tpu_torch.models import codec_devicewire
+    from crdr_tpu_torch.models.codec import codec_numerics
+
+    model = build_model(card)
+    y_c = np.concatenate([e["y_hat"] for e in model.compress_batch(
+        imgs, rate_ind=RATE)])
+    _, counts, times, encs = device_wire_path(
+        model, imgs, y_c, card, "flagship device encoder", encoder="device")
+    check([e["string_list"] for e in encs] == host_streams,
+          "flagship: the device encoder's streams != phase 4's host-encoder "
+          "streams")
+    print("flagship device encoder: streams byte-equal to phase 4's host "
+          "encoder")
+    recorded = record_e1(model, lambda: model.compress_batch(
+        imgs, rate_ind=RATE))
+    check(len(recorded) == 2, f"E1 calls in one encode: {len(recorded)}")
+    st = model._lane_wire_statics(IMG_H // 16, IMG_W // 16, IMG_H // 64,
+                                  IMG_W // 64)
+    med = encoders_in_turns(model, imgs, "flagship device wire", card)
+
+    # escapes: at the random init y rounds to 0 around its mean, so no
+    # symbol leaves its CDF row; a gain on the last analysis conv spreads y
+    # over ~Y_STD_ESCAPES bins, past the rows' ends (~6 sigma) for a share
+    # of the symbols
+    with codec_numerics(model._chain_tf32):
+        y = model.encode_head(torch.from_numpy(imgs).to(model.device),
+                              model._cond_arg(RATE, N_IMG))[0]
+    gain = Y_STD_ESCAPES / float(y.std())
+    with torch.no_grad():
+        model.net.encoder.conv4.weight.mul_(gain)
+        model.net.encoder.conv4.bias.mul_(gain)
+    model.opt.update(device_wire_encoder="device",
+                     device_wire_fixup_cap=1 << 16)
+    model.codec_setup()
+    probe = model.compress_batch(imgs, rate_ind=RATE)
+    fixups = [n_fixups(e["string_list"][2]) for e in probe]
+    check(0 < min(fixups) and max(fixups) < 60000,
+          f"analysis gain {gain:.2f}: y fixups an image {fixups} (expected "
+          "some, and fewer than a container holds)")
+    cap = max(1, min(fixups) // 2)
+    model.opt.update(device_wire_fixup_cap=cap)
+    model.codec_setup()
+    host_coder = codec_devicewire.lane_encode
+
+    def refuse(*_):
+        raise AssertionError("the device encoder called the host coder")
+
+    codec_devicewire.lane_encode = refuse
+    try:
+        esc_calls = record_e1(model, lambda: model.compress_batch(
+            imgs, rate_ind=RATE))
+        dev = model.compress_batch(imgs, rate_ind=RATE)
+    finally:
+        codec_devicewire.lane_encode = host_coder
+    model.opt.update(device_wire_encoder="host")
+    model.codec_setup()
+    host = model.compress_batch(imgs, rate_ind=RATE)
+    check([e["string_list"] for e in dev] == [e["string_list"] for e in host]
+          and [e["string_list"] for e in probe] == [e["string_list"]
+                                                    for e in host],
+          "E1's bytes past the fixup cap != the host encoder's")
+    _, _, y_hat = model.decompress_batch([e["string_list"] for e in dev],
+                                         beta=BETA)
+    check(np.array_equal(y_hat, np.concatenate([e["y_hat"] for e in dev])),
+          "the escape streams do not decode to the encoder's y_hat")
+    print(f"escapes (analysis gain {gain:.2f}): {fixups} y fixups an "
+          f"image, fixup cap {cap}: E1 kept every escape, the host coder "
+          "was not called, the streams equal the host encoder's at this "
+          "cap and at 65536; decoded exactly")
+    del model
+    torch.cuda.empty_cache()
+    return recorded, esc_calls, cap, st, counts, med
+
+
+def e1_bound(low_g, freq_g, clock_ghz: float) -> dict:
+    """Bytes / operations of E1's serial half on these inputs: low and freq
+    read once, the words and lengths written once; ~30 integer operations an
+    active entry (the renorm test and shift, the division, the update)."""
+    import torch
+
+    n, t_steps, k = low_g.shape
+    active = int((freq_g > 0).sum())
+    nbytes = 4 * 2 * n * t_steps * k + 4 * n * k * (t_steps + 2) + 4 * n * k
+    ops = 30 * active
+    int32_rate = (torch.cuda.get_device_properties(0).multi_processor_count
+                  * INT32_LANES_PER_SM * clock_ghz * 1e9)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / int32_rate
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=ops, int32_rate=int32_rate)
+
+
+def e1_phase(recorded, esc_calls, cap, st, card: str, ptxas: dict) -> dict:
+    """Phase 12: E1 against its twin and the host coder on the flagship's
+    recorded calls (y: 10 rounds, K 128, T 3,840; z: one round of 18,432):
+    kernel == twin element for element, containers byte-equal to the host
+    coder's, a flipped symbol changes the output, two launches bit-identical;
+    on the escape run's y call every escape, more than the codec's ``cap``,
+    is stored and equals the host coder's, and at a fix_cap of ``cap`` the
+    escapes past it are counted; registers and spills; times."""
+    import torch
+
+    from crdr_tpu_torch.ops import device_rans
+    from crdr_tpu_torch.ops.lane_encode import launch_scan, lane_encode_rounds
+    from crdr_tpu_torch.runtime.lane_rans import (lane_encode,
+                                                  pack_lane_container)
+
+    offs = (st.off, np.asarray([0, recorded[1][0].shape[1]], np.int64))
+    host_ms, err = [], 0
+    for args, off, name in zip(recorded, offs, ("y", "z")):
+        got = lane_encode_rounds(*args)
+        again = lane_encode_rounds(*args)
+        twin = device_rans.lane_encode_rounds(*args)
+        torch.cuda.synchronize()
+        for a, b, c, part in zip(got, again, twin, ("words", "lens",
+                                                    "fix_pos", "fix_val",
+                                                    "n_esc")):
+            check(torch.equal(a, b), f"E1 {name}: two launches differ in "
+                                     f"{part}")
+            check(torch.equal(a, c), f"E1 {name}: kernel != twin in {part}")
+            if a.numel():
+                err = max(err, int((a.long() - c.long()).abs().max()))
+        sym, idx = args[0].cpu().numpy(), args[1].cpu().numpy()
+        tabs = [a.cpu().numpy() for a in args[3:6]]
+        k = args[2].shape[1]
+        words, lens, fp, fv, ne = (a.cpu().numpy() for a in got)
+        t0 = time.perf_counter()
+        hosts = [lane_encode(sym[b], idx[b], off, k, *tabs)
+                 for b in range(sym.shape[0])]
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        for b, host in enumerate(hosts):
+            f = int(ne[b])
+            check(pack_lane_container(
+                words[b].astype(np.uint16), lens[b],
+                fp[b, :f].astype(np.int64), fv[b, :f])
+                == pack_lane_container(*host),
+                f"E1 {name} image {b}: container != the host coder's")
+        print(f"E1 {name}: N{sym.shape[0]} K{k} T{args[2].shape[0]} m "
+              f"{sym.shape[1]}: kernel == twin (words, lens, fixups), "
+              f"bit-stable, containers == host coder's, escapes "
+              f"{ne.tolist()}")
+    y = recorded[0]
+    flip = y[0].clone()
+    # a symbol inside its row, moved to its neighbour
+    flip[0, 1000] += 1 if int(flip[0, 1000]) <= 0 else -1
+    check(not torch.equal(lane_encode_rounds(flip, *y[1:])[0],
+                          lane_encode_rounds(*y)[0]),
+          "E1: a flipped symbol left the words unchanged")
+    e = esc_calls[0]
+    _, _, efp, efv, ene = lane_encode_rounds(*e)
+    host = lane_encode(e[0][0].cpu().numpy(), e[1][0].cpu().numpy(), st.off,
+                       e[2].shape[1], *[a.cpu().numpy() for a in e[3:6]],
+                       fix_cap=1 << 16)
+    f = int(ene[0])
+    check(e[6] is None and f == host[2].size > cap and
+          np.array_equal(efp[0, :f].cpu().numpy(), host[2]) and
+          np.array_equal(efv[0, :f].cpu().numpy(), host[3]),
+          f"E1 escapes: n_esc {f} vs the host's {host[2].size}, codec cap "
+          f"{cap}, E1's {e[6]}")
+    _, _, cfp, cfv, cne = lane_encode_rounds(*e[:6], cap)
+    check(int(cne[0]) == f and
+          np.array_equal(cfp[0].cpu().numpy(), host[2][:cap]) and
+          np.array_equal(cfv[0].cpu().numpy(), host[3][:cap]),
+          f"E1 at fix_cap {cap}: n_esc {int(cne[0])} (expected {f}) or the "
+          "stored fixups != the host coder's first")
+    print(f"E1 escapes: {f} in image 0, more than the codec's cap of {cap}: "
+          f"all stored, equal to the host coder's; at fix_cap {cap} (JAX's "
+          f"contract) counted, the first {cap} stored")
+
+    build = {n: r for n, r in ptxas.items() if "lane_encode_kernel" in n}
+    check(len(build) == 1 and all(r["registers"] for r in build.values()),
+          f"E1's ptxas report: {ptxas}")
+    regs = next(iter(build.values()))["registers"]
+    spills = next(iter(build.values()))["spill_bytes"]
+    low_y, freq_y, _ = device_rans.lane_encode_operands(*y[:6])
+    low_z, freq_z, _ = device_rans.lane_encode_operands(*recorded[1][:6])
+    ms = graph_time_ms(lambda: launch_scan(low_y, freq_y))
+    eager_ms = cuda_time_ms(lambda: launch_scan(low_y, freq_y), 20)
+    call_ms = graph_time_ms(lambda: lane_encode_rounds(*y))
+    call_eager_ms = cuda_time_ms(lambda: lane_encode_rounds(*y), 20)
+    z_ms = graph_time_ms(lambda: launch_scan(low_z, freq_z))
+    z_call_ms = graph_time_ms(lambda: lane_encode_rounds(*recorded[1]))
+    plain_ms = cuda_time_ms(lambda: device_rans.lane_encode_scan(
+        low_y, freq_y), 1, 1)
+    clock = max_sm_clock_ghz()
+    bound = e1_bound(low_y, freq_y, clock)
+    n, t_steps, k = low_y.shape
+    chain = t_steps * STEP_CHAIN_INSTR * INT_LATENCY_CYCLES / clock * 1e-6
+    print(f"E1 build: {regs} registers, {spills} B spilled [{card}]")
+    print(f"E1 y (N{n} K{k} T{t_steps}): kernel {ms:.4f} ms as a CUDA-graph "
+          f"replay (eager {eager_ms:.4f}); the whole wrapper (operands, "
+          f"kernel, fixups) {call_ms:.4f} ms (eager {call_eager_ms:.4f}); z "
+          f"kernel {z_ms:.4f} ms, wrapper {z_call_ms:.4f} ms; plain twin "
+          f"{plain_ms:.4f} ms; host coder on the same symbols, {n} images "
+          f"one after another: y {host_ms[0]:.3f} ms, z {host_ms[1]:.3f} ms; "
+          f"bound {bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}: "
+          f"{bound['bytes'] / 1e6:.3f} MB, {bound['ops'] / 1e6:.2f} M int "
+          f"ops); chain estimate, not measured, at an ASSUMED "
+          f"{STEP_CHAIN_INSTR} dependent instructions a step of "
+          f"{INT_LATENCY_CYCLES} cycles at the max SM clock: {chain:.4f} ms "
+          f"[{card}]")
+    return dict(ms=ms, eager_ms=eager_ms, call_ms=call_ms,
+                call_eager_ms=call_eager_ms, z_ms=z_ms, z_call_ms=z_call_ms,
+                plain_ms=plain_ms, host_ms=host_ms[0], host_z_ms=host_ms[1],
+                chain_estimate_ms=chain, registers=regs, spill_bytes=spills,
+                max_abs_err=err, shape=f"N{n} K{k} T{t_steps}, y table "
+                f"{tuple(y[3].shape)}", **bound)
+
+
+def cb_model(card: str, fused: bool = True):
+    """config/cb_stage2.yaml with crdr_throughput.yaml's codec options laid
+    over it (``fused_slice_kernel`` = ``fused``), seeded init (the spatial
+    convs too), y scales raised."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.utils.config import Config
+
+    cfg = Config.from_file(os.path.join(ROOT, "config", "cb_stage2.yaml"))
+    served = Config.from_file(os.path.join(ROOT, "config",
+                                           "crdr_throughput.yaml"))
+    for key in THROUGHPUT_OPTIONS:
+        cfg[key] = served[key]
+    cfg["fused_slice_kernel"] = fused
+    t0 = time.perf_counter()
+    model = build_comp_model(cfg)
+    raise_y_scales(model)
+    model.codec_setup()
+    torch.cuda.synchronize()
+    spat = float(model._packed["spat_w"].abs().max())
+    check(model._is_checkerboard and spat > 0,
+          f"checkerboard model: spatial convs {spat}")
+    nparam = sum(p.numel() for p in model.net.parameters())
+    print(f"checkerboard (cb_stage2.yaml, {cfg.model_type}): "
+          f"{nparam / 1e6:.1f}M params, spatial convs "
+          f"{tuple(model._packed['spat_w'].shape)} max |w| {spat:.4f}, "
+          f"fused_slice_kernel={model.fused_slice_kernel}, built in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return model
+
+
+def checkerboard_phase(imgs, card: str, profiling: bool = False):
+    """Phase 13: the checkerboard on the compressai wire (the checks of
+    phase 3, K1 60), on the device wire with each encoder (the checks of
+    phase 4, K2 21; y_hat equal to the compressai wire's, streams equal
+    across encoders, batch 1 == batch 4), then K1 off on the compressai wire
+    (the plain chain, K1 0).  Returns ({path: launches}, {path: times})."""
+    import torch
+
+    counts, times = {}, {}
+    model = cb_model(card)
+    k1 = 6 * model.num_slices
+    encs, counts["checkerboard"], times["checkerboard"] = host_wire_path(
+        model, imgs, "checkerboard",
+        {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card)
+    y_c = np.concatenate([e["y_hat"] for e in encs])
+    streams = {}
+    for enc in ("host", "device"):
+        label = f"checkerboard device wire, {enc} encoder"
+        _, counts[label], times[label], e = device_wire_path(
+            model, imgs, y_c, card, label, encoder=enc)
+        streams[enc] = [x["string_list"] for x in e]
+    check(streams["host"] == streams["device"],
+          "checkerboard: the device encoder's streams != the host encoder's")
+    print("checkerboard device wire: streams equal across the two encoders")
+    if profiling:
+        profile_phase(lambda: model.decompress_batch(
+            streams["device"], beta=BETA),
+            f"checkerboard device-wire decode batch {N_IMG}", card,
+            ("k1_", "lane_decode_round_kernel"))
+    del model, encs
+    torch.cuda.empty_cache()
+    model = cb_model(card, fused=False)
+    label = "checkerboard K1 off"
+    _, counts[label], times[label] = host_wire_path(
+        model, imgs, label,
+        {"slice_transform": 0, "lane_decode_round": 0, "gdn": 0}, card)
+    del model
+    torch.cuda.empty_cache()
+    return counts, times
+
+
+def k2_long_round(recorded, label: str, card: str) -> dict:
+    """K2 against its twin on the generic device wire's y round (m =
+    491,520, T = 3,840 a lane at K 128), and its time."""
+    import torch
+
+    from crdr_tpu_torch.ops.device_rans import lane_decode_round_instep
+    from crdr_tpu_torch.ops.lane_decode import lane_decode_round
+
+    y = recorded[1]
+    got = lane_decode_round(*y)
+    ref = lane_decode_round_instep(*y[:4], y[4].cdf, y[4].cdf_len,
+                                   y[4].cdf_off, y[5])
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, ref, ("values", "states", "pointers")):
+        check(torch.equal(a, b), f"{label}: K2 != twin on the long y round "
+                                 f"in {name}")
+    ms = graph_time_ms(lambda: lane_decode_round(*y), iters=5)
+    n, k = y[0].shape
+    print(f"{label}: K2 == twin on the y round N{n} K{k} m {y[5]} "
+          f"(T {-(-y[5] // k)}); {ms:.4f} ms as a CUDA-graph replay [{card}]")
+    return {"m": y[5], "ms": ms}
+
+
+def generic_device_phase(imgs, card: str):
+    """Phase 14: the generic device wire on beta_cond_interp_ca_elic_
+    hyperprior and on the GDN path (balle18_mean_scale.yaml, K3 6 a round
+    trip): the compressai wire for the reference y_hat, then the device wire
+    with each encoder (K2 2 a decode, E1 2 an encode with the device
+    encoder; y_hat equal to the compressai wire's, streams equal across
+    encoders, real vs predicted bpp), and K2 against its twin on the long y
+    round.  Returns ({path: launches}, {path: times}, long-round figures)."""
+    import torch
+
+    counts, times, long = {}, {}, {}
+    for name in ("beta_cond_interp_ca_elic_hyperprior", "GDN path"):
+        gdn = 6 if name == "GDN path" else 0
+        model = build_gdn_model(imgs, card) if gdn else class_model(name,
+                                                                    card)
+        label = f"{name} compressai"
+        encs, counts[label], times[label] = host_wire_path(
+            model, imgs, label,
+            {"slice_transform": 0, "lane_decode_round": 0, "gdn": gdn}, card)
+        y_c = np.concatenate([e["y_hat"] for e in encs])
+        streams = {}
+        for enc in ("host", "device"):
+            label = f"{name} device wire, {enc} encoder"
+            recorded, counts[label], times[label], e = device_wire_path(
+                model, imgs, y_c, card, label, encoder=enc, gdn=gdn)
+            streams[enc] = [x["string_list"] for x in e]
+        check(streams["host"] == streams["device"],
+              f"{name}: the device encoder's streams != the host encoder's")
+        print(f"{name} device wire: streams equal across the two encoders")
+        long[name] = k2_long_round(recorded, name, card)
+        del model, encs
+        torch.cuda.empty_cache()
+    return counts, times, long
+
+
 def main() -> None:
     try:
         import torch
@@ -1585,7 +2075,9 @@ def main() -> None:
             [e["string_list"] for e in encs_c], beta=BETA),
             f"compressai decode batch {N_IMG}", card, ("k1_",))
     y_c = np.concatenate([e["y_hat"] for e in encs_c])
-    recorded, counts_d, times_d = device_wire_path(model, imgs, y_c, card)
+    recorded, counts_d, times_d, encs_d = device_wire_path(model, imgs, y_c,
+                                                           card)
+    host_streams = [e["string_list"] for e in encs_d]  # for phase 11
     if profiling:
         encs_d = model.compress_batch(imgs, rate_ind=RATE)
         profile_phase(lambda: model.decompress_batch(
@@ -1621,18 +2113,27 @@ def main() -> None:
     counts_m, _ = model_class_phase(imgs, card)
     counts_t, _ = tf32_chain_phase(imgs, card)
     counts_e = entry_point_phase(imgs, card)
+    rec_e1, esc_e1, cap_e1, st_e1, counts_f, med_f = \
+        flagship_device_encoder_phase(imgs, host_streams, card)
+    e1 = e1_phase(rec_e1, esc_e1, cap_e1, st_e1, card,
+                  ptxas["lane_encode"])
+    del rec_e1, esc_e1
+    counts_cb, _ = checkerboard_phase(imgs, card, profiling)
+    counts_gw, _, long_k2 = generic_device_phase(imgs, card)
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
     launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g,
-                **counts_m, **counts_t, **counts_e}
+                **counts_m, **counts_t, **counts_e,
+                "flagship device encoder": counts_f, **counts_cb,
+                **counts_gw}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",
         "replaces": "crdr_tpu/ops/pallas_slice_transform.py:75",
         "launches": counts_d["slice_transform"],
-        "launches_by_path": {p: c["slice_transform"]
+        "launches_by_path": {p: c.get("slice_transform", 0)
                              for p, c in launches.items()},
         "max_abs_err": max(x["max_abs_err"] for x in k1["by_cin"].values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1649,8 +2150,9 @@ def main() -> None:
         "source": "crdr_tpu_torch/csrc/lane_decode.cu",
         "replaces": "crdr_tpu/ops/pallas_lane_decode.py:116",
         "launches": counts_d["lane_decode_round"],
-        "launches_by_path": {p: c["lane_decode_round"]
+        "launches_by_path": {p: c.get("lane_decode_round", 0)
                              for p, c in launches.items()},
+        "long_round": long_k2,
         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None,
@@ -1664,7 +2166,8 @@ def main() -> None:
         "source": "crdr_tpu_torch/csrc/gdn.cu",
         "replaces": "crdr_tpu/ops/pallas_gdn.py:37",
         "launches": counts_g["gdn"],
-        "launches_by_path": {p: c["gdn"] for p, c in launches.items()},
+        "launches_by_path": {p: c.get("gdn", 0)
+                             for p, c in launches.items()},
         "max_abs_err": max(x["max_abs_err"] for x in k3r),
         "max_rel_err": max(x["max_rel_err"] for x in k3r),
         "differing": sum(x["differing"] for x in k3r),
@@ -1690,6 +2193,21 @@ def main() -> None:
                  "gamma^T copy included; bound, plain, library); all six "
                  "path calls in ms_by_call",
         "deconv_yardstick": deconv,
+        "card": card}, {
+        "name": "lane_encode_rounds", "route": "cuda",
+        "source": "crdr_tpu_torch/csrc/lane_encode.cu",
+        "replaces": "crdr_tpu/ops/device_rans.py:243 (lane_encode_rounds, a "
+                    "lax.scan: a port-only kernel, no Pallas kernel)",
+        "launches": counts_f["lane_encode_rounds"],
+        "launches_by_path": {p: c.get("lane_encode_rounds", 0)
+                             for p, c in launches.items()},
+        "max_abs_err": e1["max_abs_err"], "ms": e1["ms"],
+        "plain_ms": e1["plain_ms"], "bound_ms": e1["bound_ms"],
+        "bound_by": e1["bound_by"], "library_ms": None,
+        **{key: e1[key] for key in (
+            "eager_ms", "call_ms", "call_eager_ms", "z_ms", "z_call_ms",
+            "host_ms", "host_z_ms", "registers", "spill_bytes", "shape")},
+        "encode_ms_device_vs_host": med_f,
         "card": card}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -71,7 +71,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["compressai", "device"],
                    help="bitstream wire format: compressai (reference-"
                         "compatible, default) or device (lane-interleaved, "
-                        "entropy-decoded on the GPU; encoded on the host)")
+                        "entropy-coded on the GPU; the config's "
+                        "device_wire_encoder, device by default, says where "
+                        "it is encoded)")
     p.add_argument("--serving_devices", type=int, default=None,
                    help="shard each serving batch over this many devices "
                         "(not ported yet)")
@@ -93,8 +95,6 @@ def _build_model(args: argparse.Namespace):
         cfg["shape_bucket"] = args.shape_bucket
     if args.wire:
         cfg["wire_format"] = args.wire
-        if args.wire == "device":  # the only device-wire encoder ported
-            cfg["device_wire_encoder"] = "host"
     if args.seed is not None:
         cfg["seed"] = args.seed
     model = build_comp_model(cfg, device=args.device)

@@ -1,22 +1,28 @@
 """The codec: setup, device programs, compress / decompress (mixin for
-BaseModel), for the Charm family and the generic (mean-scale hyperprior,
-no context model) family.
+BaseModel), for the Charm family, the checkerboard family and the generic
+(mean-scale hyperprior, no context model) family.
 
 Counterpart of ``crdr_tpu/models/codec_tables.py`` (``codec_setup``),
 ``codec_programs.py`` (``encode_head``, ``decode_begin``, ``quantize_slice``,
-``replay_pack``, ``decode_final``, ``generic_params``, ``generic_pack``), the
-Charm step of ``codec_devicewire.py`` and ``codec_hostwire.py``
-(``compress*``, ``decompress*``, ``_compress_charm``, ``_decompress_charm``,
-the generic branches).  Each program is a plain method here; tensors of the
-entropy chain are NHWC.
+``replay_pack``, ``decode_final``, ``generic_params``, ``generic_pack``,
+``generic_final``, and the checkerboard's ``cb_begin``, ``cb_a_dev``,
+``cb_b_dev``, ``cb_quant``, ``cb_final``, ``cb_replay_pack``), the Charm
+step of ``codec_devicewire.py`` and ``codec_hostwire.py`` (``compress*``,
+``decompress*``, ``_compress_charm``, ``_decompress_charm``, the generic
+and checkerboard branches).  Each program is a plain method here; tensors
+of the entropy chain are NHWC.
 
 Bitstream safety.  The encoder replays the decoder's chain.  Charm:
 ``decode_begin``, then per slice ``quantize_slice`` and the SAME
 ``uniform_decode_step`` function the decoder calls, then the last slice's
-reconstruction.  Generic: the SAME ``generic_params`` (z dequantize,
-hyper-decode, mean / scale, CDF rows) the decoder calls, then symbols around
-its mean.  Encode and decode therefore agree when that chain computes the
-same bits at both ends, which the codec path secures by:
+reconstruction.  Checkerboard (``models/codec_devicewire.py::
+_encode_cb_replay``): ``cb_begin``, then per slice the decoder's
+``cb_a_dev`` -> ``cb_quant`` (anchors) -> ``cb_b_dev`` -> ``cb_quant``
+(non-anchors), then ``cb_replay_pack``.  Generic: the SAME
+``generic_params`` (z dequantize, hyper-decode, mean / scale, CDF rows) the
+decoder calls, then symbols around its mean.  Encode and decode therefore
+agree when that chain computes the same bits at both ends, which the codec
+path secures by:
 
 * running every codec entry point under ``codec_numerics(tf32)``:
   deterministic cuDNN algorithms, no benchmark autotuning, and TF32 for
@@ -24,16 +30,18 @@ same bits at both ends, which the codec path secures by:
   off, cuDNN allows it by default; ``default``: on, as JAX's default
   precision is TF32 on a GPU).  The setting is the model's, read at
   ``codec_setup``, and the same at encode and decode, on both wires (the
-  device-wire chain calls the same ``charm_step``).  With the K1 kernel on,
-  TF32 reaches the hyper-decoder only; with it off, every Charm conv too.
-  The side-local analysis / synthesis transforms follow
-  ``transform_precision`` (``codec_precision`` by default) instead: the
-  decoder never re-runs the encoder's transform, so that cannot desync.
-  The flags are process-wide; a module lock serializes the codec calls
-  that set them, so concurrent calls cannot restore them under each other;
-* running the hyper-decoder and the plain Charm convolutions one image at a
-  time, so cuDNN picks the same algorithm for a batch as for one image (a
-  stream encoded in a batch then decodes alone);
+  device-wire chains call the same steps).  With the K1 kernel on, TF32
+  reaches the hyper-decoder (and the checkerboard's spatial convs) only;
+  with it off, every Charm conv too.  The side-local analysis / synthesis
+  transforms follow ``transform_precision`` (``codec_precision`` by
+  default) instead: the decoder never re-runs the encoder's transform, so
+  that cannot desync.  The flags are process-wide; a module lock
+  serializes the codec calls that set them, so concurrent calls cannot
+  restore them under each other;
+* running the hyper-decoder, the plain Charm convolutions and the
+  checkerboard's spatial convs one image at a time, so cuDNN picks the same
+  algorithm for a batch as for one image (a stream encoded in a batch then
+  decodes alone);
 * the K1 kernel, bit-identical across calls and batch sizes by design (K3,
   the GDN kernel of the Balle18 transforms, is too, though it only runs in
   the side-local transforms).
@@ -46,20 +54,21 @@ images: every call has one shape, so cuDNN makes one algorithm choice, and
 no convolution mixes images.
 
 Wires: ``wire_format: compressai`` (host C++ rANS, decoded between the
-slice steps; the generic family decodes each image's stream in one call)
-and ``wire_format: device`` (lane rans32, decoded on the GPU by K2:
-``models/codec_devicewire.py``), the latter for the Charm family and with
-``device_wire_encoder: host`` only.  ``fused_decode_loop`` is accepted and
-changes nothing: in JAX it merges the same per-slice programs into one
-``lax.scan`` with byte-identical streams, and eager PyTorch runs one loop
-either way.  ``codec_setup`` raises for what is not ported: the generic
-device wire, the device-side lane encoder and the checkerboard family.
+slice steps, or, for the generic family, each image's stream in one call)
+and ``wire_format: device`` (lane rans32, decoded on the GPU by K2 with no
+host sync: ``models/codec_devicewire.py``), for every family.  The device
+wire is encoded on the GPU by E1 (``device_wire_encoder: device``, the
+default, as in JAX) or by the host C++ lane coder (``host``); the bytes are
+the same.  ``fused_decode_loop`` is accepted and changes nothing: in JAX it
+merges the same per-slice programs into one ``lax.scan`` with
+byte-identical streams, and eager PyTorch runs one loop either way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import math
 import os
 import threading
@@ -73,10 +82,14 @@ import torch
 
 from ..entropy import (EntropyBottleneckCodec, GaussianConditionalCodec,
                        build_indexes, gaussian_likelihood, get_scale_table)
+from ..ops.cb_uniform import (cb_phase_a, cb_phase_b, cb_reconstruct_last,
+                              pack_cb_weights)
 from ..ops.charm_uniform import (kernel_stacks, pack_charm_weights,
                                  uniform_decode_step, uniform_reconstruct_last)
+from ..subnet.context_model.checkerboard import anchor_mask
 from ..utils.codec_utils import HeaderHandler, MultiRateHeaderHandler
 from ..utils.img_utils import pad_image, uint8_to_tensor
+from .codec_common import _checkerboard_serialize
 
 Tensor = torch.Tensor
 
@@ -164,35 +177,25 @@ class CodecMixin:
     # ---------------- setup ----------------------------------------------------
 
     def codec_setup(self) -> None:
-        """Host CDF tables, device scale table, packed Charm weights (and
-        their bf16 kernel copies) for the Charm family, bf16 transform
-        copies.  Run again after loading weights."""
-        if self.use_charm and \
-                self.context_type != "Minnen20CharmContextModel":
-            raise NotImplementedError(f"context model {self.context_type!r}: "
-                                      "only the Charm (Minnen20) one is "
-                                      "ported")
+        """Host CDF tables, device scale table, packed Charm / checkerboard
+        weights (and their bf16 kernel copies), bf16 transform copies.  Run
+        again after loading weights."""
         self.wire_format = self.opt.get("wire_format", "compressai")
         if self.wire_format not in ("compressai", "device"):
             raise ValueError(f"wire_format {self.wire_format!r}: compressai "
                              "or device")
-        if self.wire_format == "device" and not self.use_charm:
-            raise NotImplementedError(
-                "wire_format: device is ported for the Charm family only; "
-                "the generic device wire (no context model) is not")
         self.device_wire_lanes = int(self.opt.get("device_wire_lanes", 128))
         self.device_wire_fixup_cap = int(
             self.opt.get("device_wire_fixup_cap", 256))
-        # JAX's default places the device-wire lane encode on the device;
-        # that encoder is not ported (its bytes equal the host coder's)
-        lane_enc = self.opt.get("device_wire_encoder", "device")
-        if lane_enc not in ("device", "host"):
-            raise ValueError(f"device_wire_encoder {lane_enc!r}: device or "
-                             "host")
-        if self.wire_format == "device" and lane_enc != "host":
-            raise NotImplementedError(
-                f"device_wire_encoder {lane_enc!r} is not ported: "
-                "wire_format: device runs with device_wire_encoder: host")
+        # where the device wire is lane-encoded: E1 on the GPU (JAX's
+        # default) or the host C++ coder; the bytes are the same
+        self.device_wire_encoder = self.opt.get("device_wire_encoder",
+                                                "device")
+        if self.device_wire_encoder not in ("device", "host"):
+            raise ValueError(f"device_wire_encoder "
+                             f"{self.device_wire_encoder!r}: device or host")
+        self._lane_enc_cache = {}
+        self._cb_ids_cache = {}
         # fused_decode_loop is accepted and read by nothing (module doc)
         self._chain_tf32 = self.chain_tf32
         self._transform_tf32 = precision_allows_tf32(self.transform_precision)
@@ -224,7 +227,9 @@ class CodecMixin:
         self.fused_slice_kernel = self.opt.get("fused_slice_kernel") in (
             True, 1, "1")
         if self.use_charm:
-            packed = pack_charm_weights(
+            pack = pack_cb_weights if self._is_checkerboard \
+                else pack_charm_weights
+            packed = pack(
                 net.context_model.state_dict(), self.num_slices,
                 self.slice_ch, sub["context_model"]["hyper_out_ch"] // 2,
                 self.max_support_slices)
@@ -379,6 +384,112 @@ class CodecMixin:
         symbols = torch.round(y - mean)
         return symbols, indexes, scale, symbols + mean, z_hat
 
+    # ---------------- checkerboard programs (NHWC) ------------------------
+    # The gather order of a phase's cells is ``_cb_ids``' (row-major cell
+    # indexes, channels contiguous a cell): the device wire's lane order.
+
+    def _cb_scatter(self, flat: Tensor, ids: Tensor, like: Tensor,
+                    dtype=None) -> Tensor:
+        """[N, len(ids) * sc] values of the cells ``ids`` -> the [N, h, w,
+        sc] grid of ``like`` (zeros elsewhere), in ``dtype`` (default
+        ``like``'s: the symbols' cast to the latent dtype happens here, as
+        in JAX)."""
+        n, h, w = like.shape[:3]
+        sc = self.slice_ch
+        dtype = dtype or like.dtype
+        grid = torch.zeros((n, h * w, sc), dtype=dtype, device=like.device)
+        grid.index_copy_(1, ids, flat.to(dtype).reshape(n, -1, sc))
+        return grid.reshape(n, h, w, sc)
+
+    @staticmethod
+    def _cb_gather(grid: Tensor, ids: Tensor) -> Tensor:
+        """[N, h, w, sc] -> [N, len(ids) * sc]: the cells ``ids``."""
+        n, h, w, sc = grid.shape
+        return grid.reshape(n, h * w, sc).index_select(1, ids).reshape(n, -1)
+
+    def cb_begin(self, z_sym: Tensor):
+        """z dequantize + hyper-decode and the zero loop carries.  Returns
+        (hm, hs, support, sym_na (zeros, [N, non-anchor cells * sc]), y_a,
+        mu_c, z_hat)."""
+        (hm, hs), z_hat = self._hyper_decode(z_sym)
+        n, h, w, _ = hm.shape
+        sc = self.slice_ch
+        support = torch.zeros((n, h, w, self.max_support_slices * sc),
+                              device=self.device)
+        zeros = torch.zeros((n, h, w, sc), device=self.device)
+        sym_na = torch.zeros((n, (h * w // 2) * sc), device=self.device)
+        return hm, hs, support, sym_na, zeros, zeros, z_hat
+
+    def cb_a_dev(self, i: int, hm: Tensor, hs: Tensor, support: Tensor,
+                 sym_na: Tensor, y_a: Tensor, mu_c: Tensor, a_ids: Tensor,
+                 na_ids: Tensor):
+        """Phase A of slice i: the previous round's non-anchor symbols
+        scattered back, slice i-1 finished, slice i's channel-context params
+        and the anchors' CDF rows in gather order.  Returns (y_prev,
+        support, mu, sigma, idx_a [N, cells * sc] int32)."""
+        sym_grid = self._cb_scatter(sym_na, na_ids, hm)
+        y_prev, support, mu, sigma, idx = cb_phase_a(
+            self._packed, i, hm, hs, support, sym_grid, y_a, mu_c,
+            self._table, self.scale_bound, self.num_slices, self.slice_ch,
+            self.max_support_slices, self.fused_slice_kernel)
+        return y_prev, support, mu, sigma, self._cb_gather(idx, a_ids)
+
+    def cb_b_dev(self, i: int, sym_a: Tensor, mu: Tensor, sigma: Tensor,
+                 a_ids: Tensor, na_ids: Tensor):
+        """Phase B of slice i: the anchor symbols scattered, the spatial
+        context, the non-anchors' CDF rows in gather order.  Returns (y_a,
+        mu_c, sigma_c, idx_na [N, cells * sc] int32); sigma_c serves the
+        encoder's predicted bits."""
+        y_a, mu_c, sigma_c, idx = cb_phase_b(
+            self._packed, i, self._cb_scatter(sym_a, a_ids, mu), mu, sigma,
+            self._table, self.scale_bound)
+        return y_a, mu_c, sigma_c, self._cb_gather(idx, na_ids)
+
+    def cb_quant(self, y: Tensor, i: int, mu: Tensor, ids: Tensor) -> Tensor:
+        """Slice i of y rounded (half to even, as ``jnp.round``) around the
+        mu a phase just gave, in gather order, int16 (the symbols' type
+        between the programs in JAX)."""
+        sc = self.slice_ch
+        return self._cb_gather(torch.round(y[..., i * sc:(i + 1) * sc] - mu),
+                               ids).to(torch.int16)
+
+    def cb_final(self, hm, support, sym_na, y_a, mu_c, y_slices, na_ids,
+                 rate_ind, beta):
+        """The last round's non-anchors scattered, the last slice finished,
+        synthesis.  Returns (image NHWC, y_hat NHWC)."""
+        y_last = cb_reconstruct_last(
+            self._packed, hm, support, self._cb_scatter(sym_na, na_ids, hm),
+            y_a, mu_c, self.num_slices, self.fused_slice_kernel)
+        y_hat = torch.cat(list(y_slices) + [y_last], dim=-1)
+        return self._synthesis(y_hat, rate_ind, beta), y_hat
+
+    def cb_replay_pack(self, hm, support, sym_na, y_a, mu_c, y_slices,
+                       syms_a, syms_na, idxs_a, idxs_na, sigmas, sigmas_c,
+                       a_ids, na_ids):
+        """The checkerboard encode's tail: the per-phase symbols and CDF
+        rows of the shared phases scattered back onto the grid, the last
+        slice finished, and each cell's scale (sigma at the anchors,
+        sigma_c elsewhere).  Returns (symbols, indexes int32, scales,
+        y_hat), NHWC."""
+        y_last = cb_reconstruct_last(
+            self._packed, hm, support, self._cb_scatter(sym_na, na_ids, hm),
+            y_a, mu_c, self.num_slices, self.fused_slice_kernel)
+        y_hat = torch.cat(list(y_slices) + [y_last], dim=-1)
+        anchor = anchor_mask(hm.shape[1], hm.shape[2], torch.bool,
+                             hm.device)[None, :, :, None]
+
+        def both(a, na, dtype=None):
+            return (self._cb_scatter(a, a_ids, hm, dtype)
+                    + self._cb_scatter(na, na_ids, hm, dtype))
+
+        symbols = torch.cat([both(a, na) for a, na in zip(syms_a, syms_na)],
+                            -1)
+        indexes = torch.cat([both(a, na, torch.int32) for a, na in
+                             zip(idxs_a, idxs_na)], -1)
+        scales = torch.cat([torch.where(anchor, s, s_c) for s, s_c in
+                            zip(sigmas, sigmas_c)], -1)
+        return symbols, indexes, scales, y_hat
+
     def decode_final(self, hm, support, sym, mu, y_slices, rate_ind, beta):
         """Last-slice reconstruction + synthesis.  Returns (image NHWC, see
         ``_synthesis``; y_hat NHWC)."""
@@ -440,47 +551,25 @@ class CodecMixin:
 
     def _compress(self, x: Tensor, N: int, H: int, W: int, rate_ind):
         """Encode by replay of the decoder's entropy chain (module doc),
-        then one fetch of symbols and CDF rows and host rANS per image."""
-        from ..runtime import rans_encode_with_indexes
-
+        then the entropy coding of the configured wire."""
         timing = {}
         t0 = time.perf_counter()
         ri = self._cond_arg(rate_ind, N) if self.use_rate else None
         y, z_sym, pred_z_bits = self.encode_head(x, ri)
-        replay = self._charm_replay if self.use_charm else self._generic_replay
+        if self._is_checkerboard:
+            replay = self._encode_cb_replay
+        elif self.use_charm:
+            replay = self._charm_replay
+        else:
+            replay = self._generic_replay
         symbols, indexes, scales, y_hat, z_hat = replay(y, z_sym)
         lik = gaussian_likelihood(symbols, scales, self.scale_bound)
         pred_y_bits = -torch.sum(torch.log2(lik), dim=(1, 2, 3))
         maxabs = torch.amax(torch.abs(y_hat), dim=(1, 2, 3))
-        _, h, w, _ = symbols.shape
-        if self.wire_format == "device":  # the Charm family (codec_setup)
-            # slice-major: for each slice the NHWC slice [h, w, sc] flattened
-            # (the decode's consumption order, one lane round per slice)
-            ns, sc = self.num_slices, self.slice_ch
-            rounds = np.arange(ns + 1, dtype=np.int64) * h * w * sc
-
-            def order(t):
-                return t.reshape(N, h, w, ns, sc).permute(0, 3, 1, 2, 4) \
-                    .reshape(N, -1)
-        else:
-            # channel-major rANS serialization (stream-layout parity)
-            def order(t):
-                return t.permute(0, 3, 1, 2).reshape(N, -1)
-        sym_np = order(symbols).to(torch.int32).cpu().numpy()
-        idx_np = order(indexes).cpu().numpy()
-        z_np = z_sym.to(torch.int32).cpu().numpy()
-        meta = torch.stack([pred_y_bits, pred_z_bits, maxabs], 1).cpu().numpy()
-        timing["device_encode_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        z_str = self._z_serialize(z_np)
-        cy = self.codec_y
-        if self.wire_format == "device":
-            y_str = self._lane_serialize(sym_np, idx_np, rounds)
-        else:
-            y_str = self._host_pmap(lambda i: rans_encode_with_indexes(
-                sym_np[i], idx_np[i], cy.quantized_cdf, cy.cdf_length,
-                cy.offset), N)
-        timing["host_rans_s"] = time.perf_counter() - t0
+        meta = torch.stack([pred_y_bits, pred_z_bits, maxabs], 1)
+        code = self._lane_wire if self.wire_format == "device" \
+            else self._compressai_wire
+        y_str, z_str, meta = code(symbols, indexes, z_sym, meta, timing, t0)
 
         y_hat_np = y_hat.cpu().numpy()
         z_hat_np = z_hat.cpu().numpy()
@@ -507,6 +596,39 @@ class CodecMixin:
             })
         return results
 
+    def _compressai_wire(self, symbols: Tensor, indexes: Tensor,
+                         z_sym: Tensor, meta: Tensor, timing: Dict, t0: float):
+        """The compressai wire's host rANS, one stream per image: y
+        channel-major (the checkerboard: per slice the anchor subgrids, then
+        the non-anchor ones, ``_checkerboard_serialize``), z the reference's
+        channel-major stream.  Returns (y strings, z strings, meta)."""
+        from ..runtime import rans_encode_with_indexes
+
+        n = symbols.shape[0]
+        if self._is_checkerboard:
+            sym = symbols.to(torch.int32).cpu().numpy()
+            idx = indexes.cpu().numpy()
+            ns = self.num_slices
+            sym_np = [_checkerboard_serialize(sym[i:i + 1], ns)
+                      for i in range(n)]
+            idx_np = [_checkerboard_serialize(idx[i:i + 1], ns)
+                      for i in range(n)]
+        else:
+            sym_np = symbols.permute(0, 3, 1, 2).reshape(n, -1) \
+                .to(torch.int32).cpu().numpy()
+            idx_np = indexes.permute(0, 3, 1, 2).reshape(n, -1).cpu().numpy()
+        z_np = z_sym.to(torch.int32).cpu().numpy()
+        meta = meta.cpu().numpy()
+        timing["device_encode_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        z_str = self._z_serialize(z_np)
+        cy = self.codec_y
+        y_str = self._host_pmap(lambda i: rans_encode_with_indexes(
+            sym_np[i], idx_np[i], cy.quantized_cdf, cy.cdf_length,
+            cy.offset), n)
+        timing["host_rans_s"] = time.perf_counter() - t0
+        return y_str, z_str, meta
+
     # ---------------- decompress -------------------------------------------------
 
     def decompress(self, string_list: List[bytes], beta: float = 0.0):
@@ -532,12 +654,15 @@ class CodecMixin:
         padH = math.ceil(H / self.stride) * self.stride
         padW = math.ceil(W / self.stride) * self.stride
         zH, zW = padH // self.model_stride, padW // self.model_stride
-        if not self.use_charm:
-            decode = self._decompress_generic
-        elif self.wire_format == "device":
-            decode = self._decompress_charm_device
+        if self._is_checkerboard:
+            chain, decode = self._cb_device_chain, self._decompress_cb
+        elif self.use_charm:
+            chain, decode = self._charm_device_chain, self._decompress_charm
         else:
-            decode = self._decompress_charm
+            chain, decode = (self._generic_device_chain,
+                             self._decompress_generic)
+        if self.wire_format == "device":
+            decode = functools.partial(self._device_decode, chain)
         timing: Dict[str, float] = {}
         with codec_numerics(self._chain_tf32):
             ri = bt = None

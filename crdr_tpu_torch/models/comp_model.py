@@ -22,8 +22,10 @@ All seven model classes are ported: ``HyperpriorModel``,
 ``HyperpriorCharmModel``, ``InterpCaHyperpriorModel``,
 ``InterpCaHyperpriorCharmModel``, ``BetaCondInterpCaHyperpriorModel`` and
 the flagship ``BetaCondInterpCaHyperpriorCharmModel``, each with the codec,
-the eval forward (``run_model``) and ``validation``.  The training forward
-is not ported yet.
+the eval forward (``run_model``) and ``validation``; the Charm classes take
+either context model (``Minnen20CharmContextModel`` or the checkerboard
+``ElicCheckerboardCharmContextModel``).  The training forward is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -186,6 +188,10 @@ class BaseModel(CodecMixin, DeviceWireCodecMixin):
                            f"parameter (e.g. {unused[:4]})")
         logger.info(f"loaded checkpoint: {ckpt_path}")
         return counts
+
+    @property
+    def _is_checkerboard(self) -> bool:
+        return self.context_type == "ElicCheckerboardCharmContextModel"
 
     # ---------------- precision ------------------------------------------------
 

@@ -1,10 +1,12 @@
-"""The lane-rans32 decoder of the device wire in plain PyTorch: K2's twin.
+"""The lane-rans32 coder of the device wire in plain PyTorch: the twins of
+K2 (decode) and E1 (encode).
 
-Counterpart of the decode half of ``crdr_tpu/ops/device_rans.py``
-(``init_lane_state``, ``expand_tables``, ``_decode_step_core``,
-``lane_decode_round_instep``, ``apply_fixups``).  It decodes the streams of
-``runtime/lane_rans.py``: all K lanes of every image advance one symbol per
-step, with the same count-based CDF search and the same masking as JAX.
+Counterpart of ``crdr_tpu/ops/device_rans.py`` (``init_lane_state``,
+``expand_tables``, ``_decode_step_core``, ``lane_decode_round_instep``,
+``apply_fixups``, ``encode_grid``, ``lane_encode_rounds``).  It decodes and
+writes the streams of ``runtime/lane_rans.py``: all K lanes of every image
+advance one symbol per step, with the same count-based CDF search and the
+same masking as JAX.
 
 Tensors: states [N, K] int64 holding uint32 values (torch has no general
 uint32 arithmetic: every product and shift is masked with ``& 0xFFFFFFFF``,
@@ -13,14 +15,17 @@ holding 16-bit values, idx [N, M >= m] int32, cdf [R, L] int32, cdf_len /
 cdf_off [R] int32.  Everything is integer, so the twin, the CUDA kernel
 (``ops/lane_decode.py``), JAX and the host C++ lane decoder agree exactly.
 
-The device-wire encoder (``encode_grid``, ``lane_encode_rounds``) is not
-ported: the port encodes the device wire on the host.
+Encode (E1's twin, ``lane_encode_rounds``): the slot resolution and the
+escape fixups are parallel gathers and cumsums (``lane_encode_operands``,
+``lane_fixups``, shared with the kernel's wrapper ``ops/lane_encode.py``);
+the serial part is a reverse walk over the [T, K] grid of ``encode_grid``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -128,3 +133,138 @@ def apply_fixups(vals: Tensor, fix_pos: Tensor, fix_val: Tensor,
     out = torch.cat([vals.reshape(-1), vals.new_zeros(1)])
     out = out.scatter(0, flat_idx, fix_val.reshape(-1).to(vals.dtype))
     return out[:spare].reshape(n, m)
+
+
+# ---------------- encode ---------------------------------------------------
+
+def encode_grid(slice_offsets: Sequence[int], num_lanes: int) -> np.ndarray:
+    """The [T, K] int32 grid of flat symbol positions in lane consumption
+    order: within each round (``slice_offsets`` boundaries, where the lane
+    assignment restarts) symbol ``off_s + r*K + j`` sits at row ``r``, lane
+    ``j``; entries past a round's end are -1 (inactive).  The per-lane
+    sequence of the host coder's ``lane_rans_encode``."""
+    off = np.asarray(slice_offsets, dtype=np.int64)
+    k = int(num_lanes)
+    rows = [np.zeros((0, k), np.int64)]
+    for s in range(off.size - 1):
+        m = int(off[s + 1] - off[s])
+        t = -(-m // k)
+        g = (off[s] + np.arange(t, dtype=np.int64)[:, None] * k
+             + np.arange(k, dtype=np.int64)[None, :])
+        rows.append(np.where(g < off[s + 1], g, -1))
+    return np.concatenate(rows, axis=0).astype(np.int32)
+
+
+def lane_encode_operands(sym: Tensor, idx: Tensor, grid: Tensor, cdf: Tensor,
+                         cdf_len: Tensor, offset: Tensor
+                         ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The parallel half of the encoder: each symbol's slot (its value
+    folded into its row, or the escape slot), its ``low`` and ``freq``, laid
+    onto the grid.  sym / idx [N, M] (any int dtype), grid [T, K] int32,
+    tables int32.  Returns (low [N, T, K] int32, freq [N, T, K] int32, 0 at
+    an inactive entry, esc [N, M] bool)."""
+    n, m = sym.shape
+    t_steps, k = grid.shape
+    i = idx.to(torch.int64)
+    sym = sym.to(torch.int64)
+    maxv = cdf_len[i].to(torch.int64) - 2
+    folded = sym - offset[i].to(torch.int64)
+    esc = (folded < 0) | (folded >= maxv)
+    flat = i * cdf.shape[1] + torch.where(esc, maxv, folded)
+    cdf_flat = cdf.reshape(-1)
+    low = cdf_flat[flat]
+    freq = cdf_flat[flat + 1] - low
+    gpos = grid.to(torch.int64).clamp(min=0).reshape(-1)
+    act = (grid >= 0).reshape(1, t_steps, k)
+    low_g = low[:, gpos].reshape(n, t_steps, k)
+    freq_g = torch.where(act, freq[:, gpos].reshape(n, t_steps, k), 0)
+    return (low_g.to(torch.int32).contiguous(),
+            freq_g.to(torch.int32).contiguous(), esc)
+
+
+def lane_fixups(sym: Tensor, esc: Tensor, fix_cap: Optional[int]
+                ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Escape fixups in forward flat order: (fix_pos [N, F] int32, fix_val
+    [N, F] int32, n_esc [N] int32) with F = ``fix_cap``; escapes past the
+    cap are counted in ``n_esc`` but not stored, and unused slots are 0.
+    ``fix_cap=None`` keeps every escape (F = M)."""
+    n, m = sym.shape
+    dev = sym.device
+    if fix_cap is None:
+        fix_cap = m
+    esc_i = esc.to(torch.int64)
+    fcum = torch.cumsum(esc_i, 1)
+    n_esc = fcum[:, -1] if m else torch.zeros(n, dtype=torch.int64,
+                                              device=dev)
+    fpos = fcum - esc_i
+    # escapes past the cap, and the symbols that are none, go to a spare
+    # region, one slot each (no two writes to one address)
+    pos = torch.arange(m, device=dev).expand(n, m)
+    slot = torch.where(esc & (fpos < fix_cap), fpos, fix_cap + pos)
+    fix_pos = torch.zeros((n, fix_cap + m), dtype=torch.int32, device=dev)
+    fix_val = torch.zeros_like(fix_pos)
+    fix_pos.scatter_(1, slot, pos.to(torch.int32))
+    fix_val.scatter_(1, slot, sym.to(torch.int32))
+    return (fix_pos[:, :fix_cap].contiguous(),
+            fix_val[:, :fix_cap].contiguous(), n_esc.to(torch.int32))
+
+
+def lane_encode_scan(low_g: Tensor, freq_g: Tensor) -> Tuple[Tensor, Tensor]:
+    """The serial half in plain PyTorch (E1's twin): every lane walks its
+    grid column last row first from the state 2^16.  A step with
+    ``(x >> 16) >= freq`` first emits ``x & 0xFFFF`` and shifts x down by 16
+    (at most one word a symbol); then ``q = x // freq``, ``x = (q << 16) +
+    (x - q*freq) + low``, in uint32 (int64 carriers; an inactive entry,
+    freq 0, leaves x as it was).  The word of row t lands at ``2 + #emissions
+    at rows < t`` and the final state in words 0 (high half) and 1.
+    Returns (words [N, K, T+2] int32 holding 16-bit values, zero past each
+    lane's length; lens [N, K] int32)."""
+    n, t_steps, k = low_g.shape
+    dev = low_g.device
+    x = torch.full((n, k), 1 << 16, dtype=torch.int64, device=dev)
+    words_t, emit_t = [], []
+    for t in range(t_steps - 1, -1, -1):
+        act = freq_g[:, t] > 0
+        fq = torch.where(act, freq_g[:, t].to(torch.int64), 1)
+        emit = act & ((x >> 16) >= fq)
+        words_t.append(x & 0xFFFF)
+        emit_t.append(emit)
+        x1 = torch.where(emit, x >> 16, x)
+        q = x1 // fq
+        x2 = ((q << 16) + (x1 - q * fq) + low_g[:, t].to(torch.int64)) & _U32
+        x = torch.where(act, x2, x1)
+    cap = t_steps + 2
+    words = torch.zeros((n, k, cap + 1), dtype=torch.int64, device=dev)
+    if t_steps:
+        emit = torch.stack(emit_t[::-1], 2).to(torch.int64)  # [N, K, T]
+        ecum = torch.cumsum(emit, 2)
+        pos = torch.where(emit > 0, 2 + ecum - emit, cap)  # cap: spare
+        words.scatter_(2, pos, torch.stack(words_t[::-1], 2))
+        lens = 2 + ecum[:, :, -1]
+    else:
+        lens = torch.full((n, k), 2, dtype=torch.int64, device=dev)
+    words = words[:, :, :cap]
+    words[:, :, 0] = x >> 16
+    words[:, :, 1] = x & 0xFFFF
+    return words.to(torch.int32), lens.to(torch.int32)
+
+
+def lane_encode_rounds(sym: Tensor, idx: Tensor, grid: Tensor, cdf: Tensor,
+                       cdf_len: Tensor, offset: Tensor,
+                       fix_cap: Optional[int]
+                       ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The device-wire lane encoder in plain PyTorch, the inverse of
+    ``lane_decode_round_instep``; its streams equal the host coder's
+    (``runtime/lane_rans.lane_encode``) byte for byte.
+
+    sym / idx [N, M] in lane consumption order, grid [T, K] int32 from
+    ``encode_grid`` (on the tensors' device), cdf [R, L] / cdf_len [R] /
+    offset [R] int32.  Returns (words [N, K, T+2] int32 of 16-bit values,
+    lens [N, K] int32, fix_pos [N, F] int32, fix_val [N, F] int32, n_esc [N]
+    int32), F = ``fix_cap`` (M when None: every escape is kept):
+    ``words[n, k, :lens[n, k]]`` is lane k's stream (2 state words, then the
+    renorm words)."""
+    low_g, freq_g, esc = lane_encode_operands(sym, idx, grid, cdf, cdf_len,
+                                              offset)
+    words, lens = lane_encode_scan(low_g, freq_g)
+    return (words, lens) + lane_fixups(sym, esc, fix_cap)

@@ -15,7 +15,7 @@ from ..utils.registry import (CONTEXTMODEL_REGISTRY, DECODER_REGISTRY,
                               HYPERDECODER_REGISTRY, HYPERENCODER_REGISTRY)
 from .autoencoder import (balle18, elic, elic_interpca,  # noqa: F401
                           elic_interpca_beta_cond)
-from .context_model import charm  # noqa: F401
+from .context_model import charm, checkerboard  # noqa: F401
 from .hyperprior import alt, minnen20  # noqa: F401
 
 _REGISTRIES = {

@@ -167,11 +167,13 @@ def test_state_dict_uses_reference_names(model):
 @pytest.mark.parametrize("key,value", [("codec_precision", "default"),
                                        ("wire_format", "device")])
 def test_unported_codec_options_raise(key, value):
-    """A config the port would run as another function than JAX's raises:
-    wire_format: device with JAX's default device_wire_encoder: device,
-    whose encoder is not ported.  codec_precision: default
-    (config/crdr_fastchain.yaml) is ported: it sets up with TF32 in the
-    chain and the transforms, and a precision name the port cannot map
+    """Named for the time the port refused these options; it checks that
+    the port now runs them as JAX's function.
+    codec_precision: default (config/crdr_fastchain.yaml) sets up with TF32
+    in the chain and the transforms, and a precision name the port cannot
+    map raises.  wire_format: device with JAX's default
+    device_wire_encoder (device: the E1 lane encoder, its twin on the CPU)
+    sets up and round-trips exactly; an encoder name it does not know
     raises."""
     m = build_comp_model(_opt(**{key: value}), device="cpu")
     if key == "codec_precision":
@@ -181,7 +183,15 @@ def test_unported_codec_options_raise(key, value):
         with pytest.raises(ValueError, match="precision"):
             m.codec_setup()
         return
-    with pytest.raises(NotImplementedError, match=key):
+    m.codec_setup()
+    assert m.wire_format == "device" and m.device_wire_encoder == "device"
+    enc = m.compress(_smooth(1, 64, 64, seed=6), rate_ind=1.0)
+    assert enc["string_list"][2][:4] == b"CRDW"
+    _, _, y_hat = m.decompress(enc["string_list"], beta=1.0)
+    np.testing.assert_array_equal(y_hat, enc["y_hat"])
+    m = build_comp_model(_opt(wire_format="device",
+                              device_wire_encoder="tpu"), device="cpu")
+    with pytest.raises(ValueError, match="device_wire_encoder"):
         m.codec_setup()
 
 

@@ -3,10 +3,17 @@
 
 ``tiny_opt()`` in the serving configuration (``fused_slice_kernel``, bf16
 transforms) with ``wire_format: device`` and ``device_wire_encoder: host``:
-on the CPU the K2 and K1 wrappers run their plain twins, so these hold the
-device-wire codec's structure; ``chip_smoke.py`` holds it on the H100 with
-the kernels.  The golden digests and the cross-decode with JAX are in
-``tests/test_torch_golden.py``.
+on the CPU the K2, K1 and E1 wrappers run their plain twins, so these hold
+the device-wire codec's structure; ``chip_smoke.py`` holds it on the H100
+with the kernels.  The golden digests and the cross-decode with JAX are in
+``tests/test_torch_golden.py`` (Charm), ``tests/test_torch_checkerboard.py``
+(checkerboard) and below (the generic family).
+
+The device-side lane encoder (``device_wire_encoder: device``, E1): its
+containers equal the host coder's for the Charm, generic and checkerboard
+families (as JAX's ``test_device_encoder_matches_host_encoder``), also on
+an image with more escapes than ``device_wire_fixup_cap``: E1 keeps every
+escape, where JAX re-encodes such a batch on the host.
 """
 
 import os
@@ -126,10 +133,20 @@ def test_wire_mismatch_raises(model, host_wire):
 
 
 def test_device_encoder_is_not_ported():
-    m = build_comp_model(_opt(wire_format="device",
-                              device_wire_encoder="device"), device="cpu")
-    with pytest.raises(NotImplementedError, match="device_wire_encoder"):
-        m.codec_setup()
+    """Named for the time the port refused the device-side lane encoder;
+    it checks that the encoder is now ported and is the default (as in
+    JAX): device_wire_encoder: device sets up, and its containers equal the
+    host coder's byte for byte."""
+    m = build_comp_model(_opt(wire_format="device", device_wire_lanes=16),
+                         device="cpu")
+    m.codec_setup()
+    assert m.device_wire_encoder == "device"
+    x = _smooth(2, 64, 64, seed=13)
+    dev = m.compress_batch(x, rate_ind=1.0)
+    m.opt["device_wire_encoder"] = "host"
+    m.codec_setup()
+    host = m.compress_batch(x, rate_ind=1.0)
+    assert [e["string_list"] for e in dev] == [e["string_list"] for e in host]
 
 
 def test_k2_rounds_per_batch_decode(model, monkeypatch):
@@ -170,3 +187,88 @@ def test_throughput_config_runs_the_device_wire():
     enc = m.compress(_smooth(1, 64, 64, seed=4), rate_ind=1.0)
     _, _, y_hat = m.decompress(enc["string_list"], beta=1.0)
     np.testing.assert_array_equal(y_hat, enc["y_hat"])
+
+
+# ---------------- the device-side lane encoder (E1) -------------------------
+
+def _family_opt(family, encoder):
+    """JAX's ``_ab_opt``: the tiny model of a family on the device wire,
+    16 lanes."""
+    if family == "generic":
+        opt = tiny_opt("HyperpriorModel", charm=False, rate=False, beta=False)
+    else:
+        opt = tiny_opt()
+    opt = ConfigDict(opt.to_dict())
+    if family == "cb":
+        opt["subnet"]["context_model"]["type"] = \
+            "ElicCheckerboardCharmContextModel"
+    opt.update(wire_format="device", device_wire_lanes=16,
+               device_wire_encoder=encoder)
+    return opt
+
+
+@pytest.mark.parametrize("family", ["charm", "generic", "cb"])
+def test_device_encoder_matches_host_encoder(family):
+    rate = {} if family == "generic" else {"rate_ind": 1.0}
+    x = _smooth(2, 64, 64, seed=23) * 3.0
+    encs = {}
+    for encoder in ("device", "host"):
+        m = build_comp_model(_family_opt(family, encoder), device="cpu")
+        m.codec_setup()
+        assert m.device_wire_encoder == encoder
+        encs[encoder] = m.compress_batch(x, **rate)
+    for d, h in zip(encs["device"], encs["host"]):
+        assert d["string_list"] == h["string_list"]
+        assert d["pred_y_bit"] == h["pred_y_bit"]
+    beta = {} if family == "generic" else {"beta": 0.5}
+    _, _, y_hat = m.decompress_batch(
+        [e["string_list"] for e in encs["device"]], **beta)
+    np.testing.assert_array_equal(y_hat, np.concatenate(
+        [e["y_hat"] for e in encs["device"]]))
+
+
+def test_device_encoder_overflow_matches_host(monkeypatch):
+    """More escapes than ``device_wire_fixup_cap``: E1 keeps every escape,
+    so its containers equal the host coder's (whose buffer grows) byte for
+    byte, without the host coder being called, and decode exactly."""
+    x = _smooth(1, 64, 64, seed=2) * 40.0  # far outside the trained range
+    out = {}
+    for encoder in ("host", "device"):
+        m = _model(device_wire_fixup_cap=1, **dict(
+            DEVICE_WIRE, device_wire_encoder=encoder))
+        out[encoder] = m.compress(x, rate_ind=0.0)
+        monkeypatch.setattr(codec_devicewire, "lane_encode", None)
+    assert unpack_lane_container(out["host"]["string_list"][2])[2].size > 1
+    assert out["device"]["string_list"] == out["host"]["string_list"]
+    _, _, y_hat = m.decompress(out["device"]["string_list"], beta=0.0)
+    np.testing.assert_array_equal(y_hat, out["device"]["y_hat"])
+
+
+@pytest.fixture(scope="module", params=["HyperpriorModel",
+                                        "BetaCondInterpCaHyperpriorModel"])
+def generic_pair(request):
+    """(port, JAX) tiny generic models on the device wire, each with its
+    default device-side lane encoder (``tests/torch_pairs.py``)."""
+    from tests.torch_pairs import pair
+    return pair(request.param, wire_format="device", device_wire_lanes=16)
+
+
+def test_generic_device_wire_byte_identical_to_jax(generic_pair):
+    from tests.torch_pairs import codec_kwargs, images
+    pm, jm = generic_pair
+    ek, dk = codec_kwargs(pm)
+    x = images(2, 64, 96, seed=21)
+    port, ref = pm.compress_batch(x, **ek), jm.compress_batch(x, **ek)
+    for p, j in zip(port, ref):
+        assert p["string_list"][2][:4] == b"CRDW"
+        assert [bytes(s) for s in p["string_list"]] == \
+            [bytes(s) for s in j["string_list"]]
+    _, _, y_p = pm.decompress_batch([e["string_list"] for e in port], **dk)
+    np.testing.assert_array_equal(y_p, np.concatenate(
+        [e["y_hat"] for e in port]))
+    _, _, y_pj = pm.decompress_batch([e["string_list"] for e in ref], **dk)
+    _, _, y_jp = jm.decompress_batch([e["string_list"] for e in port], **dk)
+    for got in (y_pj, np.asarray(y_jp)):
+        np.testing.assert_allclose(got, y_p, rtol=1e-5, atol=1e-5)
+    one = pm.compress(x[1:], **ek)
+    assert one["string_list"] == port[1]["string_list"]
