@@ -4,7 +4,8 @@
     python3 chip_smoke.py               # from the root of a checkout; one GPU
     python3 chip_smoke.py --profile     # + device time by kernel, idle share,
                                         #   K1's, K2's and K3's shares (and
-                                        #   the checkerboard's decode)
+                                        #   the checkerboard's decode); a
+                                        #   training step taken apart
     python3 chip_smoke.py --ab-encode   # + the fixed-batch analysis A/B
 
 Phases, each asserted (any failure exits non-zero):
@@ -127,7 +128,37 @@ Phases, each asserted (any failure exits non-zero):
    streams equal across the encoders, real vs predicted bpp), and K2
    against its twin on the long y round (m 491,520, T 3,840 a lane).
    Each model is freed before the next.
-15. one JSON line of kernel figures (launches by path, every path above),
+15. training (stages 1 and 2) at full width, batch 8, 256x256 crops of the
+   recipes' synthetic uint8 data, seed 0, checkpoints in a temporary
+   directory, each run through build_trainer(...).train_loop() with the
+   kernel counts set to 0 just before it: config/endurance_stage1.yaml
+   (elic_charm, HiFiC rate + MSE + LPIPS on its seeded random init,
+   mixed precision, aux Adam) for 30 steps, every loss finite and no step
+   skipped, the median step time (each step between two synchronizes; its
+   quartiles and range), images/s, peak memory, model FLOPs a step
+   (forward hooks: 3 x the net's conv / GDN FLOPs + 1.5 x LPIPS's) and
+   their share of the bf16 / TF32 / f32 peaks; then 20 steps on one fixed
+   batch, the mean total loss of the last 5 below that of the first 5, and
+   a checkpoint; the same weights, batch (2 images) and noise through one
+   f32 step on the card and on the CPU, TF32 off: at the seeded init,
+   losses within 1e-4 and every gradient within a relative L2 error of
+   1e-3; at the trained weights, against a float64 CPU step: the ReLU
+   gates, max pool picks and lower-bound gates each f32 step sets apart
+   from it counted, and with the ReLUs and max pools held to its gates and
+   picks the card and the f32 CPU each within those limits of it and of
+   each other (with free gates a gradient past the limit passes only where
+   some gate differs); endurance_stage2.yaml and cb_stage2.yaml, 25 steps
+   each from that checkpoint (the handoff loads every stage-1 tensor and
+   keeps the InterpCA / spatial-context ones at init; rate_ind spans its 5
+   levels); balle18_mean_scale.yaml's model under the stage-1 recipe in
+   f32, 25 steps, K3 6 launches a step and every GDN parameter a gradient
+   (GDNFunction), K3's six calls of a step timed (each config's step time
+   over its last 20 steps); resume: saved at step 3, rebuilt from the
+   checkpoint, run to 6 on the same batches, bit-equal to the
+   uninterrupted run; the train CLI (python -m crdr_tpu_torch.cli.train
+   endurance_stage1.yaml -ti 3) as a subprocess: checkpoints, loss CSV and
+   config dump written.  One line of training figures.
+16. one JSON line of kernel figures (launches by path, every path above),
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -2042,6 +2073,675 @@ def generic_device_phase(imgs, card: str):
     return counts, times, long
 
 
+# ---------------- phase 15: training (stages 1 and 2) ------------------------
+
+TRAIN_STEPS = 30      # stage 1 through build_trainer(...).train_loop()
+FALL_STEPS = 20       # on one fixed batch: the last 5 below the first 5
+SHORT_STEPS = 25      # stage 2, the checkerboard, the GDN model
+WARM_STEPS = 5        # steps left out of the step-time statistics
+RESUME_K = 3          # resume: save at step k, rebuild, run to 2k
+CMP_BATCH = 2         # the card-vs-CPU f32 step (the CPU runs it too)
+TRAIN_RTOL, GRAD_REL = 1e-4, 1e-3
+# NVIDIA's data sheet, H100 SXM, dense, at 700 W: bf16 / TF32 / f32 TFLOP/s
+PEAK_TFLOPS = {"bf16": 989.0, "tf32": 495.0, "f32": 67.0}
+
+
+def train_config(name: str, tmp: str, exp: str, **over):
+    """A training config of config/ with its checkpoints under ``tmp``,
+    seed 0, no validation or rolling save in the run, and ``over`` laid on
+    top."""
+    from crdr_tpu_torch.utils.config import Config, fill_paths
+
+    cfg = Config.from_file(os.path.join(ROOT, "config", name))
+    cfg.update({"ckpt_root": tmp, "exp": exp, "seed": 0,
+                "eval_step": 10 ** 9, "save_step": 10 ** 9,
+                "time_step": 10 ** 9, "log_step": 10,
+                "total_iter": TRAIN_STEPS, **over})
+    fill_paths(cfg)
+    return cfg
+
+
+def record_steps(tr):
+    """Wraps the trainer's step: each step timed between two synchronizes,
+    its device log and its sampled rate_ind kept.  Returns the three lists."""
+    import torch
+
+    logs, times, rates = [], [], []
+    step, controls = tr.optimize_parameters_device, tr.sample_controls
+
+    def timed(itr, data):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log = step(itr, data)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        logs.append(log)
+        return log
+
+    def sampled(itr):
+        out = controls(itr)
+        rates.append(out[0])
+        return out
+
+    tr.optimize_parameters_device, tr.sample_controls = timed, sampled
+    return logs, times, rates
+
+
+def check_logs(logs, label: str) -> dict:
+    """Every loss of every step finite, no step skipped; the last step's
+    losses."""
+    import torch
+
+    keys = sorted(logs[0])
+    vals = torch.stack([torch.stack([log[k].float().reshape(())
+                                     for k in keys]) for log in logs]).cpu()
+    check(bool(torch.isfinite(vals).all()), f"{label}: a non-finite loss")
+    check(not vals[:, keys.index("skipped")].any(), f"{label}: a step was "
+          "skipped")
+    return dict(zip(keys, vals[-1].tolist()))
+
+
+def step_flops(tr, data) -> float:
+    """Model FLOPs of one training step: 3 x the convolutions' (and GDN's)
+    forward FLOPs in the net (forward, and the input and weight gradients)
+    + 1.5 x LPIPS's (both images forward, the fake one's input gradient;
+    its weights are frozen), counted by forward hooks over one step."""
+    from crdr_tpu_torch.nn import GDN, Conv2d, ConvTranspose2d
+
+    total = {"net": 0, "lpips": 0}
+    handles = []
+
+    def hook(part):
+        def count(m, inp, out):
+            if isinstance(m, GDN):  # gamma . x^2 over C x C a pixel
+                total[part] += 2 * inp[0].numel() * m.gamma.shape[0]
+            elif isinstance(m, ConvTranspose2d):
+                total[part] += 2 * inp[0].numel() * m.weight[0].numel()
+            else:
+                total[part] += 2 * out.numel() * m.weight[0].numel()
+        return count
+
+    roots = [("net", tr.comp_model.net)]
+    if tr.perceptual_loss is not None:
+        roots.append(("lpips", tr.perceptual_loss))
+    for part, root in roots:
+        handles += [m.register_forward_hook(hook(part)) for m in
+                    root.modules()
+                    if isinstance(m, (Conv2d, ConvTranspose2d, GDN))]
+    try:
+        tr.optimize_parameters_device(tr.step + 1, data)
+    finally:
+        for h in handles:
+            h.remove()
+    return 3.0 * total["net"] + 1.5 * total["lpips"]
+
+
+def train_stats(label, cfg, times, flops, peak, card: str) -> dict:
+    """Median step time after WARM_STEPS (and its quartiles and range),
+    images/s, peak memory, model FLOPs a step and their share of each
+    peak."""
+    timed = times[WARM_STEPS:]
+    ms = float(np.median(timed))
+    q1, q3 = (float(v) for v in np.percentile(timed, [25, 75]))
+    batch = cfg.dataset.batch_size
+    size = cfg.dataset.train_dataset.image_size
+    res = {"ms_per_step": ms, "images_per_s": batch / ms * 1e3,
+           "peak_mem_gib": peak / 2 ** 30, "gflop_per_step": flops / 1e9,
+           "steps_timed": len(timed), "q1_ms": q1, "q3_ms": q3,
+           "min_ms": float(min(timed)), "max_ms": float(max(timed)),
+           "mixed_precision": bool(cfg.get("mixed_precision", False))}
+    for kind, peak_tf in PEAK_TFLOPS.items():
+        res[f"share_{kind}"] = flops / (ms * 1e-3) / (peak_tf * 1e12)
+    print(f"train {label}: batch {batch} x {size}x{size}, median "
+          f"{ms:.1f} ms a step over {res['steps_timed']} steps (each between "
+          f"two synchronizes; quartiles {q1:.1f}-{q3:.1f}, range "
+          f"{res['min_ms']:.1f}-{res['max_ms']:.1f}; runs "
+          f"{[round(t, 1) for t in times]}), "
+          f"{res['images_per_s']:.1f} images/s, peak memory "
+          f"{res['peak_mem_gib']:.2f} GiB, {flops / 1e12:.3f} TFLOP a step: "
+          + ", ".join(f"{res[f'share_{k}']:.4f} of the {k} peak"
+                      for k in PEAK_TFLOPS) + f" [{card}]")
+    return res
+
+
+def train_run(label, cfg, card: str, kernels: dict):
+    """build_trainer + train_loop on the card, every count set to 0 just
+    before train_loop and read after.  Returns (trainer, stats, logs,
+    rates, {kernel: launches}, the seeded init's state_dict on the CPU)."""
+    import torch
+
+    from crdr_tpu_torch.trainer import build_trainer
+
+    t0 = time.perf_counter()
+    tr = build_trainer(cfg)  # the GPU
+    print(f"train {label}: {cfg.model_type} built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in tr.comp_model.net.parameters()) / 1e6:.1f}"
+          f"M params")
+    check(tr.comp_model.device.type == "cuda", f"{label}: not on the card")
+    init = {k: v.detach().cpu().clone()
+            for k, v in tr.comp_model.state_dict().items()}
+    logs, times, rates = record_steps(tr)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    tr.train_loop()
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    last = check_logs(logs, label)
+    print(f"train {label}: {len(logs)} steps, all losses finite, none "
+          f"skipped; last step " + ", ".join(
+              f"{k} {v:.4f}" for k, v in last.items()) + f"; launches {counts}")
+    stats = train_stats(label, cfg, list(times), step_flops(
+        tr, next(iter(tr.train_loader))), peak, card)
+    return tr, stats, logs, rates, counts, init
+
+
+def gate_replay(ref=None):
+    """A TorchFunctionMode over one training forward that records, in call
+    order, each ReLU's gate (input > 0), each max pool's picks and each
+    lower bound's gate (input >= bound).  Given ``ref``, another forward's
+    record, the ReLUs and max pools follow ``ref``'s gates and picks instead
+    of their own, so two devices compute the same piece of the piecewise
+    function (the lower bounds are recorded only)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    relus = (torch.relu, F.relu, torch.Tensor.relu)
+
+    class GateReplay(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.rec = {"relu": [], "max_pool": [], "lower_bound": []}
+
+        def _ref(self, kind, like):
+            got = ref[kind][len(self.rec[kind]) - 1]
+            check(got.shape == like.shape, f"gate replay: {kind} call "
+                  f"{len(self.rec[kind])} has shape {tuple(like.shape)}, "
+                  f"the reference's {tuple(got.shape)}")
+            return got.to(like.device)
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in relus:
+                x = args[0]
+                self.rec["relu"].append((x > 0).detach())
+                if ref is None:
+                    return func(*args, **kwargs)
+                return torch.where(self._ref("relu", x), x,
+                                   torch.zeros_like(x))
+            if func is F.max_pool2d:
+                kw = {k: v for k, v in kwargs.items() if k != "return_indices"}
+                out, idx = F.max_pool2d_with_indices(*args, **kw)
+                self.rec["max_pool"].append(idx)
+                if ref is None:
+                    return out
+                x = args[0]
+                pick = self._ref("max_pool", idx)
+                return x.flatten(2).gather(2, pick.flatten(2)).view_as(out)
+            if func is torch.clamp and "min" in kwargs and \
+                    isinstance(kwargs["min"], float):
+                self.rec["lower_bound"].append(
+                    (args[0] >= kwargs["min"]).detach())
+            return func(*args, **kwargs)
+
+    return GateReplay()
+
+
+def gates_apart(a: dict, b: dict) -> dict:
+    """Elements whose gate (or max pool pick) differs between two records of
+    the same forward, by kind: their count and, for each call with any,
+    [call index, shape, count]."""
+    out = {}
+    for kind, xs in a.items():
+        check(len(xs) == len(b[kind]), f"gate records: {len(xs)} {kind} "
+              f"calls against {len(b[kind])}")
+        calls = [[i, list(x.shape), int((x.cpu() != y.cpu()).sum())]
+                 for i, (x, y) in enumerate(zip(xs, b[kind]))]
+        calls = [c for c in calls if c[2]]
+        out[kind] = {"elements": sum(c[2] for c in calls), "calls": calls}
+    return out
+
+
+def train_grads(trainer, batch, noise, dtype=None, gates=None):
+    """One training forward and backward in ``dtype`` (f32 by default; the
+    trainer's net and perceptual loss already in it), no optimizer step:
+    the losses, the parameters' gradients (float64, on the CPU), the
+    quantized latents {"y", "z"} (on the CPU) and, with ``gates`` (a
+    gate_replay mode), that mode's record."""
+    import contextlib
+
+    import torch
+
+    trainer.comp_model.net.zero_grad(set_to_none=True)
+    x = trainer.put_batch(batch)
+    with gates if gates is not None else contextlib.nullcontext():
+        losses, out, _ = trainer._g_losses(x.to(dtype or x.dtype), 0.0, 0.0,
+                                           noise)
+    total = sum(losses.values())
+    total.backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in trainer.comp_model.net.named_parameters()
+             if p.grad is not None}
+    trainer.comp_model.net.zero_grad(set_to_none=True)
+    return {**{k: float(v.detach()) for k, v in losses.items()},
+            "total": float(total.detach())}, grads, {
+        k: v.detach().cpu() for k, v in out["quantized_code"].items()}, \
+        gates.rec if gates is not None else None
+
+
+def compare_steps(a, b):
+    """(max relative loss difference, [(relative L2 error, name)] worst
+    first) of two train_grads results; ``b`` is the reference."""
+    import torch
+
+    (la, ga), (lb, gb) = a[:2], b[:2]
+    check(set(ga) == set(gb), "the two steps' gradients have other names")
+    loss_rel = max(abs(la[k] - v) / max(abs(v), 1e-30) for k, v in lb.items())
+    errs = []
+    for name, ref in gb.items():
+        norm = float(torch.linalg.vector_norm(ref))
+        err = float(torch.linalg.vector_norm(ga[name] - ref))
+        errs.append((err / norm if norm > 0 else err, name))
+    return loss_rel, sorted(errs, reverse=True)
+
+
+def step_row(mine, ref) -> dict:
+    """One comparison of two train_grads results (``ref`` the reference):
+    the largest loss and gradient differences, the gradients over GRAD_REL
+    and the quantized values the two rounded to other integers (the STE's
+    round near a half-integer: a step of the forward)."""
+    loss_rel, errs = compare_steps(mine, ref)
+    return {"max_loss_rel": loss_rel, "max_grad_rel_l2": errs[0][0],
+            "worst": errs[0][1], "next": errs[1:4], "gradients": len(errs),
+            "over_limit": [n for e, n in errs if e > GRAD_REL],
+            "rounded_apart": {k: int(((mine[2][k] - v).abs() > 0.5).sum())
+                              for k, v in ref[2].items()}}
+
+
+def say_row(what: str, row: dict) -> str:
+    return (f"{what}: max relative loss difference "
+            f"{row['max_loss_rel']:.3e}; {row['gradients']} gradients, max "
+            f"relative L2 error {row['max_grad_rel_l2']:.3e} ({row['worst']}), "
+            f"{len(row['over_limit'])} over {GRAD_REL} {row['over_limit']}; "
+            f"next: " + ", ".join(f"{n} {e:.2e}" for e, n in row["next"])
+            + f"; quantized values rounded apart {row['rounded_apart']}")
+
+
+def card_vs_cpu_phase(tr, init_state, tmp: str, batch, card: str) -> dict:
+    """The same weights, batch and noise through one f32 training step
+    (TF32 off) on the card and on the CPU.
+
+    At the seeded init: every loss within TRAIN_RTOL and every gradient
+    within a relative L2 error of GRAD_REL of the CPU's.  At stage 1's
+    trained weights the reference is a float64 CPU step.  Each ReLU gate,
+    max pool pick and lower-bound gate that an f32 step sets otherwise
+    than the float64 one is counted; then the card and the f32 CPU run
+    again with their ReLUs and max pools held to the float64 step's gates
+    and picks, and each of the two must be within TRAIN_RTOL and GRAD_REL
+    of the float64 step and of each other.  Among the free steps (card, f32
+    CPU, float64 CPU), every pair's losses are within TRAIN_RTOL, and a
+    gradient over GRAD_REL passes only where the two steps set some gate
+    apart (the calls that did are printed).  The card's own f32 spread
+    (the same step with other cuDNN algorithms: deterministic off,
+    autotuning on) is printed beside it."""
+    import torch
+
+    from crdr_tpu_torch.trainer import build_trainer
+
+    def cpu_trainer(exp):
+        return build_trainer(train_config("endurance_stage1.yaml", tmp, exp,
+                                          mixed_precision=False),
+                             device="cpu")
+
+    cpu = cpu_trainer("f32cpu")
+    trained = {k: v.detach().cpu().clone()
+               for k, v in tr.comp_model.state_dict().items()}
+    drawn, g = {}, torch.Generator().manual_seed(1)
+
+    def record(name, like):
+        drawn[name] = torch.rand(like.shape, generator=g,
+                                 dtype=torch.float32) - 0.5
+        return drawn[name].to(like.dtype)
+
+    def replay(name, like):
+        return drawn[name].to(like.device, like.dtype)
+
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+             tr.opt.get("mixed_precision"))
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    tr.opt["mixed_precision"] = False
+    res = {}
+    try:
+        # the seeded init: the card against the f32 CPU
+        for t in (cpu, tr):
+            t.comp_model.load_state_dict(init_state, strict=True)
+        t0 = time.perf_counter()
+        ref = train_grads(cpu, batch, record)
+        cpu_s = time.perf_counter() - t0
+        res["init"] = row = step_row(train_grads(tr, batch, replay), ref)
+        print(say_row(f"card vs CPU, f32 (TF32 off), batch {CMP_BATCH}, "
+                      "init weights", row) + f"; the CPU step took "
+              f"{cpu_s:.1f} s [{card}]")
+
+        # stage 1's trained weights: both against a float64 CPU step
+        f64 = cpu_trainer("f64cpu")
+        f64.comp_model.load_state_dict(trained, strict=True)
+        f64.comp_model.net.double()
+        f64.perceptual_loss.double()
+        for t in (cpu, tr):
+            t.comp_model.load_state_dict(trained, strict=True)
+        t0 = time.perf_counter()
+        ref = train_grads(f64, batch, replay, torch.float64, gate_replay())
+        f64_s = time.perf_counter() - t0
+        del f64
+        free = {"card": train_grads(tr, batch, replay, gates=gate_replay()),
+                "cpu": train_grads(cpu, batch, replay, gates=gate_replay())}
+        held = {k: train_grads(t, batch, replay,
+                               gates=gate_replay(ref[3]))
+                for k, t in (("card", tr), ("cpu", cpu))}
+        b.cudnn.deterministic, b.cudnn.benchmark = False, True
+        try:
+            train_grads(tr, batch, replay)  # autotune
+            spread = step_row(train_grads(tr, batch, replay), free["card"])
+        finally:
+            b.cudnn.deterministic, b.cudnn.benchmark = True, False
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+         tr.opt["mixed_precision"]) = saved
+    rows = {
+        "card vs CPU f32, free": step_row(free["card"], free["cpu"]),
+        "card vs f64, free": step_row(free["card"], ref),
+        "CPU f32 vs f64, free": step_row(free["cpu"], ref),
+        "card vs f64, gates held": step_row(held["card"], ref),
+        "CPU f32 vs f64, gates held": step_row(held["cpu"], ref),
+        "card vs CPU f32, gates held": step_row(held["card"], held["cpu"])}
+    apart = {"card vs CPU f32": gates_apart(free["card"][3], free["cpu"][3]),
+             "card vs f64": gates_apart(free["card"][3], ref[3]),
+             "CPU f32 vs f64": gates_apart(free["cpu"][3], ref[3])}
+    calls = {k: len(v) for k, v in ref[3].items()}
+    print(f"card vs CPU, trained weights, batch {CMP_BATCH}: float64 CPU "
+          f"reference step {f64_s:.1f} s; gate calls {calls}; gates set "
+          f"apart (elements; [call, shape, elements]) {apart}; the card's "
+          f"own spread (other cuDNN algorithms): max {spread['max_grad_rel_l2']:.3e} ({spread['worst']})")
+    for what, row in rows.items():
+        print(say_row(f"  {what}", row) + f" [{card}]")
+    res["trained"] = {**{k: {x: r[x] for x in ("max_loss_rel",
+                                                "max_grad_rel_l2", "worst",
+                                                "over_limit")}
+                         for k, r in rows.items()},
+                      "gates_apart": apart, "gate_calls": calls,
+                      "card_spread_max": spread["max_grad_rel_l2"]}
+
+    def holds(row, what):
+        check(row["max_loss_rel"] <= TRAIN_RTOL, f"{what}: losses differ by "
+              f"{row['max_loss_rel']:.3e} (rtol {TRAIN_RTOL})")
+        check(row["max_grad_rel_l2"] <= GRAD_REL, f"{what}: gradient "
+              f"{row['worst']} off by {row['max_grad_rel_l2']:.3e} (relative "
+              f"L2, limit {GRAD_REL})")
+
+    holds(res["init"], "card vs CPU, f32, init weights")
+    for what in ("card vs f64, gates held", "CPU f32 vs f64, gates held",
+                 "card vs CPU f32, gates held"):
+        holds(rows[what], f"trained weights, {what}")
+    for what, pair in (("card vs CPU f32, free", "card vs CPU f32"),
+                       ("card vs f64, free", "card vs f64"),
+                       ("CPU f32 vs f64, free", "CPU f32 vs f64")):
+        check(rows[what]["max_loss_rel"] <= TRAIN_RTOL, f"trained weights, "
+              f"{what}: losses differ by {rows[what]['max_loss_rel']:.3e}")
+        check(not rows[what]["over_limit"] or any(
+            v["elements"] for v in apart[pair].values()),
+            f"trained weights, {what}: gradients {rows[what]['over_limit']} "
+            "differ past the limit with every gate set alike")
+    del cpu
+    return res
+
+
+def train_split(tr, data, card: str, steps: int = 5) -> dict:
+    """The stage-1 step's forward (batch upload and losses), backward and
+    optimizer (main and aux) ms, each between two synchronizes: medians of
+    ``steps`` steps, the trainer's step taken apart (--profile)."""
+    import torch
+
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = tr.put_batch(data["real_images"])
+        rate_ind, beta, mults = tr.sample_controls(tr.step + 1)
+        losses, _, _ = tr._g_losses(batch, rate_ind, beta, tr.noise, mults)
+        total = sum(losses.values())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.g_opt.zero_grad()
+        total.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        skip = tr.loss_anomaly_flag(total.detach())
+        tr.g_opt.step(skip)
+        aux = tr.comp_model.net.aux_loss()
+        tr.aux_opt.zero_grad()
+        aux.backward()
+        tr.aux_opt.step(skip)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tr.step += 1
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(dt * 1e3)
+    res = {k: float(np.median(v)) for k, v in parts.items()}
+    print("train stage 1 step, taken apart, medians of "
+          f"{steps}: " + ", ".join(f"{k} {v:.1f} ms" for k, v in res.items())
+          + f" [{card}]")
+    return res
+
+
+def resume_check(tmp: str, card: str) -> dict:
+    """Save at step k, rebuild the trainer from the checkpoint, run to 2k
+    on the same batches: the parameters and both optimizers' states must be
+    bit-equal to the uninterrupted run's (cuDNN deterministic, no
+    autotuning, as the trainer sets)."""
+    import torch
+
+    from crdr_tpu_torch.data import cycle
+    from crdr_tpu_torch.trainer import build_trainer
+
+    k = RESUME_K
+    a = build_trainer(train_config("endurance_stage1.yaml", tmp, "resume"))
+    check(torch.backends.cudnn.deterministic and
+          not torch.backends.cudnn.benchmark, "resume: cuDNN must be "
+          "deterministic, without autotuning")
+    data = [d for _, d in cycle(a.train_loader, 0, 2 * k)]
+    for i in range(k):
+        a.optimize_parameters_device(i + 1, data[i])
+    a.save(k)
+    for i in range(k, 2 * k):
+        a.optimize_parameters_device(i + 1, data[i])
+    b = build_trainer(train_config("endurance_stage1.yaml", tmp, "resume",
+                                   start_iter=k))
+    for i in range(k, 2 * k):
+        b.optimize_parameters_device(i + 1, data[i])
+    torch.cuda.synchronize()
+    pairs = [(f"param {n}", p.detach(), q.detach()) for (n, p), (_, q) in
+             zip(a.comp_model.net.named_parameters(),
+                 b.comp_model.net.named_parameters())]
+    for label, oa, ob in (("g", a.g_opt, b.g_opt), ("aux", a.aux_opt,
+                                                     b.aux_opt)):
+        pairs += [(f"{label} {key}", oa.state[key], ob.state[key])
+                  for key in oa.state]
+    diff = {name: float((x.double() - y.double()).abs().max())
+            for name, x, y in pairs if not torch.equal(x, y)}
+    worst = max(diff.items(), key=lambda kv: kv[1]) if diff else (None, 0.0)
+    print(f"resume: saved at step {k}, rebuilt from the checkpoint, run to "
+          f"{2 * k}: {len(pairs) - len(diff)} of {len(pairs)} tensors "
+          f"bit-equal to the uninterrupted run's; largest difference "
+          f"{worst[1]:.3e} ({worst[0]}) [{card}]")
+    check(not diff, f"resume is not bit-equal: {len(diff)} tensors differ, "
+          f"the largest by {worst[1]:.3e} ({worst[0]})")
+    del a, b
+    return {"tensors": len(pairs), "differing": len(diff)}
+
+
+def cli_train_check(tmp: str, card: str) -> float:
+    """python -m crdr_tpu_torch.cli.train config/endurance_stage1.yaml as a
+    subprocess (the card by default), 3 steps, in ``tmp``: it writes its
+    checkpoints, its loss CSV and its config dump."""
+    steps = 3
+    cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.train",
+           os.path.join(ROOT, "config", "endurance_stage1.yaml"),
+           "-ti", str(steps), "-s", str(steps), "-l", "1", "-e", "1000000"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                          text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the train CLI exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    job = os.path.join(tmp, "checkpoint", "endurance_stage1")
+    for name in (f"comp_model_iter{steps}.ckpt",
+                 f"training_state_iter{steps}.ckpt"):
+        check(os.path.exists(os.path.join(job, "model", name)),
+              f"the train CLI wrote no {name}")
+    with open(os.path.join(job, "log_loss.csv")) as f:
+        rows = f.read().strip().splitlines()
+    check(len(rows) == steps + 1, f"the train CLI's log_loss.csv: {rows}")
+    check(os.path.exists(os.path.join(job, "endurance_stage1_dump.yaml")),
+          "the train CLI wrote no config dump")
+    print(f"train CLI: {' '.join(cmd[1:3])} endurance_stage1.yaml -ti "
+          f"{steps}: {dt:.1f} s (process start and model build included), "
+          f"checkpoints, {steps} loss rows and the config dump written "
+          f"[{card}]")
+    return dt
+
+
+def k3_training_ms(card: str) -> dict:
+    """K3's six calls of a GDN training step (batch 8, 256x256: GDN at
+    128x128, 64x64, 32x32 and IGDN back up, 192 channels), each a CUDA-graph
+    replay, no gradient."""
+    import torch
+
+    from crdr_tpu_torch.ops.gdn import gdn
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for side in (128, 64, 32):
+        x = torch.randn((8, 192, side, side), device="cuda", generator=g)
+        beta = torch.rand(192, device="cuda", generator=g) + 0.5
+        gamma = torch.rand((192, 192), device="cuda", generator=g) * 0.1
+        for inverse in (False, True):
+            out[f"{side}x{side} {'igdn' if inverse else 'gdn'}"] = \
+                graph_time_ms(lambda: gdn(x, beta, gamma, inverse))
+    total = sum(out.values())
+    print(f"K3 in a GDN training step: {total:.4f} ms for its six calls "
+          f"({', '.join(f'{k} {v:.4f}' for k, v in out.items())}) [{card}]")
+    return {"ms_per_step": total, "ms_by_call": out}
+
+
+def training_phase(card: str, profiling: bool = False) -> dict:
+    """Phase 15: rate-distortion training on the card at full width; with
+    ``profiling``, stage 1's step taken apart and profiled."""
+    import tempfile
+
+    import torch
+
+    from crdr_tpu_torch.nn import GDN
+    from crdr_tpu_torch.utils.config import Config
+
+    kernels = kernel_wrappers()
+    res, counts = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. stage 1: endurance_stage1.yaml
+        cfg1 = train_config("endurance_stage1.yaml", tmp, "stage1")
+        tr, res["stage1"], _, _, counts["train stage1"], init1 = train_run(
+            "stage 1 (endurance_stage1.yaml)", cfg1, card, kernels)
+        fixed = next(iter(tr.train_loader))
+        if profiling:
+            res["stage1"]["split_ms"] = train_split(tr, fixed, card)
+            profile_phase(lambda: [tr.optimize_parameters_device(
+                tr.step + 1, fixed) for _ in range(3)],
+                "stage 1 training, 3 steps", card)
+        totals = [tr.optimize_parameters_device(tr.step + 1, fixed)["total"]
+                  for _ in range(FALL_STEPS)]
+        totals = torch.stack(totals).cpu().tolist()
+        first, last = np.mean(totals[:5]), np.mean(totals[-5:])
+        print(f"train stage 1, one fixed batch, {FALL_STEPS} steps: mean "
+              f"total loss of the first 5 {first:.4f}, of the last 5 "
+              f"{last:.4f} ({[round(t, 4) for t in totals]})")
+        check(np.isfinite(totals).all() and last < first,
+              "stage 1: the loss did not fall on a fixed batch")
+        res["stage1"]["loss_first5"], res["stage1"]["loss_last5"] = \
+            first, last
+        tr.save(tr.step)
+        ckpt1 = tr.path_handler.get_ckpt_path("comp_model", tr.step)
+        n_stage1 = len(tr.comp_model.state_dict())
+
+        # 2. the card against the CPU, f32
+        res["card_vs_cpu"] = card_vs_cpu_phase(
+            tr, init1, tmp, fixed["real_images"][:CMP_BATCH], card)
+        del tr, init1
+        torch.cuda.empty_cache()
+
+        # 3. stage 2 from stage 1's checkpoint; 4. the checkerboard
+        for label, name in (("stage2", "endurance_stage2.yaml"),
+                            ("cb_stage2", "cb_stage2.yaml")):
+            cfg = train_config(name, tmp, label, total_iter=SHORT_STEPS,
+                               pretrained_weight_path=ckpt1)
+            tr, res[label], _, rates, counts[f"train {label}"], _ = \
+                train_run(f"{label} ({name})", cfg, card, kernels)
+            got = tr.pretrained_counts
+            n_new = sum(1 for k in tr.comp_model.state_dict()
+                        if ".interp_ca_list." in k or "spatial_transforms_"
+                        in k)
+            print(f"train {label}: the stage handoff loaded {got['loaded']} "
+                  f"tensors of stage 1's {n_stage1}, kept {got['kept']} at "
+                  f"init (InterpCA / spatial context: {n_new}); rate_ind "
+                  f"sampled {rates}")
+            check(got == {"loaded": n_stage1, "kept": n_new} and n_new > 0,
+                  f"{label}: the handoff loaded {got}")
+            levels = tr.comp_model.rate_level
+            check(sorted(set(rates)) == [float(q) for q in range(levels)],
+                  f"{label}: rate_ind {rates} does not span 0..{levels - 1}")
+            res[label]["handoff"] = got
+            del tr
+            torch.cuda.empty_cache()
+
+        # 5. the GDN model under the stage-1 recipe, f32
+        cfg = train_config("endurance_stage1.yaml", tmp, "gdn",
+                           total_iter=SHORT_STEPS, mixed_precision=False)
+        bal = Config.from_file(os.path.join(ROOT, "config",
+                                            "balle18_mean_scale.yaml"))
+        cfg["model_type"], cfg["subnet"] = bal.model_type, bal.subnet
+        tr, res["gdn"], _, _, counts["train gdn"], _ = train_run(
+            "GDN (balle18_mean_scale.yaml, stage-1 recipe, f32)", cfg, card,
+            kernels)
+        check(counts["train gdn"]["gdn"] == 6 * SHORT_STEPS,
+              f"GDN training: K3 launched {counts['train gdn']['gdn']} "
+              f"times in {SHORT_STEPS} steps (6 a step expected)")
+        gdns = [m for m in tr.comp_model.net.modules() if isinstance(m, GDN)]
+        check(len(gdns) == 6 and all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all())
+            and bool(p.grad.any()) for m in gdns for p in (m.beta, m.gamma)),
+            "GDN training: a GDN parameter got no gradient (GDNFunction)")
+        print(f"train GDN: K3 {counts['train gdn']['gdn']} launches in "
+              f"{SHORT_STEPS} steps; every GDN's beta and gamma has a "
+              f"finite, non-zero gradient (through GDNFunction)")
+        res["gdn"]["k3"] = k3_training_ms(card)
+        del tr
+        torch.cuda.empty_cache()
+
+        # 6. resume; 7. the CLI
+        res["resume"] = resume_check(tmp, card)
+        torch.cuda.empty_cache()
+        res["cli_s"] = cli_train_check(tmp, card)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"training phase: {res['phase_s']:.1f} s [{card}]")
+    return res, counts
+
+
 def main() -> None:
     try:
         import torch
@@ -2120,14 +2820,16 @@ def main() -> None:
     del rec_e1, esc_e1
     counts_cb, _ = checkerboard_phase(imgs, card, profiling)
     counts_gw, _, long_k2 = generic_device_phase(imgs, card)
+    train, counts_tr = training_phase(card, profiling)
 
+    print("training " + json.dumps(train))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
     launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g,
                 **counts_m, **counts_t, **counts_e,
                 "flagship device encoder": counts_f, **counts_cb,
-                **counts_gw}
+                **counts_gw, **counts_tr}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",
@@ -2193,6 +2895,9 @@ def main() -> None:
                  "gamma^T copy included; bound, plain, library); all six "
                  "path calls in ms_by_call",
         "deconv_yardstick": deconv,
+        "training_gdn_step": {"launches_per_step":
+                              counts_tr["train gdn"]["gdn"] // SHORT_STEPS,
+                              **train["gdn"]["k3"]},
         "card": card}, {
         "name": "lane_encode_rounds", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/lane_encode.cu",

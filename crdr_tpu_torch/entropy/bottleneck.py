@@ -2,16 +2,25 @@
 
 Counterpart of ``crdr_tpu/entropy/bottleneck.py``, with CompressAI's
 parameter names (``_matrixK``, ``_biasK``, ``_factorK``, ``quantiles``) so the
-reference ``state_dict`` loads as it is.  Only the eval forward (hard rounding
-around the median) is ported; the codec state ``EntropyBottleneckCodec``
-builds the 16-bit CDF tables with the same torch-f32 arithmetic as the JAX
-package (and CompressAI), so the integers are identical.
+reference ``state_dict`` loads as it is.  The forward takes NCHW z:
+
+* eval (no ``noise``): hard rounding around the median;
+* training (``noise``, U(-0.5, 0.5) in z's NCHW layout): the likelihood of
+  the noisy z, which is also the output; ``SteEntropyBottleneck`` outputs
+  ``ste_round(z - median) + median`` instead;
+* ``loss()``: the aux loss that pushes ``quantiles`` to the target tail
+  mass, with the density's filters detached (their gradient is the main
+  loss's), so it trains ``quantiles`` only.
+
+The codec state ``EntropyBottleneckCodec`` builds the 16-bit CDF tables with
+the same torch-f32 arithmetic as the JAX package (and CompressAI), so the
+integers are identical.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -20,14 +29,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..utils.registry import ENTROPYMODEL_REGISTRY
-from .ops import lower_bound
+from .ops import at_least_f32, lower_bound, ste_round
 
 LIKELIHOOD_BOUND = 1e-9
 
 
 def _logits_cumulative(params: Dict[str, torch.Tensor], x: torch.Tensor,
                        nfilters: int) -> torch.Tensor:
-    """c(x) logits for inputs shaped (C, 1, N)."""
+    """c(x) logits for inputs shaped (C, 1, N) (or (C, 1, 3): the
+    quantiles)."""
     logits = x
     for i in range(nfilters + 1):
         logits = torch.matmul(F.softplus(params[f"_matrix{i}"]), logits) \
@@ -40,7 +50,7 @@ def _logits_cumulative(params: Dict[str, torch.Tensor], x: torch.Tensor,
 
 @ENTROPYMODEL_REGISTRY.register()
 class EntropyBottleneck(nn.Module):
-    """Factorized bottleneck (NCHW inputs), eval forward."""
+    """Factorized bottleneck (NCHW inputs)."""
 
     def __init__(self, channels: int, filters: Tuple[int, ...] = (3, 3, 3, 3),
                  init_scale: float = 10.0, tail_mass: float = 1e-9):
@@ -59,6 +69,11 @@ class EntropyBottleneck(nn.Module):
                     f"_factor{i}",
                     nn.Parameter(torch.empty(channels, ext[i + 1], 1)))
         self.quantiles = nn.Parameter(torch.empty(channels, 1, 3))
+        # the aux loss's logit targets at the quantiles (not in state_dict)
+        target = math.log(2.0 / tail_mass - 1.0)
+        self.register_buffer("_aux_target",
+                             torch.tensor([-target, 0.0, target]),
+                             persistent=False)
 
     def reset_parameters(self, generator=None) -> None:
         ext = (1,) + self.filters + (1,)
@@ -82,8 +97,8 @@ class EntropyBottleneck(nn.Module):
         return self.quantiles[:, 0, 1].detach()
 
     def likelihood(self, x_chn: torch.Tensor) -> torch.Tensor:
-        """Likelihood of values shaped (C, 1, N); always computed in f32."""
-        x_chn = x_chn.to(torch.float32)
+        """Likelihood of values shaped (C, 1, N); computed in f32 at least."""
+        x_chn = at_least_f32(x_chn)
         nf = len(self.filters)
         p = self._params()
         lower = _logits_cumulative(p, x_chn - 0.5, nf)
@@ -92,24 +107,50 @@ class EntropyBottleneck(nn.Module):
         lik = torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
         return lower_bound(lik, LIKELIHOOD_BOUND)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: NCHW.  Eval: round around the medians.  Returns (x_hat, lik)."""
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: NCHW.  Eval (``noise`` None): round around the medians.
+        Training: ``x + noise`` (``noise`` NCHW, U(-0.5, 0.5)).  Returns
+        (x_hat, likelihood), NCHW."""
         n, c, h, w = x.shape
         assert c == self.channels
-        med = self.medians()[:, None, None]
-        x_chn = x.permute(1, 0, 2, 3).reshape(c, 1, -1)
-        rounded = torch.round(x_chn - med) + med
-        lik = self.likelihood(rounded)
+
+        def chn(t):
+            return t.permute(1, 0, 2, 3).reshape(c, 1, -1)
+
+        if noise is None:
+            med = self.medians()[:, None, None]
+            out = torch.round(chn(x) - med) + med
+        else:
+            out = chn(x) + chn(noise)
+        lik = self.likelihood(out)
 
         def back(t):
             return t.reshape(c, n, h, w).permute(1, 0, 2, 3)
 
-        return back(rounded), back(lik)
+        return back(out), back(lik)
+
+    def loss(self) -> torch.Tensor:
+        """The aux loss: |c(quantiles) - target| summed, the filters
+        detached."""
+        p = {k: v.detach() for k, v in self._params().items()}
+        logits = _logits_cumulative(p, self.quantiles, len(self.filters))
+        return torch.abs(logits - self._aux_target).sum()
 
 
 @ENTROPYMODEL_REGISTRY.register()
 class SteEntropyBottleneck(EntropyBottleneck):
-    """Straight-through variant: identical to the base in eval."""
+    """Noise for the likelihood, straight-through rounding around the
+    medians for the output (reference entropy_bottleneck.py:19-30);
+    identical to the base in eval."""
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x_hat, lik = super().forward(x, noise)
+        if noise is None:
+            return x_hat, lik
+        med = self.medians()[None, :, None, None]
+        return ste_round(x - med) + med, lik
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,14 @@
-"""Conditional Gaussian entropy model for y (mean-scale), eval forward + codec.
+"""Conditional Gaussian entropy models for y (forwards) and the codec state.
 
 Counterpart of ``crdr_tpu/entropy/gaussian.py`` (CompressAI
 ``GaussianConditional`` semantics):
 
 * likelihood = Phi((0.5 - |y - mu|) / sigma) - Phi((-0.5 - |y - mu|) / sigma)
   with sigma lower-bounded at ``scale_bound`` and the likelihood floored at 1e-9;
-* eval: hard rounding around the mean;
+* eval (no ``noise``): hard rounding around the mean;
+* training (``noise``, U(-0.5, 0.5) like y): the likelihood of the noisy y,
+  which is also the output; the STE variant outputs
+  ``ste_round(y - mu) + mu``;
 * coding uses a 64-entry log-spaced scale table (0.11 .. 256) and
   ``build_indexes = searchsorted(table, sigma)``.
 """
@@ -13,7 +16,7 @@ Counterpart of ``crdr_tpu/entropy/gaussian.py`` (CompressAI
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -21,7 +24,8 @@ import torch
 from torch import nn
 
 from ..utils.registry import ENTROPYMODEL_REGISTRY
-from .ops import lower_bound, standardized_cumulative
+from .ops import (at_least_f32, lower_bound, standardized_cumulative,
+                  ste_round)
 
 LIKELIHOOD_BOUND = 1e-9
 SCALES_MIN = 0.11
@@ -39,9 +43,9 @@ def get_scale_table(minimum: float = SCALES_MIN, maximum: float = SCALES_MAX,
 
 def gaussian_likelihood(values: torch.Tensor, scales: torch.Tensor,
                         scale_bound: float) -> torch.Tensor:
-    # rate math always in f32
-    values = torch.abs(values.to(torch.float32))
-    scales = lower_bound(scales.to(torch.float32), scale_bound)
+    # rate math in f32 at least
+    values = torch.abs(at_least_f32(values))
+    scales = lower_bound(at_least_f32(scales), scale_bound)
     upper = standardized_cumulative((0.5 - values) / scales)
     lower = standardized_cumulative((-0.5 - values) / scales)
     return lower_bound(upper - lower, LIKELIHOOD_BOUND)
@@ -58,27 +62,57 @@ def build_indexes(scales: torch.Tensor, scale_table: torch.Tensor,
 
 @ENTROPYMODEL_REGISTRY.register()
 class GaussianMeanScaleConditional(nn.Module):
-    """params = concat([mean, scale], channel axis); NCHW; eval forward."""
+    """params = concat([mean, scale], channel axis); NCHW."""
 
     def __init__(self, scale_bound: float = SCALES_MIN):
         super().__init__()
         self.scale_bound = scale_bound
 
-    def forward(self, y: torch.Tensor, params: torch.Tensor
+    def forward(self, y: torch.Tensor, params: torch.Tensor,
+                noise: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         mean, scale = torch.chunk(params, 2, dim=1)
-        y_hat = torch.round(y - mean) + mean
-        return y_hat, gaussian_likelihood(y_hat - mean, scale, self.scale_bound)
+        if noise is None:
+            y_hat = torch.round(y - mean) + mean
+        else:
+            y_hat = y + noise
+        return y_hat, gaussian_likelihood(y_hat - mean, scale,
+                                          self.scale_bound)
+
+
+@ENTROPYMODEL_REGISTRY.register()
+class GaussianScaleConditional(nn.Module):
+    """Scale-only conditional (params = scales), for Balle18-style models."""
+
+    def __init__(self, scale_bound: float = SCALES_MIN):
+        super().__init__()
+        self.scale_bound = scale_bound
+
+    def forward(self, y: torch.Tensor, params: torch.Tensor,
+                noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        y_hat = torch.round(y) if noise is None else y + noise
+        return y_hat, gaussian_likelihood(y_hat, params, self.scale_bound)
 
 
 @ENTROPYMODEL_REGISTRY.register()
 class SteGaussianMeanScaleConditional(GaussianMeanScaleConditional):
-    """Straight-through variant: identical to the base in eval."""
+    """Noise likelihood + straight-through-rounded output (reference
+    ste_gaussian_conditional.py:10-27); identical to the base in eval."""
 
     def __init__(self, scale_bound: float = SCALES_MIN,
                  entropy_quant_type: str = "noise"):
         super().__init__(scale_bound)
         assert entropy_quant_type == "noise"
+
+    def forward(self, y: torch.Tensor, params: torch.Tensor,
+                noise: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        y_hat, lik = super().forward(y, params, noise)
+        if noise is None:
+            return y_hat, lik
+        mean = torch.chunk(params, 2, dim=1)[0]
+        return ste_round(y - mean) + mean, lik
 
 
 # ---------------------------------------------------------------------------

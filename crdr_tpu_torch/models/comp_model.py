@@ -16,16 +16,21 @@ Counterpart of ``crdr_tpu/models/comp_model.py``.  Contracts kept:
   eval forward;
 * ``state_dict`` / ``load_state_dict`` use the reference torch names, and
   ``load_state_dict`` merges partially, as the JAX package's does (the
-  stage-1 -> stage-2 -> stage-3 handoff).
+  stage-1 -> stage-2 -> stage-3 handoff);
+* training draws one ``rate_ind`` per batch and beta = max_beta *
+  U{0..100} / 100 from the model's numpy generator seeded with ``seed``
+  (JAX's sequence for the same seed), and the training forward's noise from
+  a ``torch.Generator`` on the model's device.
 
 All seven model classes are ported: ``HyperpriorModel``,
 ``HyperpriorCharmModel``, ``InterpCaHyperpriorModel``,
 ``InterpCaHyperpriorCharmModel``, ``BetaCondInterpCaHyperpriorModel`` and
 the flagship ``BetaCondInterpCaHyperpriorCharmModel``, each with the codec,
-the eval forward (``run_model``) and ``validation``; the Charm classes take
-either context model (``Minnen20CharmContextModel`` or the checkerboard
-``ElicCheckerboardCharmContextModel``).  The training forward is not ported
-yet.
+the eval and training forwards (``run_model``) and ``validation``; the
+Charm classes take either context model (``Minnen20CharmContextModel`` or
+the checkerboard ``ElicCheckerboardCharmContextModel``).  The net is built
+frozen (``requires_grad`` off), as the codec wants it; a trainer
+(``trainer/``) turns its gradients on.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import numpy as np
 
 import torch
 
-from ..entropy import EntropyBottleneck
+from ..entropy import EntropyBottleneck, UniformNoise
 from ..nn import GDN, Conv2d, ConvTranspose2d, Dense, InterpChAtt
 from ..utils.config import ConfigDict
 from ..utils.device import resolve_device
@@ -58,8 +63,6 @@ _REBUILT_BUFFERS = ("_quantized_cdf", "_offset", "_cdf_length", "scale_table",
                     "target", "pedestal", "bound")
 # the headers crdr_tpu/utils/saver.py writes before its msgpack / pickle body
 _JAX_CKPT_MAGIC = (b"MSGP", b"PKLE")
-_TRAINING = ("the training forward (noise, STE) is not ported yet "
-             "(ROADMAP.md, Queue 1 item 7)")
 logger = logging.getLogger(__name__)
 
 
@@ -106,6 +109,9 @@ class BaseModel(CodecMixin, DeviceWireCodecMixin):
                                img_range_01=self.convert_img_range)
         self.net.eval().requires_grad_(False)
         self.init_params(opt.get("seed", 0))
+        self._np_rng = np.random.default_rng(opt.get("seed", None))
+        self.noise = UniformNoise(torch.Generator(
+            device=self.device).manual_seed(int(opt.get("seed", 0))))
         cm = subnet_opt.get("context_model")
         self.context_type = cm["type"] if cm is not None else None
         if cm is not None:
@@ -172,9 +178,9 @@ class BaseModel(CodecMixin, DeviceWireCodecMixin):
         if head in _JAX_CKPT_MAGIC:
             raise ValueError(
                 f"{ckpt_path} was written by the JAX package's saver (a "
-                "msgpack pytree), which the port does not read yet "
-                "(ROADMAP.md, Queue 1 item 7); give it a torch.save "
-                "checkpoint (.pth / .pth.tar / .pt, or the port's .ckpt)")
+                "msgpack pytree), which the port does not read; give it a "
+                "torch.save checkpoint (.pth / .pth.tar / .pt, or the port's "
+                ".ckpt)")
         ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
         state = ckpt.get("comp_model", ckpt)
         state = {k[len("module."):] if k.startswith("module.") else k: v
@@ -225,28 +231,41 @@ class BaseModel(CodecMixin, DeviceWireCodecMixin):
 
     # ---------------- pre/post processing -------------------------------------
 
-    def data_preprocess(self, real_images: np.ndarray) -> np.ndarray:
+    def data_preprocess(self, real_images: np.ndarray,
+                        is_train: bool = False) -> np.ndarray:
         out = np.asarray(real_images, np.float32)
         if self.convert_img_range:  # [-1,1] -> [0,1]
             out = (out + 1.0) / 2.0
-        return pad_image(out, self.stride)
+        return out if is_train else pad_image(out, self.stride)
 
-    def data_postprocess(self, img: np.ndarray, size: Tuple[int, int]
-                         ) -> np.ndarray:
+    def data_postprocess(self, img: np.ndarray, size: Tuple[int, int],
+                         is_train: bool = False) -> np.ndarray:
         img = np.asarray(img)
         if self.convert_img_range:  # [0,1] -> [-1,1]
             img = (img - 0.5) * 2.0
+        if is_train:
+            return img
         return np.clip(crop_image(img, *size), -1.0, 1.0)
 
-    # ---------------- eval forward ----------------------------------------------
+    # ---------------- sampling (training-time controls) ---------------------
+
+    def sample_rate_ind(self) -> float:
+        return float(self._np_rng.integers(0, self.rate_level))
+
+    def sample_beta(self) -> float:
+        return self.max_beta * float(self._np_rng.integers(0, 101)) / 100.0
+
+    # ---------------- forward ----------------------------------------------------
 
     def forward(self, real_images: np.ndarray, rate_ind=None, beta=None,
-                is_train: bool = True, num_pixel: Optional[int] = None):
-        """The net's eval forward on padded NHWC images under the codec
-        numerics (``codec_precision``).  Returns (the net's output dict,
-        NCHW tensors on the device; the rate summary, [N] tensors)."""
-        if is_train:
-            raise NotImplementedError(_TRAINING)
+                is_train: bool = True, num_pixel: Optional[int] = None,
+                noise=None):
+        """The net's forward on NHWC images (padded for eval).  Eval runs
+        under the codec numerics (``codec_precision``, no gradients); the
+        training forward keeps the graph and takes its noise from ``noise``
+        (a noise source, ``entropy/ops.py``), by default the model's own.
+        Returns (the net's output dict, NCHW tensors on the device; the rate
+        summary, [N] tensors)."""
         x = torch.from_numpy(np.ascontiguousarray(real_images, np.float32))
         x = x.to(self.device).permute(0, 3, 1, 2)
         ri, bt = (None if v is None else
@@ -254,32 +273,40 @@ class BaseModel(CodecMixin, DeviceWireCodecMixin):
                                device=self.device) for v in (rate_ind, beta))
         if num_pixel is None:
             num_pixel = x.shape[2] * x.shape[3]
+        if is_train:
+            out = self.net(x, ri, bt, noise or self.noise)
+            return out, _rate_summary(out, num_pixel)
         with codec_numerics(self.chain_tf32):
             out = self.net(x, ri, bt)
             return out, _rate_summary(out, num_pixel)
 
     def run_model(self, real_images, rate_ind=None, beta=None,
                   is_train: bool = True) -> Dict:
-        """Pad, eval forward, crop + clamp: the reconstruction and the rate
-        of N images (NHWC in [-1, 1]).  ``rate_ind`` / ``beta`` are required
-        where the class has them.  ``is_train=True`` (the training forward)
-        raises: it is not ported yet."""
-        if is_train:
-            raise NotImplementedError(_TRAINING)
+        """The reconstruction and the rate of N images (NHWC in [-1, 1]).
+        Eval pads, crops and clamps, and needs ``rate_ind`` / ``beta`` where
+        the class has them; training samples the missing ones and runs the
+        training forward (noise, STE), no gradients kept."""
         real_images = np.asarray(real_images)
         _, H, W, _ = real_images.shape
-        x = self.data_preprocess(real_images)
+        x = self.data_preprocess(real_images, is_train)
         if self.use_rate and rate_ind is None:
-            raise ValueError('"rate_ind" must be specified if is_train=False')
+            if not is_train:
+                raise ValueError(
+                    '"rate_ind" must be specified if is_train=False')
+            rate_ind = self.sample_rate_ind()
         if self.use_beta and beta is None:
-            raise ValueError('"beta" must be specified if is_train=False')
-        out, summary = self.forward(x, rate_ind if self.use_rate else None,
-                                    beta if self.use_beta else None,
-                                    is_train=False, num_pixel=H * W)
+            if not is_train:
+                raise ValueError('"beta" must be specified if is_train=False')
+            beta = self.sample_beta()
+        with torch.no_grad():
+            out, summary = self.forward(
+                x, rate_ind if self.use_rate else None,
+                beta if self.use_beta else None, is_train=is_train,
+                num_pixel=H * W)
         result = dict(
-            real_images=self.data_postprocess(x, (H, W)),
+            real_images=self.data_postprocess(x, (H, W), is_train),
             fake_images=self.data_postprocess(_nhwc(out["fake_images"]),
-                                              (H, W)),
+                                              (H, W), is_train),
             y_hat=_nhwc(out["quantized_code"]["y"]),
             z_hat=_nhwc(out["quantized_code"]["z"]),
             **{k: v.cpu().numpy() for k, v in summary.items()})

@@ -3,15 +3,18 @@
 Counterpart of ``crdr_tpu/models/net.py``.  Submodule names are the
 reference's own (encoder, decoder, hyperencoder, hyperdecoder,
 entropy_model_z, entropy_model_y, context_model), so ``state_dict`` keys are
-the reference torch names.  Only inference is ported: the eval forward and
-the pieces the codec programs call.  In the eval forward the quantized
-likelihoods (``q_likelihoods``) are the likelihoods themselves: y and z are
-rounded either way.
+the reference torch names.  The forward is the eval forward (rounding, the
+reconstruction clamped) without a noise source, and the training forward
+(noise / STE quantization, no clamp) with one (``entropy/ops.py``; JAX's
+``split(rng, 3)`` becomes the names ``"z"`` and ``"y"`` / ``"y{i}"``).  In
+training the quantized likelihoods (``q_likelihoods``) are the rounded
+ones, detached; in eval they are the likelihoods themselves (y and z are
+rounded either way).  ``aux_loss`` is the bottleneck's quantile loss.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -70,26 +73,42 @@ class CompNet(nn.Module):
     def z_likelihood_eval(self, z: torch.Tensor) -> torch.Tensor:
         return self.entropy_model_z(z)[1]
 
-    # ---- eval forward -------------------------------------------------------
+    def aux_loss(self) -> torch.Tensor:
+        """The entropy bottleneck's aux loss (reference base_model.py:68-78)."""
+        return self.entropy_model_z.loss()
+
+    # ---- forward (eval / training) -------------------------------------------
 
     def forward(self, x: torch.Tensor, rate_ind: Optional[torch.Tensor] = None,
-                beta: Optional[torch.Tensor] = None) -> Dict:
+                beta: Optional[torch.Tensor] = None,
+                noise: Optional[Callable] = None) -> Dict:
+        train = noise is not None
         y = self.encode(x, rate_ind)
         z = self.hyperencoder(y)
-        z_hat, z_likelihood = self.entropy_model_z(z)
+        z_hat, z_likelihood = self.entropy_model_z(
+            z, noise("z", z) if train else None)
         hyper_out = self.hyperdecoder(z_hat)
         if self.use_charm:
-            y_hat, y_likelihood = self.context_model(y, hyper_out,
-                                                     self.entropy_model_y)
+            res = self.context_model(y, hyper_out, self.entropy_model_y,
+                                     noise, calc_q_likelihood=train)
+            y_hat, y_likelihood = res[:2]
+            y_q_likelihood = res[2] if train else y_likelihood
         else:
-            y_hat, y_likelihood = self.entropy_model_y(y, hyper_out)
+            y_hat, y_likelihood = self.entropy_model_y(
+                y, hyper_out, noise("y", y) if train else None)
+            y_q_likelihood = self.entropy_model_y(y, hyper_out)[1].detach() \
+                if train else y_likelihood
         fake_images = self.decode(y_hat, rate_ind, beta)
-        lo = 0.0 if self.img_range_01 else -1.0
-        fake_images = torch.clamp(fake_images, lo, 1.0)
+        if train:
+            z_q_likelihood = self.entropy_model_z(z)[1].detach()
+        else:
+            lo = 0.0 if self.img_range_01 else -1.0
+            fake_images = torch.clamp(fake_images, lo, 1.0)
+            z_q_likelihood = z_likelihood
         return {
             "fake_images": fake_images,
             "likelihoods": {"y": y_likelihood, "z": z_likelihood},
             "latent_code": {"y": y, "z": z},
             "quantized_code": {"y": y_hat, "z": z_hat},
-            "q_likelihoods": {"y": y_likelihood, "z": z_likelihood},
+            "q_likelihoods": {"y": y_q_likelihood, "z": z_q_likelihood},
         }

@@ -7,14 +7,16 @@ minnen20_charm_context_model.py:41-240), NCHW:
 * per slice, three SliceTransform CNNs (conv5->224, actv, conv5->128, actv,
   conv3->slice_ch): mean on [hyper_mean || y_hat_<i], scale likewise on
   hyper_scale, and an LRP whose ``0.5*tanh`` output is added to the slice;
-* the eval forward evaluates likelihoods slice by slice.  The codec path runs
-  the same weights through the packed, shape-uniform step of
-  ``ops/charm_uniform.py`` instead.
+* the forward evaluates likelihoods slice by slice, eval (rounding) or
+  training (the noise source's ``"y{i}"`` draw for slice ``i``, JAX's
+  ``fold_in(rng, i)``; with ``calc_q_likelihood`` also the rounded
+  likelihoods, detached).  The codec path runs the same weights through the
+  packed, shape-uniform step of ``ops/charm_uniform.py`` instead.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -70,22 +72,33 @@ class Minnen20CharmContextModel(nn.Module):
         return y_hat_slices[:self.max_support_slices]
 
     def forward(self, y: torch.Tensor, hyper_out: torch.Tensor,
-                entropy_model_y) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Eval forward: (y_hat, y_likelihood), NCHW."""
+                entropy_model_y, noise: Optional[Callable] = None,
+                calc_q_likelihood: bool = False):
+        """(y_hat, y_likelihood[, y_q_likelihood]), NCHW.  Eval without
+        ``noise`` (a noise source, ``entropy/ops.py``), training with it."""
         y_slices = torch.chunk(y, self.num_slices, dim=1)
         hyper_mean, hyper_scale = torch.chunk(hyper_out, 2, dim=1)
         y_hat_slices: List[torch.Tensor] = []
         lik_slices: List[torch.Tensor] = []
+        q_lik_slices: List[torch.Tensor] = []
         for i, y_slice in enumerate(y_slices):
             support = self._supports(y_hat_slices)
             mean_support = torch.cat([hyper_mean] + support, dim=1)
             scale_support = torch.cat([hyper_scale] + support, dim=1)
             mu = self.mean_slice_transforms[i](mean_support)
             sigma = self.scale_slice_transforms[i](scale_support)
+            params = torch.cat([mu, sigma], dim=1)
             y_hat_slice, lik = entropy_model_y(
-                y_slice, torch.cat([mu, sigma], dim=1))
+                y_slice, params,
+                None if noise is None else noise(f"y{i}", y_slice))
             lik_slices.append(lik)
+            if calc_q_likelihood:
+                q_lik_slices.append(
+                    entropy_model_y(y_slice, params)[1].detach())
             lrp_in = torch.cat([mean_support, y_hat_slice], dim=1)
             lrp = 0.5 * torch.tanh(self.lrp_slice_transforms[i](lrp_in))
             y_hat_slices.append(y_hat_slice + lrp)
-        return torch.cat(y_hat_slices, dim=1), torch.cat(lik_slices, dim=1)
+        out = (torch.cat(y_hat_slices, dim=1), torch.cat(lik_slices, dim=1))
+        if calc_q_likelihood:
+            return out + (torch.cat(q_lik_slices, dim=1),)
+        return out

@@ -5,7 +5,9 @@ each Charm channel slice the latent positions split into a checkerboard of
 anchors ((h + w) even) and non-anchors.  Anchors are coded from the channel
 context alone, as Charm; non-anchors also condition on the decoded anchors
 through one 5x5 conv a slice (``spatial_transforms_{i}``, 32 -> 64 channels
-at the flagship's widths), so a slice takes two dense passes.
+at the flagship's widths), so a slice takes two dense passes.  The anchors
+are always quantized by rounding; the forward's second pass is eval or
+training (the noise source's ``"y{i}"`` draw), as in Charm.
 
 The module is NCHW, like the port's Charm one; ``split_checkerboard`` and
 ``merge_checkerboard`` work on the spatial axes 1 and 2 of NHWC tensors, as
@@ -18,7 +20,7 @@ path runs the same weights through ``ops/cb_uniform.py``.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -103,9 +105,11 @@ class ElicCheckerboardCharmContextModel(nn.Module):
         delta = getattr(self, f"spatial_transforms_{i}")(y_hat_anchor_masked)
         return torch.chunk(delta, 2, dim=1)  # (d_mu, d_sigma)
 
-    def _slices(self, y: Tensor, hyper_out: Tensor, entropy_model_y):
-        """Per slice: (mu_c, sigma_c, y_hat, likelihood); the y_hat list
-        carries the LRP."""
+    def _slices(self, y: Tensor, hyper_out: Tensor, entropy_model_y,
+                noise: Optional[Callable] = None,
+                calc_q_likelihood: bool = False):
+        """Per slice: (mu_c, sigma_c, likelihood, q-likelihood or None);
+        the y_hat list carries the LRP."""
         amask = self._mask(y)
         hyper_mean, hyper_scale = torch.chunk(hyper_out, 2, dim=1)
         y_hat_slices: List[Tensor] = []
@@ -119,19 +123,29 @@ class ElicCheckerboardCharmContextModel(nn.Module):
             d_mu, d_sigma = self._spatial_delta(i, y_hat_a * amask)
             mu_c = mu + d_mu * (1.0 - amask)
             sigma_c = sigma + d_sigma * (1.0 - amask)
+            params = torch.cat([mu_c, sigma_c], 1)
             y_hat_slice, lik = entropy_model_y(
-                y_slice, torch.cat([mu_c, sigma_c], 1))
+                y_slice, params,
+                None if noise is None else noise(f"y{i}", y_slice))
+            q_lik = entropy_model_y(y_slice, params)[1].detach() \
+                if calc_q_likelihood else None
             lrp_in = torch.cat([mean_in, y_hat_slice], dim=1)
             lrp = 0.5 * torch.tanh(self.lrp_slice_transforms[i](lrp_in))
             y_hat_slices.append(y_hat_slice + lrp)
-            out.append((mu_c, sigma_c, lik))
+            out.append((mu_c, sigma_c, lik, q_lik))
         return out, y_hat_slices
 
-    def forward(self, y: Tensor, hyper_out: Tensor, entropy_model_y
-                ) -> Tuple[Tensor, Tensor]:
-        """Eval forward: (y_hat, y_likelihood), NCHW."""
-        out, y_hat = self._slices(y, hyper_out, entropy_model_y)
-        return torch.cat(y_hat, 1), torch.cat([o[2] for o in out], 1)
+    def forward(self, y: Tensor, hyper_out: Tensor, entropy_model_y,
+                noise: Optional[Callable] = None,
+                calc_q_likelihood: bool = False):
+        """(y_hat, y_likelihood[, y_q_likelihood]), NCHW.  Eval without
+        ``noise`` (a noise source, ``entropy/ops.py``), training with it."""
+        out, y_hat = self._slices(y, hyper_out, entropy_model_y, noise,
+                                  calc_q_likelihood)
+        res = (torch.cat(y_hat, 1), torch.cat([o[2] for o in out], 1))
+        if calc_q_likelihood:
+            return res + (torch.cat([o[3] for o in out], 1),)
+        return res
 
     def forward_compress(self, y: Tensor, hyper_out: Tensor,
                          entropy_model_y):

@@ -1,7 +1,8 @@
 """Config system: YAML with ``_base_`` inheritance, ``_delete_`` overrides and
 attribute access, so the port loads the same ``config/*.yaml`` files as the
-JAX package (its own copy of ``crdr_tpu/utils/config.py``, without the CLI
-helpers).
+JAX package (its own copy of ``crdr_tpu/utils/config.py``), and the train
+CLI's config (``get_train_config``: the JAX CLI's flags and the experiment
+directory layout under ``opt.path``).
 
 A YAML file may list base files in ``_base_``; bases are merged in order, then
 the file itself is merged on top.  A dict carrying ``_delete_: True`` replaces
@@ -10,9 +11,12 @@ the file itself is merged on top.  A dict carrying ``_delete_: True`` replaces
 
 from __future__ import annotations
 
+import argparse
 import copy
 import os.path as osp
-from typing import Dict
+import socket
+import time
+from typing import Dict, List, Optional
 
 import yaml
 
@@ -124,3 +128,73 @@ class Config(ConfigDict):
         out["config_path"] = osp.abspath(filepath)
         out["exp"] = osp.splitext(osp.basename(filepath))[0]
         return out
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            yaml.safe_dump(self.to_dict(), f, default_flow_style=False,
+                           sort_keys=False)
+
+
+def get_train_config(argv: Optional[List[str]] = None) -> Config:
+    """The train CLI's config: the flags of the JAX package's
+    ``get_train_config`` (the reference's TrainConfig.get_opt, short
+    aliases included), laid over the YAML, with ``opt.path`` filled.
+    ``-d`` names the torch device (the GPU unless ``cpu`` is given)."""
+    parser = argparse.ArgumentParser(description="train")
+    parser.add_argument("config_path", type=str, help="path to YAML config")
+    parser.add_argument("-d", "--device", type=str, default=None,
+                        help="torch device: cuda (the default) or cpu")
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("-si", "--start_iter", type=int, default=None)
+    parser.add_argument("-ti", "--total_iter", type=int, default=None)
+    parser.add_argument("-b", "--batch_size", type=int, default=None)
+    parser.add_argument("-e", "--eval_step", type=int, default=None)
+    parser.add_argument("-l", "--log_step", type=int, default=None)
+    parser.add_argument("-s", "--save_step", type=int, default=None)
+    parser.add_argument("-nw", "--num_workers", type=int, default=None)
+    parser.add_argument("--auto_resume", action="store_true",
+                        help="resume from the newest checkpoint in the "
+                             "experiment dir")
+    parser.add_argument("--dry_run", action="store_true")
+    args = parser.parse_args(argv)
+
+    cfg = Config.from_file(args.config_path)
+    for key in ("start_iter", "total_iter", "eval_step", "log_step",
+                "save_step"):
+        val = getattr(args, key)
+        if val is not None:
+            cfg[key] = val
+    if args.batch_size is not None:
+        cfg.setdefault("dataset", ConfigDict())
+        cfg["dataset"]["batch_size"] = args.batch_size
+    if args.num_workers is not None:
+        cfg["num_workers"] = args.num_workers
+    cfg["device"] = args.device
+    cfg["auto_resume"] = bool(args.auto_resume)
+    cfg["dry_run"] = bool(args.dry_run)
+    cfg["debug"] = bool(args.debug)
+    cfg["is_train"] = True
+    cfg.setdefault("start_iter", 0)
+    cfg.setdefault("ckpt_root", "./checkpoint")
+    cfg["host"] = socket.gethostname()
+    fill_paths(cfg)
+    return cfg
+
+
+def fill_paths(cfg: Config) -> None:
+    """``cfg.path``: the experiment directory layout (reference
+    PathHandler, path.py:13-47)."""
+    ckpt_root = cfg.get("ckpt_root", "./checkpoint")
+    exp = cfg.get("exp", "exp")
+    job_dir = osp.join(ckpt_root, exp)
+    timestamp = time.strftime("%Y%m%d_%H%M%S")
+    cfg["path"] = ConfigDict(
+        ckpt_root=ckpt_root,
+        job_dir=job_dir,
+        model_dir=osp.join(job_dir, "model"),
+        sample_dir=osp.join(job_dir, "sample"),
+        log_loss_path=osp.join(job_dir, "log_loss.csv"),
+        log_eval_path=osp.join(job_dir, "eval_result.csv"),
+        log_file_path=osp.join(job_dir, f"train_{timestamp}.log"),
+        config_dump_path=osp.join(job_dir, f"{exp}_dump.yaml"),
+    )

@@ -28,6 +28,9 @@ class Registry:
         self._do_register(obj.__name__, obj)
         return obj
 
+    def keys(self):
+        return self._obj_map.keys()
+
     def get(self, name: str):
         if name not in self._obj_map:
             raise KeyError(
@@ -44,3 +47,6 @@ HYPERENCODER_REGISTRY = Registry("hyperencoder")
 HYPERDECODER_REGISTRY = Registry("hyperdecoder")
 CONTEXTMODEL_REGISTRY = Registry("context_model")
 ENTROPYMODEL_REGISTRY = Registry("entropy_model")
+LOSS_REGISTRY = Registry("loss")
+DATASET_REGISTRY = Registry("dataset")
+TRAINER_REGISTRY = Registry("trainer")

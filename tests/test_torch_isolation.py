@@ -47,6 +47,7 @@ def test_importing_the_port_loads_no_jax():
         "import crdr_tpu_torch.models, crdr_tpu_torch.importers.jax_params\n"
         "import crdr_tpu_torch.ops.charm_uniform, crdr_tpu_torch.runtime\n"
         "import crdr_tpu_torch.ops.lane_decode, crdr_tpu_torch.runtime.lane_rans\n"
+        "import crdr_tpu_torch.trainer, crdr_tpu_torch.cli.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n")

@@ -115,8 +115,14 @@ def test_run_model_requires_rate_and_beta_and_refuses_training(beta_pair):
         pm.run_model(x, beta=1.0, is_train=False)
     with pytest.raises(ValueError, match="beta"):
         pm.run_model(x, rate_ind=1.0, is_train=False)
-    with pytest.raises(NotImplementedError, match="training forward"):
-        pm.run_model(x, rate_ind=1.0, beta=1.0)
+    # the training forward is ported: it no longer refuses, and it samples
+    # the rate and beta it is not given (tests/test_torch_train_forward.py
+    # holds it against JAX)
+    out = pm.run_model(x)
+    assert out["rate_ind"] in (0.0, 1.0, 2.0)
+    assert 0.0 <= out["beta"] <= pm.max_beta
+    assert out["fake_images"].shape == x.shape
+    assert np.isfinite(out["bpp"]).all() and np.isfinite(out["qbpp"]).all()
 
 
 @pytest.mark.parametrize("cls", ["BetaCondInterpCaHyperpriorModel",
