@@ -158,7 +158,33 @@ Phases, each asserted (any failure exits non-zero):
    uninterrupted run; the train CLI (python -m crdr_tpu_torch.cli.train
    endurance_stage1.yaml -ti 3) as a subprocess: checkpoints, loss CSV and
    config dump written.  One line of training figures.
-16. one JSON line of kernel figures (launches by path, every path above),
+16. stage 3, the multi-rate GAN fine-tune, in phase 15's temporary
+   directory: config/endurance_stage3.yaml
+   (MultirateBetaCondHrrGanRateDistortionTrainer, the flagship at full
+   width, five CLIC21 sub-discriminators, norm none, LPIPS on its seeded
+   random init, mixed precision) at batch 8, 256x256, warm-started from
+   phase 15's stage-1 checkpoint: the handoff's counts (every stage-1
+   tensor of the same name and shape loaded, the InterpCA / beta modules
+   at init, D equal to its seeded init); 25 steps through train_loop, the
+   last 20 timed (median, quartiles, images/s, peak memory, model FLOPs a
+   step with the anchor forward and D's convs and their share of each
+   peak), every logged loss finite, no step skipped, rate_ind spanning
+   0..4, D's parameters moving, each sub-D moved exactly when its rate was
+   sampled, out_d_real / out_d_fake each step and their separation; six
+   steps at the top rate (rate_ind 4: the anchor is the batch, one net
+   forward) and six at rate 1 (two forwards), in turns, each timed; the same
+   weights, batch (2 images), controls and noise through one f32 step on
+   the card and on the CPU, TF32 off, at the seeded stage-3 init, and a
+   float64 CPU step as the reference with the ReLU / leaky-ReLU gates and
+   max pool picks held to its own (G's and D's losses within 1e-4, every
+   gradient of G and of D within a relative L2 error of 1e-3, as phase 15
+   holds them); resume: saved at step 3, rebuilt, run to 6, bit-equal (G,
+   D and its state, the three optimizers, the generators); the train CLI
+   on endurance_stage3.yaml (-ti 3) as a subprocess, its warm start the
+   stage-1 checkpoint placed at the recipe's path: checkpoints, D's
+   included, and the loss CSV written.
+17. one JSON line of kernel figures (launches by path, every path above);
+18. the ok line.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -2240,16 +2266,18 @@ def train_run(label, cfg, card: str, kernels: dict):
 
 def gate_replay(ref=None):
     """A TorchFunctionMode over one training forward that records, in call
-    order, each ReLU's gate (input > 0), each max pool's picks and each
-    lower bound's gate (input >= bound).  Given ``ref``, another forward's
-    record, the ReLUs and max pools follow ``ref``'s gates and picks instead
-    of their own, so two devices compute the same piece of the piecewise
-    function (the lower bounds are recorded only)."""
+    order, each ReLU's and leaky ReLU's gate (input > 0), each max pool's
+    picks and each lower bound's gate (input >= bound).  Given ``ref``,
+    another forward's record, the (leaky) ReLUs and max pools follow
+    ``ref``'s gates and picks instead of their own, so two devices compute
+    the same piece of the piecewise function (the lower bounds are recorded
+    only)."""
     import torch
     import torch.nn.functional as F
     from torch.overrides import TorchFunctionMode
 
     relus = (torch.relu, F.relu, torch.Tensor.relu)
+    leaky = (F.leaky_relu,)
 
     class GateReplay(TorchFunctionMode):
         def __init__(self):
@@ -2272,6 +2300,14 @@ def gate_replay(ref=None):
                     return func(*args, **kwargs)
                 return torch.where(self._ref("relu", x), x,
                                    torch.zeros_like(x))
+            if func in leaky:  # x > 0 passes, else slope * x
+                x = args[0]
+                slope = args[1] if len(args) > 1 else kwargs.get(
+                    "negative_slope", 0.01)
+                self.rec["relu"].append((x > 0).detach())
+                if ref is None:
+                    return func(*args, **kwargs)
+                return torch.where(self._ref("relu", x), x, x * slope)
             if func is F.max_pool2d:
                 kw = {k: v for k, v in kwargs.items() if k != "return_indices"}
                 out, idx = F.max_pool2d_with_indices(*args, **kw)
@@ -2737,8 +2773,499 @@ def training_phase(card: str, profiling: bool = False) -> dict:
         res["resume"] = resume_check(tmp, card)
         torch.cuda.empty_cache()
         res["cli_s"] = cli_train_check(tmp, card)
+        res["phase_s"] = time.perf_counter() - t_phase
+        print(f"training phase: {res['phase_s']:.1f} s [{card}]")
+
+        # phase 16: stage 3 from stage 1's checkpoint, in this directory
+        res["stage3"], counts["train stage3"] = gan_phase(
+            card, tmp, ckpt1, kernels, profiling)
+    return res, counts
+
+
+# ---------------- phase 16: stage 3, the GAN fine-tune ------------------------
+
+GAN_STEPS = 25        # endurance_stage3.yaml through train_loop
+GAN_RATE, GAN_BETA = 1.0, 2.56   # the controls of the card-vs-CPU step
+TOP_RATE_STEPS = 6    # steps at each of the top rate and rate 1, in turns
+
+
+def gan_step_flops(tr, data) -> float:
+    """Model FLOPs of one stage-3 step, counted by forward hooks over one
+    step: each conv call's forward FLOPs times 1 + (its input needs a
+    gradient) + (its weight needs one), over the net (the G forward about
+    3x, the no-grad anchor forward 1x), LPIPS (weights frozen: the real
+    image 1x, the fake 2x) and D (its weights frozen in G's step: D(fake)
+    2x, D(anchor) 1x; in D's step 3x, its first layer 2x)."""
+    import torch
+
+    from crdr_tpu_torch.nn import GDN, Conv2d, ConvTranspose2d
+
+    total = {"net": 0.0, "lpips": 0.0, "d": 0.0}
+    handles = []
+
+    def hook(part):
+        def count(m, inp, out):
+            x = inp[0]
+            if isinstance(m, GDN):
+                f, w = 2 * x.numel() * m.gamma.shape[0], m.gamma
+            elif isinstance(m, ConvTranspose2d):
+                f, w = 2 * x.numel() * m.weight[0].numel(), m.weight
+            else:
+                f, w = 2 * out.numel() * m.weight[0].numel(), m.weight
+            grad = torch.is_grad_enabled()
+            total[part] += f * (1 + int(grad and x.requires_grad)
+                                + int(grad and w.requires_grad))
+        return count
+
+    for part, root in (("net", tr.comp_model.net),
+                       ("lpips", tr.perceptual_loss),
+                       ("d", tr.discriminator)):
+        handles += [m.register_forward_hook(hook(part)) for m in
+                    root.modules()
+                    if isinstance(m, (Conv2d, ConvTranspose2d, GDN))]
+    try:
+        tr.optimize_parameters_device(tr.step + 1, data)
+    finally:
+        for h in handles:
+            h.remove()
+    print("stage 3 model FLOPs a step: " + ", ".join(
+        f"{k} {v / 1e12:.4f} TFLOP" for k, v in total.items()))
+    return sum(total.values())
+
+
+def gan_handoff(tr, cfg, ckpt1: str) -> dict:
+    """The stage-1 -> stage-3 partial merge against the checkpoint's own
+    names and shapes, and D at its seeded init."""
+    import torch
+
+    from crdr_tpu_torch.subnet.discriminator import build_discriminator
+
+    stage1 = torch.load(ckpt1, map_location="cpu",
+                        weights_only=True)["comp_model"]
+    own = tr.comp_model.state_dict()
+    same = [k for k in own if k in stage1
+            and tuple(stage1[k].shape) == tuple(own[k].shape)]
+    kept = sorted(set(own) - set(same))
+    new_mods = sorted({".".join(k.split(".")[:2]) for k in kept})
+    got = tr.pretrained_counts
+    print(f"train stage3: the stage handoff loaded {got['loaded']} tensors "
+          f"(stage 1's checkpoint has {len(stage1)}, {len(same)} of them "
+          f"with the flagship's names and shapes), kept {got['kept']} at init "
+          f"in {new_mods}")
+    check(got == {"loaded": len(same), "kept": len(kept)} and len(same) > 0,
+          f"stage 3: the handoff loaded {got}, expected {len(same)} / "
+          f"{len(kept)}")
+    check(all("interp_ca" in k or k.startswith("decoder.") for k in kept)
+          and any("interp_ca" in k for k in kept),
+          f"stage 3: tensors outside the InterpCA / beta modules kept at "
+          f"init: {[k for k in kept if 'interp_ca' not in k][:8]}")
+    seed = int(cfg.get("seed", 0))
+    with tr.device:
+        fresh = build_discriminator(cfg.discriminator, torch.Generator(
+            device=tr.device).manual_seed(seed + 1))
+    mine = tr.discriminator.state_dict()
+    check(all(torch.equal(v, mine[k]) for k, v in fresh.state_dict().items()),
+          "stage 3: D is not at its seeded init")
+    n_d = sum(v.numel() for v in mine.values())
+    print(f"train stage3: D ({cfg.discriminator.type}, "
+          f"{len(tr.discriminator.subD_list)} sub-Ds, {n_d / 1e6:.2f}M "
+          "params) equal to its seeded init (seed + 1)")
+    return {**got, "stage1_tensors": len(stage1), "new_modules": new_mods,
+            "d_params": n_d}
+
+
+def gan_run(cfg, card: str, kernels: dict, ckpt1: str):
+    """Phase 16's steps: build, the handoff, GAN_STEPS through train_loop
+    with the kernel counts set to 0 just before and read after.  Returns
+    (trainer, stats, {kernel: launches}, G's and D's seeded init on the
+    CPU)."""
+    import torch
+
+    from crdr_tpu_torch.trainer import build_trainer
+
+    t0 = time.perf_counter()
+    tr = build_trainer(cfg)  # the GPU
+    print(f"train stage3: {type(tr).__name__}, {cfg.model_type} built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{sum(p.numel() for p in tr.comp_model.net.parameters()) / 1e6:.1f}"
+          f"M params")
+    check(tr.comp_model.device.type == "cuda", "stage 3: not on the card")
+    res = {"handoff": gan_handoff(tr, cfg, ckpt1)}
+    init = ({k: v.detach().cpu().clone()
+             for k, v in tr.comp_model.state_dict().items()},
+            {k: v.detach().cpu().clone()
+             for k, v in tr.discriminator.state_dict().items()})
+    subs = list(tr.discriminator.subD_list)
+    sub0 = [[p.detach().clone() for p in sd.parameters()] for sd in subs]
+    logs, times, rates = record_steps(tr)
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    tr.train_loop()
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    last = check_logs(logs, "stage 3")
+    print(f"train stage3: {len(logs)} steps, all losses finite, none "
+          f"skipped; last step " + ", ".join(
+              f"{k} {v:.4f}" for k, v in last.items()) + f"; launches {counts}")
+    levels = tr.comp_model.rate_level
+    check(sorted(set(rates)) == [float(q) for q in range(levels)],
+          f"stage 3: rate_ind {rates} does not span 0..{levels - 1}")
+    moved = [any(not torch.equal(a, b) for a, b in zip(p0, sd.parameters()))
+             for p0, sd in zip(sub0, subs)]
+    sampled = [float(i) in rates for i in range(len(subs))]
+    print(f"train stage3: rate_ind sampled {rates}; sub-D moved {moved}")
+    check(any(moved) and moved == sampled, f"stage 3: the sub-Ds moved "
+          f"{moved}, their rates were sampled {sampled}")
+    d_real = torch.stack([log["out_d_real"] for log in logs]).cpu().tolist()
+    d_fake = torch.stack([log["out_d_fake"] for log in logs]).cpu().tolist()
+    sep = [r - f for r, f in zip(d_real, d_fake)]
+    res["d_health"] = {
+        "out_d_real": d_real, "out_d_fake": d_fake,
+        "separation_first5": float(np.mean(sep[:5])),
+        "separation_last5": float(np.mean(sep[-5:]))}
+    print(f"train stage3: D's health, out_d_real {[round(v, 4) for v in d_real]}"
+          f", out_d_fake {[round(v, 4) for v in d_fake]}; mean separation "
+          f"(real - fake) first 5 {res['d_health']['separation_first5']:.4f}"
+          f", last 5 {res['d_health']['separation_last5']:.4f}")
+    res.update(train_stats("stage3 (endurance_stage3.yaml)", cfg,
+                           list(times), gan_step_flops(
+                               tr, next(iter(tr.train_loader))), peak, card))
+    res["rates"] = rates
+    return tr, res, counts, init
+
+
+def gan_top_rate(tr, data, card: str) -> dict:
+    """Steps at the top rate (the anchor is the batch: one net forward) and
+    at rate 1 (the anchor forward first: two), in turns, each timed."""
+    import torch
+
+    forwards = []
+    hook = tr.comp_model.net.register_forward_hook(
+        lambda *a: forwards.append(1))
+    saved = tr.sample_controls
+    top = float(tr.comp_model.rate_level - 1)
+    res = {f"rate {r:g}": {"forwards": 0, "runs_ms": []} for r in (top, 1.0)}
+    try:
+        for _ in range(TOP_RATE_STEPS):
+            for rate in (top, 1.0):
+                tr.sample_controls = lambda itr, r=rate: (r, GAN_BETA,
+                                                          (1.0, 1.0))
+                n0 = len(forwards)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.optimize_parameters_device(tr.step + 1, data)
+                torch.cuda.synchronize()
+                row = res[f"rate {rate:g}"]
+                row["runs_ms"].append((time.perf_counter() - t0) * 1e3)
+                row["forwards"] += len(forwards) - n0
+    finally:
+        hook.remove()
+        tr.sample_controls = saved
+    for row in res.values():
+        row["forwards_per_step"] = row.pop("forwards") / TOP_RATE_STEPS
+        row["ms"] = float(np.median(row["runs_ms"]))
+    print("train stage3, the anchor, in turns: " + "; ".join(
+        f"{k}: {v['forwards_per_step']:g} net forwards a step, median "
+        f"{v['ms']:.1f} ms ({[round(t, 1) for t in v['runs_ms']]})"
+        for k, v in res.items()) + f" [{card}]")
+    check(res[f"rate {top:g}"]["forwards_per_step"] == 1
+          and res["rate 1"]["forwards_per_step"] == 2,
+          f"stage 3: net forwards a step {res}: the top rate's anchor must "
+          "be the batch")
+    return res
+
+
+def gan_grads(tr, batch, noise, dtype=None, gates=None):
+    """One stage-3 step's G and D halves at GAN_RATE / GAN_BETA in
+    ``dtype`` (f32 by default; the trainer's net, LPIPS and D already in
+    it), no update: the losses of both, the gradients of G (``G.``) and D
+    (``D.``) as float64 on the CPU, the quantized latents and, with
+    ``gates``, that mode's record.  The forwards run under ``gates``."""
+    import contextlib
+
+    net, d = tr.comp_model.net, tr.discriminator
+    net.zero_grad(set_to_none=True)
+    d.zero_grad(set_to_none=True)
+    saved, tr.comp_model.noise = tr.comp_model.noise, noise
+    try:
+        x = tr.put_batch(batch)
+        x = x.to(dtype or x.dtype)
+        with gates if gates is not None else contextlib.nullcontext():
+            total, losses, out, _ = tr.gan_g_losses(x, GAN_RATE, GAN_BETA)
+            dl = tr.gan_d_losses(x, out["fake_images"].detach(),
+                                 out["quantized_code"]["y"].detach(),
+                                 GAN_RATE)
+        total.backward()
+        dl["d_total"].backward()
+    finally:
+        tr.comp_model.noise = saved
+    grads = {f"{tag}.{n}": p.grad.detach().double().cpu()
+             for tag, mod in (("G", net), ("D", d))
+             for n, p in mod.named_parameters() if p.grad is not None}
+    net.zero_grad(set_to_none=True)
+    d.zero_grad(set_to_none=True)
+    vals = {k: float(v.detach()) for k, v in
+            {**losses, "total": total, **dl}.items()}
+    return vals, grads, {k: v.detach().cpu() for k, v in
+                         out["quantized_code"].items()}, \
+        gates.rec if gates is not None else None
+
+
+def gan_card_vs_cpu(tr, init, tmp: str, ckpt1: str, batch, card: str) -> dict:
+    """At the seeded stage-3 init (stage 1's trunk, the new modules and D at
+    init), the same weights, batch, controls and noise through one f32 step
+    (TF32 off, mixed precision off) on the card and on the CPU, and a
+    float64 CPU step as the reference: every pair's losses within
+    TRAIN_RTOL; with the (leaky) ReLUs and max pools held to the float64
+    step's gates and picks, the card and the f32 CPU each within TRAIN_RTOL
+    and GRAD_REL of it and of each other; with free gates a gradient past
+    GRAD_REL passes only where some gate differs (phase 15's rule)."""
+    import torch
+
+    from crdr_tpu_torch.trainer import build_trainer
+
+    cpu = build_trainer(train_config(
+        "endurance_stage3.yaml", tmp, "s3cpu", mixed_precision=False,
+        pretrained_weight_path=ckpt1), device="cpu")
+    for t in (cpu, tr):
+        t.comp_model.load_state_dict(init[0], strict=True)
+        t.discriminator.load_state_dict(init[1], strict=True)
+    cpu.perceptual_loss.load_state_dict(
+        {k: v.cpu() for k, v in tr.perceptual_loss.state_dict().items()})
+    drawn, g = [], torch.Generator().manual_seed(1)
+
+    def record(name, like):
+        drawn.append(torch.rand(like.shape, generator=g,
+                                dtype=torch.float32) - 0.5)
+        return drawn[-1].to(like.dtype)
+
+    def replay():
+        it = iter(drawn)
+        return lambda name, like: next(it).to(like.device, like.dtype)
+
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+             tr.opt.get("mixed_precision"))
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    tr.opt["mixed_precision"] = False
+    try:
+        t0 = time.perf_counter()
+        free = {"cpu": gan_grads(cpu, batch, record, gates=gate_replay())}
+        cpu_s = time.perf_counter() - t0
+        free["card"] = gan_grads(tr, batch, replay(), gates=gate_replay())
+        for m in (cpu.comp_model.net, cpu.perceptual_loss, cpu.discriminator):
+            m.double()
+        t0 = time.perf_counter()
+        ref = gan_grads(cpu, batch, replay(), torch.float64, gate_replay())
+        f64_s = time.perf_counter() - t0
+        for m in (cpu.comp_model.net, cpu.perceptual_loss, cpu.discriminator):
+            m.float()
+        held = {"card": gan_grads(tr, batch, replay(),
+                                  gates=gate_replay(ref[3])),
+                "cpu": gan_grads(cpu, batch, replay(),
+                                 gates=gate_replay(ref[3]))}
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+         tr.opt["mixed_precision"]) = saved
+    zero = zero_by_construction(tr, [*free.values(), ref, *held.values()])
+    rows = {
+        "card vs CPU f32, free": step_row(free["card"], free["cpu"]),
+        "card vs f64, free": step_row(free["card"], ref),
+        "CPU f32 vs f64, free": step_row(free["cpu"], ref),
+        "card vs f64, gates held": step_row(held["card"], ref),
+        "CPU f32 vs f64, gates held": step_row(held["cpu"], ref),
+        "card vs CPU f32, gates held": step_row(held["card"], held["cpu"])}
+    apart = {"card vs CPU f32": gates_apart(free["card"][3], free["cpu"][3]),
+             "card vs f64": gates_apart(free["card"][3], ref[3]),
+             "CPU f32 vs f64": gates_apart(free["cpu"][3], ref[3])}
+    calls = {k: len(v) for k, v in ref[3].items()}
+    print(f"stage 3 card vs CPU, seeded stage-3 init, rate {GAN_RATE:g}, "
+          f"beta {GAN_BETA}, batch {CMP_BATCH}: the f32 CPU step {cpu_s:.1f} "
+          f"s, the float64 CPU step {f64_s:.1f} s; gate calls {calls}; gates "
+          f"set apart (elements; [call, shape, elements]) {apart}; zero by "
+          f"construction {zero}")
+    for what, row in rows.items():
+        print(say_row(f"  {what}", row) + f" [{card}]")
+
+    def holds(row, what):
+        check(row["max_loss_rel"] <= TRAIN_RTOL, f"stage 3, {what}: losses "
+              f"differ by {row['max_loss_rel']:.3e} (rtol {TRAIN_RTOL})")
+        check(row["max_grad_rel_l2"] <= GRAD_REL, f"stage 3, {what}: gradient "
+              f"{row['worst']} off by {row['max_grad_rel_l2']:.3e} (relative "
+              f"L2, limit {GRAD_REL})")
+
+    for what in ("card vs f64, gates held", "CPU f32 vs f64, gates held",
+                 "card vs CPU f32, gates held"):
+        holds(rows[what], what)
+    for what, pair in (("card vs CPU f32, free", "card vs CPU f32"),
+                       ("card vs f64, free", "card vs f64"),
+                       ("CPU f32 vs f64, free", "CPU f32 vs f64")):
+        check(rows[what]["max_loss_rel"] <= TRAIN_RTOL, f"stage 3, {what}: "
+              f"losses differ by {rows[what]['max_loss_rel']:.3e}")
+        check(not rows[what]["over_limit"] or any(
+            v["elements"] for v in apart[pair].values()),
+            f"stage 3, {what}: gradients {rows[what]['over_limit']} differ "
+            "past the limit with every gate set alike")
+    del cpu
+    return {**{k: {x: r[x] for x in ("max_loss_rel", "max_grad_rel_l2",
+                                     "worst", "over_limit")}
+               for k, r in rows.items()},
+            "gates_apart": apart, "gate_calls": calls, "cpu_f32_s": cpu_s,
+            "cpu_f64_s": f64_s, "zero_by_construction": zero}
+
+
+def zero_by_construction(tr, steps) -> dict:
+    """Takes out of each gan_grads result the gradients that are 0 by
+    construction, and checks them there: under RGAN, D's loss is
+    f(D(real) - D(fake)) + g(D(fake) - D(real)) with f' = -g' at every
+    pixel, so the last conv's bias (in both halves) gets none; rounding
+    leaves ~1e-9, which a relative error cannot judge.  Each must be within
+    1e-3 of the largest D gradient's norm.  Returns {name: the largest
+    ratio}."""
+    import torch
+
+    if tr.adv_mode != "rgan":
+        return {}
+    out = {}
+    for step in steps:
+        grads = step[1]
+        top = max(float(torch.linalg.vector_norm(v)) for k, v in
+                  grads.items() if k.startswith("D."))
+        for name in [k for k in grads if k.startswith("D.")
+                     and k.endswith("head.bias")]:
+            ratio = float(torch.linalg.vector_norm(grads.pop(name))) / top
+            out[name] = max(out.get(name, 0.0), ratio)
+            check(ratio <= 1e-3, f"stage 3: {name}'s gradient, 0 by "
+                  f"construction under RGAN, is {ratio:.3e} of the largest")
+    return out
+
+
+def gan_resume_check(tmp: str, ckpt1: str, card: str) -> dict:
+    """Save at step k, rebuild from the checkpoint, run to 2k on the same
+    batches: G, D (parameters and state), the three optimizers and the
+    generators bit-equal to the uninterrupted run's."""
+    import torch
+
+    from crdr_tpu_torch.data import cycle
+    from crdr_tpu_torch.trainer import build_trainer
+
+    k = RESUME_K
+
+    def cfg(**over):
+        return train_config("endurance_stage3.yaml", tmp, "s3resume",
+                            pretrained_weight_path=ckpt1, **over)
+
+    a = build_trainer(cfg())
+    data = [d for _, d in cycle(a.train_loader, 0, 2 * k)]
+    for i in range(k):
+        a.optimize_parameters_device(i + 1, data[i])
+    a.save(k)
+    check(os.path.exists(a.path_handler.get_ckpt_path("discriminator", k)),
+          "stage 3: no discriminator checkpoint written")
+    for i in range(k, 2 * k):
+        a.optimize_parameters_device(i + 1, data[i])
+    b = build_trainer(cfg(start_iter=k))
+    for i in range(k, 2 * k):
+        b.optimize_parameters_device(i + 1, data[i])
+    torch.cuda.synchronize()
+    pairs = [(f"G {n}", p.detach(), q.detach()) for (n, p), (_, q) in
+             zip(a.comp_model.net.named_parameters(),
+                 b.comp_model.net.named_parameters())]
+    pairs += [(f"D {n}", p, q) for (n, p), (_, q) in
+              zip(a.discriminator.state_dict().items(),
+                  b.discriminator.state_dict().items())]
+    for label, oa, ob in (("g", a.g_opt, b.g_opt), ("aux", a.aux_opt,
+                                                     b.aux_opt),
+                          ("d", a.d_opt, b.d_opt)):
+        pairs += [(f"{label} {key}", oa.state[key], ob.state[key])
+                  for key in oa.state]
+    pairs.append(("noise generator", a.noise.generator.get_state(),
+                  b.noise.generator.get_state()))
+    diff = {name: float((x.double() - y.double()).abs().max())
+            for name, x, y in pairs if not torch.equal(x, y)}
+    same_np = a.comp_model.sample_rate_ind() == b.comp_model.sample_rate_ind()
+    worst = max(diff.items(), key=lambda kv: kv[1]) if diff else (None, 0.0)
+    print(f"stage 3 resume: saved at step {k}, rebuilt from the checkpoint, "
+          f"run to {2 * k}: {len(pairs) - len(diff)} of {len(pairs)} tensors "
+          f"(G, D and its state, the G / aux / D optimizers, the noise "
+          f"generator) bit-equal to the uninterrupted run's, the numpy "
+          f"generator {'equal' if same_np else 'NOT equal'}; largest "
+          f"difference {worst[1]:.3e} ({worst[0]}) [{card}]")
+    check(not diff and same_np, f"stage 3 resume is not bit-equal: "
+          f"{len(diff)} tensors differ, the largest by {worst[1]:.3e} "
+          f"({worst[0]})")
+    del a, b
+    return {"tensors": len(pairs), "differing": len(diff)}
+
+
+def gan_cli_check(tmp: str, ckpt1: str, card: str) -> float:
+    """python -m crdr_tpu_torch.cli.train config/endurance_stage3.yaml as a
+    subprocess (the card by default), 3 steps, in ``tmp``, with phase 15's
+    stage-1 checkpoint at the recipe's warm-start path: it writes its
+    checkpoints (D's included) and its loss CSV."""
+    from crdr_tpu_torch.utils.config import Config
+
+    steps = 3
+    recipe = os.path.join(ROOT, "config", "endurance_stage3.yaml")
+    warm = os.path.join(tmp, Config.from_file(recipe).pretrained_weight_path)
+    os.makedirs(os.path.dirname(warm), exist_ok=True)
+    shutil.copyfile(ckpt1, warm)
+    cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.train", recipe,
+           "-ti", str(steps), "-s", str(steps), "-l", "1", "-e", "1000000"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
+                          text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the stage-3 train CLI exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    check("partial load" in proc.stdout + proc.stderr,
+          "the stage-3 train CLI did not warm-start from stage 1")
+    job = os.path.join(tmp, "checkpoint", "endurance_stage3")
+    for name in (f"comp_model_iter{steps}.ckpt",
+                 f"training_state_iter{steps}.ckpt",
+                 f"discriminator_iter{steps}.ckpt"):
+        check(os.path.exists(os.path.join(job, "model", name)),
+              f"the stage-3 train CLI wrote no {name}")
+    with open(os.path.join(job, "log_loss.csv")) as f:
+        rows = f.read().strip().splitlines()
+    check(len(rows) == steps + 1 and "out_d_real" in rows[0],
+          f"the stage-3 train CLI's log_loss.csv: {rows}")
+    print(f"train CLI: {' '.join(cmd[1:3])} endurance_stage3.yaml -ti "
+          f"{steps}: {dt:.1f} s (process start and model build included), "
+          f"warm-started from stage 1, checkpoints (D's included) and "
+          f"{steps} loss rows written [{card}]")
+    return dt
+
+
+def gan_phase(card: str, tmp: str, ckpt1: str, kernels: dict,
+              profiling: bool = False):
+    """Phase 16: stage 3 on the card at full width, in phase 15's temporary
+    directory, from its stage-1 checkpoint ``ckpt1``."""
+    import torch
+
+    t_phase = time.perf_counter()
+    cfg = train_config("endurance_stage3.yaml", tmp, "stage3",
+                       total_iter=GAN_STEPS, pretrained_weight_path=ckpt1)
+    tr, res, counts, init = gan_run(cfg, card, kernels, ckpt1)
+    fixed = next(iter(tr.train_loader))
+    if profiling:
+        profile_phase(lambda: [tr.optimize_parameters_device(
+            tr.step + 1, fixed) for _ in range(3)],
+            "stage 3 training, 3 steps", card)
+    res["anchor"] = gan_top_rate(tr, fixed, card)
+    res["card_vs_cpu"] = gan_card_vs_cpu(
+        tr, init, tmp, ckpt1, fixed["real_images"][:CMP_BATCH], card)
+    del tr, init
+    torch.cuda.empty_cache()
+    res["resume"] = gan_resume_check(tmp, ckpt1, card)
+    torch.cuda.empty_cache()
+    res["cli_s"] = gan_cli_check(tmp, ckpt1, card)
     res["phase_s"] = time.perf_counter() - t_phase
-    print(f"training phase: {res['phase_s']:.1f} s [{card}]")
+    print(f"stage 3 phase: {res['phase_s']:.1f} s [{card}]")
     return res, counts
 
 

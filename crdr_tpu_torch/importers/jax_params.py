@@ -12,6 +12,11 @@ and the layout transform is inverted:
 * InterpCA    (L, C)          -> (L, 1, C, 1, 1)
 * EntropyBottleneck matrices_K/biases_K/factors_K -> _matrixK/_biasK/_factorK
 
+``export_discriminator_state`` carries a discriminator's ``params`` and its
+state (``batch_stats``: BatchNorm's ``mean`` / ``var``, spectral norm's
+``u`` / ``sigma``, which flax files under ``SpectralNorm_0`` as
+``conv/weight/u`` / ``conv/weight/sigma``) into the port's discriminator.
+
 The flax tree is nested dicts of numpy arrays (``jax.device_get`` of the
 params); nothing of the JAX package is imported.
 """
@@ -39,7 +44,10 @@ _RULES: List[Tuple[str, str]] = [
     (r"\._matrix(\d+)$", r".matrices_\1"),
     (r"\._bias(\d+)$", r".biases_\1"),
     (r"\._factor(\d+)$", r".factors_\1"),
+    (r"(^|\.)subD_list\.(\d+)\.", r"\1subD_\2."),
 ]
+# a spectral norm's state: the port's SNConv buffers -> flax's names
+_SN_STATE = (r"\.(u|sigma)$", r".SpectralNorm_0.conv/weight/\1")
 
 # ELIC layer names that live under the `body` submodule of the JAX InterpCA nets
 _ELIC_BODY_LAYERS = r"(conv[1-4]|block[1-3]|attn[1-4])"
@@ -111,4 +119,33 @@ def export_state_dict(params: Dict, net: nn.Module, use_rate: bool,
     unused = sorted(set(flat) - used)
     if unused:
         raise KeyError(f"{len(unused)} flax params unused (e.g. {unused[:4]})")
+    return out
+
+
+def export_discriminator_state(variables: Dict, d: nn.Module
+                               ) -> Dict[str, torch.Tensor]:
+    """flax ``{"params", "batch_stats"}`` of a discriminator -> the port
+    discriminator ``d``'s ``state_dict``.  Strict: every key of ``d``
+    finds its leaf and every leaf is used."""
+    flat = {f"params.{k}": v
+            for k, v in _flatten(variables.get("params", {})).items()}
+    flat.update({f"batch_stats.{k}": v for k, v in
+                 _flatten(variables.get("batch_stats", {})).items()})
+    buffers = {n for n, _ in d.named_buffers()}
+    out, used = {}, set()
+    for key, ref in d.state_dict().items():
+        path = map_reference_name(key, False, False)
+        if key in buffers:
+            path = "batch_stats." + re.sub(*_SN_STATE, path)
+        else:
+            path = "params." + path
+        if path not in flat:
+            raise KeyError(f"{key}: no flax variable {path}")
+        out[key] = torch.from_numpy(_to_torch_layout(
+            flat[path], tuple(ref.shape), ""))
+        used.add(path)
+    unused = sorted(set(flat) - used)
+    if unused:
+        raise KeyError(f"{len(unused)} flax variables unused "
+                       f"(e.g. {unused[:4]})")
     return out

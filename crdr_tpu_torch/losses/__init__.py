@@ -1,6 +1,6 @@
 """Loss construction (counterpart of ``crdr_tpu/losses/__init__.py``;
-reference src/losses/__init__.py:13).  The port has the rate-distortion
-losses and LPIPS; the GAN losses come with stage 3."""
+reference src/losses/__init__.py:13): the rate-distortion losses, LPIPS and
+the GAN losses of stage 3."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ from typing import Dict
 from ..utils.config import ConfigDict
 from ..utils.registry import LOSS_REGISTRY
 
-from . import distortion_loss, perceptual_loss, rate_loss  # noqa: F401
+from . import (distortion_loss, gan_loss, perceptual_loss,  # noqa: F401
+               rate_loss)
 
 
 def build_loss(opt: Dict):

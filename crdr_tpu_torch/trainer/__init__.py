@@ -1,11 +1,11 @@
 """Trainer construction (counterpart of ``crdr_tpu/trainer/__init__.py``;
-reference src/trainer/__init__.py:10).  The port has the rate-distortion
-trainer (stages 1 and 2); the GAN trainer of stage 3 is still to come."""
+reference src/trainer/__init__.py:10): the rate-distortion trainer (stages
+1 and 2) and the six GAN trainers (stage 3)."""
 
 from __future__ import annotations
 
 from ..utils.registry import TRAINER_REGISTRY
-from . import rd_trainer  # noqa: F401  (registration side effects)
+from . import gan_trainer, rd_trainer  # noqa: F401  (registration)
 from .base_trainer import BaseTrainer
 
 

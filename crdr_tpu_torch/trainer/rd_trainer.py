@@ -113,7 +113,15 @@ class RateDistortionTrainer(BaseTrainer):
         rate_ind, beta, mults = self.sample_controls(itr)
         losses, _, summary = self._g_losses(batch, rate_ind, beta,
                                             self.noise, mults)
-        l_total = sum(losses.values())
+        log, _ = self._g_update(sum(losses.values()), losses, summary)
+        self.step += 1
+        return log
+
+    def _g_update(self, l_total: Tensor, losses: Dict[str, Tensor],
+                  summary: Dict[str, Tensor]):
+        """The backward of ``l_total``, the main optimizer step, then the aux
+        loss and step on the updated parameters, both held where the loss is
+        anomalous: (the log as device scalars, the skip flag)."""
         self.g_opt.zero_grad()
         l_total.backward()
         skip = self.loss_anomaly_flag(l_total.detach())
@@ -128,17 +136,13 @@ class RateDistortionTrainer(BaseTrainer):
             aux.backward()
             self.aux_opt.step(skip)
             log["aux"] = aux.detach()
-        self.step += 1
-        return log
+        return log, skip
 
     # ------------------ save / load ------------------
 
-    def save(self, current_iter: int) -> None:
-        state = {k: v.detach().cpu()
-                 for k, v in self.comp_model.state_dict().items()}
-        self.model_saver.save({"comp_model": state}, "comp_model",
-                              current_iter, keep=True)
-        training_state = {
+    def training_state(self) -> Dict:
+        """The optimizers' states, the step and the generators' states."""
+        return {
             "step": self.step,
             "opt_state": self.g_opt.state_dict(),
             "aux_opt_state": self.aux_opt.state_dict()
@@ -146,7 +150,14 @@ class RateDistortionTrainer(BaseTrainer):
             "np_rng": self.comp_model._np_rng.bit_generator.state,
             "noise_rng": self.noise.generator.get_state(),
         }
-        self.model_saver.save(training_state, "training_state", current_iter,
+
+    def save(self, current_iter: int) -> None:
+        state = {k: v.detach().cpu()
+                 for k, v in self.comp_model.state_dict().items()}
+        self.model_saver.save({"comp_model": state}, "comp_model",
+                              current_iter, keep=True)
+        self.model_saver.save(self.training_state(), "training_state",
+                              current_iter,
                               keep=self.opt.get("keep_training_state", False))
 
     def load_checkpoint(self, exp: str, itr: int, load_optimizer: bool = True,
@@ -171,20 +182,24 @@ class RateDistortionTrainer(BaseTrainer):
         self.logger.info(f"checkpoint loaded: exp={exp} iter={itr}")
 
     def _restore_training_state(self, ts: Dict) -> None:
-        strict = bool(self.opt.get("strict_resume", False))
         for name, optim in (("opt_state", self.g_opt),
                             ("aux_opt_state", self.aux_opt)):
-            if optim is None or ts.get(name) is None:
-                continue
-            try:
-                optim.load_state_dict(ts[name])
-            except ValueError as e:
-                msg = (f"optimizer state '{name}' does not match the "
-                       f"current parameters ({e}): the model changed "
-                       "between save and resume")
-                if strict:
-                    raise ValueError(msg + " (strict_resume is set)") from e
-                self.logger.warning(msg + "; this optimizer starts afresh")
+            self._restore_optimizer(name, optim, ts)
         self.comp_model._np_rng.bit_generator.state = ts["np_rng"]
         self.noise.generator.set_state(ts["noise_rng"])
         self.step = int(ts["step"])
+
+    def _restore_optimizer(self, name: str, optim, ts: Dict) -> None:
+        """``ts[name]`` into ``optim``; one that does not fit raises with
+        ``strict_resume``, else is reported and ``optim`` starts afresh."""
+        if optim is None or ts.get(name) is None:
+            return
+        try:
+            optim.load_state_dict(ts[name])
+        except ValueError as e:
+            msg = (f"optimizer state '{name}' does not match the current "
+                   f"parameters ({e}): the model changed between save and "
+                   "resume")
+            if self.opt.get("strict_resume", False):
+                raise ValueError(msg + " (strict_resume is set)") from e
+            self.logger.warning(msg + "; this optimizer starts afresh")

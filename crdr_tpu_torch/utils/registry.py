@@ -50,3 +50,4 @@ ENTROPYMODEL_REGISTRY = Registry("entropy_model")
 LOSS_REGISTRY = Registry("loss")
 DATASET_REGISTRY = Registry("dataset")
 TRAINER_REGISTRY = Registry("trainer")
+DISCRIMINATOR_REGISTRY = Registry("discriminator")
