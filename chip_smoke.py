@@ -18,7 +18,8 @@ Phases, each asserted (any failure exits non-zero):
    seeded weights in a 10-slice packed stack, slice 7.  The library's SASS
    must hold HGMMA (wgmma) and no HMMA (mma.sync).  The kernel against its
    plain PyTorch twin (TF32 off), bit-stability across calls and batch
-   sizes, and times: kernel at batch 4 and 1, each of its four launches
+   sizes (at batch 2 of a 16x24 latent too, the served 256x384 images'),
+   and times: kernel at batch 4 and 1, each of its four launches
    (pad / cast, conv0, conv1, conv2) at batch 4 and 1 from the profiler
    (printed as not measured when the profiler records no device activity),
    its blocks per conv and their residency, plain twin, a cuDNN bf16 conv
@@ -33,7 +34,9 @@ Phases, each asserted (any failure exits non-zero):
    decompress_batch with the K1 launch count, bit-exact y_hat,
    reconstruction sanity, real vs predicted bpp, a batch-1 decode of stream
    0 and a batch-1 encode of image 0 (both equal to the batch-4 ones), and
-   the timings.
+   the timings, with a batch-1 decode's with the synthesis at the fixed
+   batch and at batch 1, in turns (what the padding costs; every
+   compressai-wire path prints it).
 4. main path, device wire: the same model (wire_format: device,
    device_wire_encoder: host, set in its options, codec_setup again): the K2
    and K1 launch counts, y_hat bit-exact and equal to the compressai wire's,
@@ -183,11 +186,50 @@ Phases, each asserted (any failure exits non-zero):
    on endurance_stage3.yaml (-ti 3) as a subprocess, its warm start the
    stage-1 checkpoint placed at the recipe's path: checkpoints, D's
    included, and the loss CSV written.
-17. one JSON line of kernel figures (launches by path, every path above);
-18. the ok line.
+17. streams across devices: config/crdr.yaml (f32, K1 off),
+   balle18_mean_scale.yaml (K3 / gdn_plain), crdr_throughput.yaml (K1 / its
+   bf16 twin) and crdr_fastchain.yaml (TF32 on the card), each built once
+   from its seed on the card and, from the card's state_dict, on the CPU;
+   one 512x768 image encoded on each, each device's own round trip exact
+   (asserted); printed, not asserted (the port does not promise it): whether
+   the streams are byte-equal and the first y byte apart, whether the
+   encoders' y_hat are equal and the first element and symbol apart (slice,
+   index), the card's stream decoded on the CPU and the CPU's on the card
+   (y_hat against the encoder's, or the exception raised), the CPU seconds;
+   one cross_device JSON line.
+18. serving: the HTTP server (crdr_tpu_torch/serving/) in process on a
+   free port, its model built as the serve CLI builds it
+   (crdr_throughput.yaml, --max_batch 8 --max_wait_ms 10, every kernel
+   library of the path built before it listens), y scales raised: 8
+   client threads x 3 waves of POST /compress (q in {0, 1.5, 2, 3.25, 4};
+   two clients send 256x384 images, six 512x768), then POST /decompress
+   of every .bin (beta in {0, 1.28, 2.56, 5.12}), then one more wave at
+   beta 2.56; on the compressai wire, then on the device wire with E1
+   (codec_setup again); then the GDN model (balle18_mean_scale.yaml) for
+   one wave of 4 requests.  Asserted on each: every served .bin equals
+   compress of that image alone at that q; every served PNG equals the
+   uint8 decode of that stream alone at that beta (mixed-beta dispatches
+   too, the largest difference also printed); a dispatch of 2 or more;
+   the kernel launches over the served traffic (counts set to 0 just
+   before it) equal the dispatches (counted by wrapping the model's batch
+   entry points) times their counts (K1 30 a dispatch, E1 2 an encode and
+   K2 11 a decode on the device wire, K3 3 a transform call of 4 images);
+   /healthz names the card; a JPEG body gets a 400 and the next request
+   on its connection is served; each decode gives its encoder's symbols;
+   each kernel's first served call at every shape (batch 2 of the small
+   images' 16x24 latent among them) equals its plain twin on the same
+   inputs (K1 within 2e-3, K2 and E1 exactly, K3 within its tolerance); a
+   .bin with its y string cut or flipped gets a 200 or a 400, and the
+   next request is served; the server shuts down drained.  Printed:
+   requests/s, p50 / p95 latency by route, the dispatches by size, the
+   peak memory (and the part of it the sampled calls hold).
+19. one JSON line of kernel figures (launches by path, every path above);
+20. the ok line.
 Imports nothing of JAX or of the JAX package.
 """
 
+import contextlib
+import importlib
 import json
 import os
 import re
@@ -388,6 +430,9 @@ def sass_counts(lib: str) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
+K1_SESSIONS = []  # (calls, K1 kernel records, host launch records) a session
+
+
 def k1_stage_ms(fn, calls: int = 10, tries: int = 3):
     """Device time per stage of K1 (its four kernels in launch order: the
     pad / cast pass, conv0, conv1, conv2), mean over ``calls`` calls of
@@ -395,29 +440,65 @@ def k1_stage_ms(fn, calls: int = 10, tries: int = 3):
     records no device activity at all in ``tries`` sessions: CUPTI allows
     one subscriber a process, so a tracer outside this script, or a CUPTI
     that fails to start, leaves torch.profiler blind.  K1's own time is
-    taken with CUDA events and does not depend on this."""
+    taken with CUDA events and does not depend on this.
+
+    A session with other than 4 K1 kernel records a call fails the run,
+    unless the profiler shows that the launches were made and their
+    records lost: its host-side launch records (the cudaLaunchKernel* /
+    cuLaunchKernel* calls CUPTI traced in the same session) number 4 a
+    call, or CUPTI reported dropped records on stderr.  Every launch's
+    error code is checked (``_launch`` raises), so a launch the host made
+    and the runtime took runs.  Such a session is printed (records by
+    stage name, launch records, CUPTI's words) and measured again,
+    ``tries`` at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []  # K1 records of each session that recorded device activity
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        dev = [e for e in prof.events()
+        with stderr_of_this_process() as err:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            events = prof.events()
+        dev = [e for e in events
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        if dev:
+        evs = sorted((e for e in dev if "k1_" in e.name),
+                     key=lambda e: e.time_range.start)
+        if not dev:
+            continue
+        seen.append(len(evs))
+        host = sum(1 for e in events
+                   if not str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and re.search(r"^cu(da)?LaunchKernel", e.name))
+        K1_SESSIONS.append((calls, len(evs), host))
+        if len(evs) == 4 * calls:
             break
+        names = {}
+        for e in evs:
+            key = re.sub(r"<.*", "", e.name)[:40]
+            names[key] = names.get(key, 0) + 1
+        dropped = [ln for ln in err.text().splitlines()
+                   if re.search(r"drop", ln, re.I)]
+        print(f"K1 profile: {len(evs)} kernel records for {calls} calls "
+              f"(expected {4 * calls}): by name {names}; host launch "
+              f"records {host}; CUPTI on stderr: {dropped or 'nothing'}")
+        if host != 4 * calls and not dropped:
+            fail(f"K1 profile: {len(evs)} kernel records and {host} host "
+                 f"launch records for {calls} calls (expected {4 * calls} "
+                 "each), and no dropped records reported")
+        print("K1 profile: every launch was made and CUPTI lost records; "
+              "profiling again")
     else:
-        print(f"K1 stage times: not measured (torch.profiler recorded no "
-              f"device activity in {tries} sessions)")
-        return None
-    evs = sorted((e for e in dev if "k1_" in e.name),
-                 key=lambda e: e.time_range.start)
-    check(len(evs) == 4 * calls, f"K1 profile: {len(evs)} kernel records "
-                                 f"for {calls} calls (expected 4 each)")
+        if not seen:
+            print(f"K1 stage times: not measured (torch.profiler recorded "
+                  f"no device activity in {tries} sessions)")
+            return None
+        fail(f"K1 profile: {seen} kernel records in {tries} sessions of "
+             f"{calls} calls (expected {4 * calls} each)")
     names = ("prep", "conv0", "conv1", "conv2")
     out = {k: 0.0 for k in names}
     for i, e in enumerate(evs):
@@ -427,12 +508,77 @@ def k1_stage_ms(fn, calls: int = 10, tries: int = 3):
     return out
 
 
+class stderr_of_this_process:
+    """Captures file descriptor 2 (what C++ libraries, CUPTI's and the
+    profiler's among them, write) into a temporary file for the block, and
+    echoes it afterwards; ``text()`` gives what was written."""
+
+    def __enter__(self):
+        import tempfile
+
+        sys.stderr.flush()
+        self._file = tempfile.TemporaryFile(mode="w+b")
+        self._saved = os.dup(2)
+        os.dup2(self._file.fileno(), 2)
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr.flush()
+        os.dup2(self._saved, 2)
+        os.close(self._saved)
+        self._file.seek(0)
+        self._text = self._file.read().decode(errors="replace")
+        self._file.close()
+        sys.stderr.write(self._text)
+        return False
+
+    def text(self) -> str:
+        return self._text
+
+
 def stage_text(st) -> str:
     """K1's stage times as printed, or why there are none."""
     if st is None:
         return "not measured (the profiler saw no device activity)"
     return (", ".join(f"{k} {v:.4f}" for k, v in st.items())
             + f" ms, sum {sum(st.values()):.4f} ms")
+
+
+def k1_hold(x, args, idx: int, tag: str):
+    """K1 on ``x`` with slice ``idx`` of the stacks ``args`` against its
+    plain twin within K1_ATOL: two launches bit-identical, each image equal
+    to its batch-1 launch, and the check's power (a dropped bias or another
+    slice's weights must move the output by more than 10 K1_ATOL).
+    Returns (max |err|, max |plain|, the two faults' distances)."""
+    import torch
+
+    from crdr_tpu_torch.ops.slice_transform import (slice_transform,
+                                                    slice_transform_plain)
+
+    own = tuple(t[idx] for t in args)
+    out = slice_transform(x, *args, idx)
+    again = slice_transform(x, *args, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"{tag}: two launches differ")
+    for i in range(x.shape[0]):
+        one = slice_transform(x[i:i + 1].contiguous(), *args, idx)
+        check(torch.equal(out[i:i + 1], one),
+              f"{tag}: batch-{x.shape[0]} image {i} != batch-1 launch")
+    plain = slice_transform_plain(x, *own)
+    err = float((out - plain).abs().max())
+    check(torch.isfinite(out).all(), f"{tag}: non-finite output")
+    check(err <= K1_ATOL, f"{tag}: max|kernel - plain| {err} > {K1_ATOL}")
+    # the check's power: the faults it must catch move the output more
+    no_b4 = float((plain - own[5] - out).abs().max())
+    other = slice_transform_plain(x, *(t[idx - 1] for t in args))
+    wrong = float((other - out).abs().max())
+    check(min(no_b4, wrong) > 10 * K1_ATOL,
+          f"{tag}: the check is blind to a dropped bias ({no_b4:.3e}) or "
+          f"another slice's weights ({wrong:.3e})")
+    print(f"{tag}: max|kernel - plain| {err:.3e} (dropped b4 would give "
+          f"{no_b4:.3e}, slice {idx - 1}'s weights {wrong:.3e}); bit-stable "
+          f"across calls and batch sizes")
+    return err, float(plain.abs().max()), no_b4, wrong
 
 
 def k1_phase(card: str) -> dict:
@@ -467,27 +613,10 @@ def k1_phase(card: str) -> dict:
         args = (w0, b0, w2, b2, w4, b4)
         own = tuple(t[idx] for t in args)
 
-        out = slice_transform(x, *args, idx)
-        again = slice_transform(x, *args, idx)
-        torch.cuda.synchronize()
-        check(torch.equal(out, again), f"K1 Cin {cin}: two launches differ")
-        for i in range(n):
-            one = slice_transform(x[i:i + 1].contiguous(), *args, idx)
-            check(torch.equal(out[i:i + 1], one),
-                  f"K1 Cin {cin}: batch-{n} image {i} != batch-1 launch")
-        plain = slice_transform_plain(x, *own)
-        err = float((out - plain).abs().max())
-        scale = float(plain.abs().max())
-        check(torch.isfinite(out).all(), f"K1 Cin {cin}: non-finite output")
-        check(err <= K1_ATOL, f"K1 Cin {cin}: max|kernel - plain| {err} > "
-                              f"{K1_ATOL}")
-        # the check's power: the faults it must catch move the output more
-        no_b4 = float((plain - own[5] - out).abs().max())
-        other = slice_transform_plain(x, *(t[idx - 1] for t in args))
-        wrong = float((other - out).abs().max())
-        check(min(no_b4, wrong) > 10 * K1_ATOL,
-              f"K1 Cin {cin}: the check is blind to a dropped bias "
-              f"({no_b4:.3e}) or another slice's weights ({wrong:.3e})")
+        err, scale, no_b4, wrong = k1_hold(x, args, idx, f"K1 Cin {cin}")
+        # the served small images' latent (256x384), at a batch of 2
+        small = torch.randn((2, h // 2, w // 2, cin), device=dev, generator=g)
+        k1_hold(small, args, idx, f"K1 Cin {cin} at 2x{h // 2}x{w // 2}")
 
         # yardstick: cuDNN bf16 convolutions, channels-last, from the same
         # f32 x (the cast is part of the work; not used by the port)
@@ -592,20 +721,19 @@ def k1_split_phase(card: str, splits=((1, 1, 1), (2, 2, 2), (4, 4, 4),
             st = k1_stage_ms(lambda: k1mod._launch(xb, *args, 0, plan))
             print(f"K1 split {sp} batch {xb.shape[0]}: {stage_text(st)} "
                   f"[{card}]")
+    kinds = {}
+    for sess in K1_SESSIONS:
+        kinds[sess] = kinds.get(sess, 0) + 1
+    print("K1 profile sessions so far, by (calls, K1 kernel records, host "
+          f"launch records): {kinds}")
 
 
 def smooth_images(seed: int) -> np.ndarray:
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:IMG_H, 0:IMG_W].astype(np.float32) / IMG_W
-    imgs = []
-    for _ in range(N_IMG):
-        f = rng.uniform(1.0, 9.0, (3, 3))
-        ph = rng.uniform(0, 2 * np.pi, 3)
-        chans = [0.5 + 0.25 * np.sin(f[c, 0] * xx + ph[c])
-                 * np.cos(f[c, 1] * yy) + 0.2 * np.sin(f[c, 2] * (xx + yy))
-                 for c in range(3)]
-        imgs.append(np.stack(chans, -1))
-    return np.clip(np.round(np.stack(imgs) * 255), 0, 255).astype(np.uint8)
+    """N_IMG seeded smooth 512x768 uint8 images (the serve smoke's
+    ``--synthetic`` images)."""
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+
+    return synthetic_images(N_IMG, IMG_H, IMG_W, seed)
 
 
 def profile_phase(fn, label: str, card: str, kernels=()) -> None:
@@ -797,7 +925,43 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str):
     print(f"timing of the batch round trip: encode "
           f"{json.dumps(encs[0]['timing'])} decode {json.dumps(dec_timing)}")
     times = timed_runs(model, imgs, label, card)
+    times["batch1_decode_ms"] = padding_cost(model, encs[0]["string_list"],
+                                             label, card)
     return encs, counts, times
+
+
+def padding_cost(model, strings, label: str, card: str,
+                 pairs: int = 3) -> dict:
+    """Batch-1 decode ms of ``strings`` with the synthesis at the codec's
+    fixed batch (padded with zero latents, as it runs) and, for this
+    measurement only, at batch 1 (``TRANSFORM_BATCH`` set to 1), in turns
+    (A B B A, ``pairs`` times): what the fixed batch costs a lone image."""
+    import torch
+
+    from crdr_tpu_torch.models import codec
+
+    fixed, runs = codec.TRANSFORM_BATCH, {}
+    try:
+        for tb in (1, fixed):  # batch 1 is a new shape for cuDNN: warm up
+            codec.TRANSFORM_BATCH = tb
+            model.decompress(strings, beta=BETA)
+        for tb in (fixed, 1, 1, fixed) * pairs:
+            codec.TRANSFORM_BATCH = tb
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.decompress(strings, beta=BETA)
+            torch.cuda.synchronize()
+            runs.setdefault(tb, []).append((time.perf_counter() - t0) * 1e3)
+    finally:
+        codec.TRANSFORM_BATCH = fixed
+    med = {tb: float(np.median(r)) for tb, r in runs.items()}
+    print(f"{label} batch-1 decode, medians of {2 * pairs} in turns (A B B "
+          f"A): synthesis at the fixed batch of {fixed} {med[fixed]:.1f} ms, "
+          f"at batch 1 {med[1]:.1f} ms: the padding costs "
+          f"{med[fixed] - med[1]:.1f} ms (runs {fixed}: "
+          f"{[round(v, 1) for v in runs[fixed]]}, 1: "
+          f"{[round(v, 1) for v in runs[1]]}) [{card}]")
+    return {"fixed_batch": med[fixed], "batch_1": med[1]}
 
 
 def device_wire_expected(model, encoder: str, gdn: int = 0) -> dict:
@@ -3269,6 +3433,637 @@ def gan_phase(card: str, tmp: str, ckpt1: str, kernels: dict,
     return res, counts
 
 
+# ---------------- phase 17: streams across devices ---------------------------
+
+# config, what differs between the card and the CPU (printed beside it)
+CROSS_CONFIGS = (
+    ("crdr.yaml", "f32 flagship, K1 off, f32 chain on both"),
+    ("balle18_mean_scale.yaml", "GDN path: K3 on the card, gdn_plain on the "
+                                "CPU"),
+    ("crdr_throughput.yaml", "bf16 transforms: K1 on the card, its bf16 "
+                             "twin on the CPU"),
+    ("crdr_fastchain.yaml", "TF32 chain on the card (none on a CPU), K1 / "
+                            "its twin"),
+)
+
+
+def latent_order(model, y_hat) -> np.ndarray:
+    """NHWC y_hat [1, h, w, C] -> [slices, slice_ch * h * w]: each slice's
+    symbols in the channel-major order the compressai wire codes them (the
+    generic family is one slice)."""
+    y = np.asarray(y_hat)[0].transpose(2, 0, 1)  # [C, h, w]
+    ns = model.num_slices if model.use_charm else 1
+    return y.reshape(ns, -1)
+
+
+def first_where(mask: np.ndarray):
+    """(slice, index) of the first True of a [slices, n] mask, or None."""
+    hits = np.argwhere(mask)
+    return None if len(hits) == 0 else tuple(int(v) for v in hits[0])
+
+
+def compare_latents(model, a, b) -> dict:
+    """Two y_hat of one image: bit-equal or not, the largest difference, the
+    first element apart (slice, index) and the first symbol apart (a
+    difference of half a bin or more: y_hat = symbol + mu, so a mu a few
+    ulps apart moves y_hat by ulps and a symbol apart by about a bin)."""
+    a, b = latent_order(model, a), latent_order(model, b)
+    diff = np.abs(a.astype(np.float64) - b)
+    return {"equal": bool(np.array_equal(a, b)),
+            "max_abs_diff": float(diff.max()),
+            "first_diff": first_where(diff > 0),
+            "symbols_apart": int((diff >= 0.5).sum()),
+            "first_symbol": first_where(diff >= 0.5)}
+
+
+def first_byte_apart(a: bytes, b: bytes):
+    n = min(len(a), len(b))
+    diff = np.flatnonzero(np.frombuffer(a[:n], np.uint8)
+                          != np.frombuffer(b[:n], np.uint8))
+    if len(diff):
+        return int(diff[0])
+    return None if len(a) == len(b) else n
+
+
+def cross_decode(model, enc, label: str) -> dict:
+    """Decode another device's stream: y_hat against that encoder's, or the
+    exception it raised (a measured outcome, never a skip)."""
+    kw = {"beta": BETA} if model.use_beta else {}
+    try:
+        _, _, y_hat = model.decompress(enc["string_list"], **kw)
+    except Exception as e:  # the outcome is reported, the phase goes on
+        res = {"raised": f"{type(e).__name__}: {e}"}
+    else:
+        res = compare_latents(model, y_hat, enc["y_hat"])
+    print(f"  {label}: {json.dumps(res)}")
+    return res
+
+
+def cross_device_config(name: str, what: str, img, card: str) -> dict:
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.utils.config import Config
+
+    cfg_path = os.path.join(ROOT, "config", name)
+    if name == "balle18_mean_scale.yaml":
+        gpu = build_gdn_model(img, card)
+    else:
+        gpu = build_comp_model(Config.from_file(cfg_path))
+        raise_y_scales(gpu)
+        gpu.codec_setup()
+    cpu = build_comp_model(Config.from_file(cfg_path), device="cpu")
+    cpu.load_state_dict(gpu.state_dict(), strict=True)
+    cpu.codec_setup()
+    enc_kw = {"rate_ind": RATE} if gpu.use_rate else {}
+    dec_kw = {"beta": BETA} if gpu.use_beta else {}
+
+    enc_g = gpu.compress(img, **enc_kw)
+    _, _, y_g = gpu.decompress(enc_g["string_list"], **dec_kw)
+    check(np.array_equal(y_g, enc_g["y_hat"]),
+          f"{name}: the card's own round trip is not exact")
+    t0 = time.perf_counter()
+    enc_c = cpu.compress(img, **enc_kw)
+    cpu_enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, y_c = cpu.decompress(enc_c["string_list"], **dec_kw)
+    cpu_dec_s = time.perf_counter() - t0
+    check(np.array_equal(y_c, enc_c["y_hat"]),
+          f"{name}: the CPU's own round trip is not exact")
+
+    sg, sc = enc_g["string_list"], enc_c["string_list"]
+    res = {"config": name, "what": what,
+           "streams_equal": sg == sc,
+           "y_first_byte_apart": first_byte_apart(sg[2], sc[2]),
+           "y_bytes": [len(sg[2]), len(sc[2])],
+           "encoders_y_hat": compare_latents(gpu, enc_g["y_hat"],
+                                             enc_c["y_hat"])}
+    print(f"cross-device {name} ({what}), one {img.shape[2]}x{img.shape[1]} "
+          f"image: streams byte-equal {res['streams_equal']}, first y byte "
+          f"apart {res['y_first_byte_apart']} (y strings {res['y_bytes']} "
+          f"bytes, card / CPU); encoders' y_hat "
+          f"{json.dumps(res['encoders_y_hat'])}; each device's own round "
+          f"trip exact")
+    t0 = time.perf_counter()
+    res["card_stream_on_cpu"] = cross_decode(
+        cpu, enc_g, "the card's stream decoded on the CPU")
+    cpu_cross_s = time.perf_counter() - t0
+    res["cpu_stream_on_card"] = cross_decode(
+        gpu, enc_c, "the CPU's stream decoded on the card")
+    res["cpu_s"] = {"encode": cpu_enc_s, "decode": cpu_dec_s,
+                    "cross_decode": cpu_cross_s}
+    print(f"  CPU seconds ({torch.get_num_threads()} threads): encode "
+          f"{cpu_enc_s:.1f}, decode {cpu_dec_s:.1f}, the card's stream "
+          f"{cpu_cross_s:.1f} [{card}]")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def cross_device_phase(img, card: str) -> list:
+    """Phase 17: each of CROSS_CONFIGS built once from its seed on the card
+    and, from the card's state_dict, on the CPU; one image encoded on each,
+    each device's own round trip asserted exact, and each stream decoded on
+    the other device.  The outcomes are measured and printed, not asserted:
+    the port does not promise streams across devices."""
+    t0 = time.perf_counter()
+    rows = [cross_device_config(name, what, img, card)
+            for name, what in CROSS_CONFIGS]
+    print("cross_device " + json.dumps(rows))
+    print(f"cross-device phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
+# ---------------- phase 18: serving on the card ----------------------------
+
+SERVE_QS = (0.0, 1.5, 2.0, 3.25, 4.0)
+SERVE_BETAS = (0.0, 1.28, 2.56, 5.12)
+SERVE_CLIENTS, SERVE_WAVES = 8, 3
+SMALL_CLIENTS = (6, 7)  # these two send 256x384 images
+
+
+# where the codec calls each kernel's wrapper, and the shape a served call
+# is sampled by: K1 x's [N, H, W, Cin]; K2 the states' [N, K] and the
+# round's steps; E1 the symbols' [N, M] and the lane grid; K3 x and the
+# direction
+SERVED_SITES = {
+    "slice_transform": ("crdr_tpu_torch.ops.charm_uniform",
+                        lambda a: tuple(a[0].shape)),
+    "lane_decode_round": ("crdr_tpu_torch.models.codec_devicewire",
+                          lambda a: (tuple(a[0].shape), a[5])),
+    "lane_encode_rounds": ("crdr_tpu_torch.models.codec_devicewire",
+                           lambda a: (tuple(a[0].shape), tuple(a[2].shape))),
+    "gdn": ("crdr_tpu_torch.nn.norm", lambda a: (tuple(a[0].shape), a[3])),
+}
+
+
+@contextlib.contextmanager
+def sampled_kernel_calls():
+    """Within the block, keeps the first call of each kernel at each shape
+    (``SERVED_SITES``): {kernel: {shape: (arguments, output)}}, tensors
+    cloned (a tensor passed again unchanged, as the weight stacks are, is
+    cloned once).  Every call runs, and counts, as it would.  The clones'
+    bytes are under the key "bytes"."""
+    import torch
+
+    copies = {}
+
+    def clone(v):
+        if torch.is_tensor(v):
+            # v is held beside its clone, so its memory is not reused
+            # and its pointer and version name these contents
+            key = (v.data_ptr(), v._version, v.shape, v.stride(), v.dtype)
+            if key not in copies:
+                copies[key] = (v, v.clone())
+                samples["bytes"] += 2 * v.numel() * v.element_size()
+            return copies[key][1]
+        return tuple(map(clone, v)) if type(v) is tuple else v
+
+    samples, saved = {name: {} for name in SERVED_SITES}, []
+    samples["bytes"] = 0
+    for name, (where, shape_of) in SERVED_SITES.items():
+        mod = importlib.import_module(where)
+        real = getattr(mod, name)
+
+        def sampler(*args, _real=real, _shape_of=shape_of,
+                    _into=samples[name]):
+            key = _shape_of(args)
+            if key in _into:
+                return _real(*args)
+            kept = clone(args)
+            out = _real(*args)
+            _into[key] = (kept, clone(out))
+            return out
+
+        saved.append((mod, name, real))
+        setattr(mod, name, sampler)
+    try:
+        yield samples
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def hold_served_kernels(samples, label: str, card: str) -> dict:
+    """Each sampled served call's output against the kernel's plain twin on
+    the same inputs: K1 within K1_ATOL, K2 and E1 exactly, K3 within
+    K3_RTOL |plain| + K3_ATOL.  Returns {kernel: shapes held}."""
+    import torch
+
+    from crdr_tpu_torch.ops import device_rans
+    from crdr_tpu_torch.ops.gdn import gdn_plain
+    from crdr_tpu_torch.ops.slice_transform import slice_transform_plain
+
+    def k1(args, out):
+        x, *stacks, idx = args
+        plain = slice_transform_plain(x, *(t[idx] for t in stacks))
+        err = float((out - plain).abs().max())
+        return bool(torch.isfinite(out).all()) and err <= K1_ATOL, err
+
+    def k2(args, out):
+        st, pt, words, idx, table, m = args
+        ref = device_rans.lane_decode_round_instep(
+            st, pt, words, idx, table.cdf, table.cdf_len, table.cdf_off, m)
+        return all(torch.equal(a, b) for a, b in zip(out, ref)), 0
+
+    def e1(args, out):
+        ref = device_rans.lane_encode_rounds(*args)
+        return all(torch.equal(a, b) for a, b in zip(out, ref)), 0
+
+    def k3(args, out):
+        ref = gdn_plain(*args)
+        excess = float(((out - ref).abs() / (K3_RTOL * ref.abs() + K3_ATOL))
+                       .max())
+        return excess <= 1.0, float((out - ref).abs().max())
+
+    twins = {"slice_transform": k1, "lane_decode_round": k2,
+             "lane_encode_rounds": e1, "gdn": k3}
+    held = {}
+    for name, twin in twins.items():
+        for key, (args, out) in samples[name].items():
+            ok, err = twin(args, out)
+            check(ok, f"{label}: served {name} at {key} != its plain twin "
+                      f"(max |err| {err:.3e})")
+            row = held.setdefault(name, {"shapes": [], "max_abs_err": 0.0})
+            row["shapes"].append(str(key))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    print(f"{label}: each kernel's served calls held against its plain twin "
+          f"at every shape the traffic gave it (K1 within {K1_ATOL}, K2 and "
+          f"E1 exactly, K3 within {K3_RTOL} |plain| + {K3_ATOL}): {held} "
+          f"[{card}]")
+    return held
+
+
+def corrupt_y(blob: bytes, how: str) -> bytes:
+    """A .bin whose header and z string are intact and whose y string is
+    cut to half (``cut``) or has its second half's bytes flipped
+    (``flip``)."""
+    from crdr_tpu_torch.utils.codec_utils import (pack_byte_strings,
+                                                  unpack_byte_strings)
+
+    strings = unpack_byte_strings(blob)
+    y = strings[2]
+    half = len(y) // 2
+    strings[2] = y[:half] if how == "cut" else \
+        y[:half] + bytes(b ^ 0x5A for b in y[half:])
+    return pack_byte_strings(strings)
+
+
+def post_status(url: str, body: bytes) -> int:
+    import urllib.error
+
+    try:
+        http_post(url, body)
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code
+    return 200
+
+
+def http_post(url: str, body: bytes, timeout: float = 300.0):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.read(), dict(r.headers), time.perf_counter() - t0
+
+
+def serve_model(card: str, wire: str = None):
+    """The flagship as the serve CLI builds it (crdr_throughput.yaml, the
+    seeded init, --max_batch 8 --max_wait_ms 10, every kernel library of
+    its path built), then the y scales raised; returns (model, args)."""
+    from crdr_tpu_torch.cli import serve as serve_cli
+
+    args = serve_cli.parse_args(
+        [os.path.join(ROOT, "config", "crdr_throughput.yaml"), "--port", "0",
+         "--max_batch", "8", "--max_wait_ms", "10"]
+        + (["--wire", wire] if wire else []))
+    model = serve_cli.build_model(args)
+    raise_y_scales(model)
+    model.codec_setup()
+    return model, args
+
+
+def get_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def count_dispatches(model) -> list:
+    """Wraps the model's batch entry points; returns the list each
+    dispatch appends to: ("c", n, rate_ind) / ("d", n, beta, y strings)."""
+    log = []
+    enc, dec = model.compress_batch, model.decompress_batch
+
+    def compress_batch(imgs, **kw):
+        log.append(("c", len(imgs), kw.get("rate_ind")))
+        return enc(imgs, **kw)
+
+    def decompress_batch(lists, **kw):
+        log.append(("d", len(lists), kw.get("beta"),
+                    [sl[2] for sl in lists]))
+        return dec(lists, **kw)
+
+    model.compress_batch, model.decompress_batch = compress_batch, \
+        decompress_batch
+    return log
+
+
+def expected_launches(model, log) -> dict:
+    """Kernel launches of the logged dispatches: K1 3 a slice a direction,
+    E1 2 an encode (device wire, device encoder), K2 a z round and a round
+    a slice a decode (device wire), K3 3 a transform call of TRANSFORM_BATCH
+    images (the GDN model)."""
+    from crdr_tpu_torch.models.codec import TRANSFORM_BATCH
+    from crdr_tpu_torch.nn import GDN
+
+    gdn = any(isinstance(m, GDN) for m in model.net.modules())
+    dev = model.wire_format == "device"
+    want = {k: 0 for k in kernel_wrappers()}
+    for kind, n, *_ in log:
+        if model.use_charm and model.fused_slice_kernel:
+            want["slice_transform"] += 3 * model.num_slices
+        if gdn:
+            want["gdn"] += 3 * -(-n // TRANSFORM_BATCH)
+        if dev and kind == "c" and model.device_wire_encoder == "device":
+            want["lane_encode_rounds"] += 2
+        if dev and kind == "d":
+            want["lane_decode_round"] += device_wire_expected(
+                model, model.device_wire_encoder)["lane_decode_round"]
+    return want
+
+
+def serve_traffic(base: str, model, bodies, sizes, clients, waves,
+                  last_wave: bool):
+    """``clients`` threads, each ``waves`` waves of POST /compress (q from
+    SERVE_QS), then each decompresses its streams (beta from SERVE_BETAS)
+    and, with ``last_wave``, its first stream once more at beta 2.56.
+    Returns (records, latencies by route, wall s)."""
+    recs, lat, errors = [], {"compress": [], "decompress": []}, []
+    lock = threading.Lock()
+
+    def run(fn):
+        threads = [threading.Thread(target=fn, args=(i,))
+                   for i in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+            check(not t.is_alive(), "a serving client hung")
+        check(not errors, f"serving requests failed: {errors[:3]}")
+
+    def guarded(fn):
+        def body(i):
+            try:
+                fn(i)
+            except Exception as e:  # reported by run(), then the phase fails
+                with lock:
+                    errors.append(f"client {i}: {type(e).__name__}: {e}")
+        return body
+
+    @guarded
+    def compress(i):
+        for w in range(waves):
+            q = SERVE_QS[(i + w) % len(SERVE_QS)] if model.use_rate else None
+            url = base + "/compress" + ("" if q is None else f"?q={q}")
+            blob, headers, dt = http_post(url, bodies[i])
+            if headers["X-CRDR-Wire"] != model.wire_format:
+                raise ValueError(f"X-CRDR-Wire {headers['X-CRDR-Wire']}")
+            with lock:
+                recs.append({"client": i, "q": q, "bin": blob,
+                             "size": sizes[i]})
+                lat["compress"].append(dt)
+
+    def decompress_one(rec, beta):
+        url = base + "/decompress" + ("" if beta is None else
+                                      f"?beta={beta}")
+        png, headers, dt = http_post(url, rec["bin"])
+        if headers["Content-Type"] != "image/png":
+            raise ValueError(f"a {headers['Content-Type']} response")
+        with lock:
+            rec.setdefault("pngs", []).append((beta, png))
+            lat["decompress"].append(dt)
+
+    @guarded
+    def decompress(i):
+        mine = [r for r in recs if r["client"] == i]
+        for w, rec in enumerate(mine):
+            beta = SERVE_BETAS[(i + w) % len(SERVE_BETAS)] \
+                if model.use_beta else None
+            decompress_one(rec, beta)
+        if last_wave:
+            decompress_one(mine[0], 2.56 if model.use_beta else None)
+
+    t0 = time.perf_counter()
+    run(compress)
+    run(decompress)
+    return recs, lat, time.perf_counter() - t0
+
+
+def serve_leg(model, args, label: str, bodies, imgs, sizes, clients: int,
+              waves: int, last_wave: bool, card: str) -> dict:
+    """One served leg (the checks of phase 18); returns its figures and
+    the kernel launches of its served traffic."""
+    import http.client
+
+    import torch
+
+    from crdr_tpu_torch.serving.http_server import make_server
+    from crdr_tpu_torch.utils.codec_utils import unpack_byte_strings
+    from crdr_tpu_torch.utils.img_utils import decode_png, tensor_to_uint8
+
+    log = count_dispatches(model)
+    srv = make_server(model, port=0, max_batch=args.max_batch,
+                      max_wait_s=args.max_wait_ms / 1e3)
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        # warm-up round trip (cuDNN's first calls), not counted
+        q = "?q=2.0" if model.use_rate else ""
+        http_post(base + "/decompress", http_post(base + "/compress" + q,
+                                                  bodies[0])[0])
+        info = get_json(base + "/healthz")
+        check(info.get("card") == torch.cuda.get_device_name(0) and
+              info["devices"] == [str(model.device)],
+              f"/healthz does not name the card: {info}")
+        conn = http.client.HTTPConnection(*srv.server_address, timeout=120)
+        conn.request("POST", "/compress" + q, body=b"\xff\xd8\xff\xe0JFIF")
+        r = conn.getresponse()
+        check(r.status == 400 and b"JPEG" in r.read(),
+              f"{label}: a JPEG body got {r.status}, not a 400")
+        conn.request("POST", "/compress" + q, body=bodies[0])
+        r = conn.getresponse()
+        check(r.status == 200 and len(r.read()) > 0,
+              f"{label}: the request after a JPEG on the same connection "
+              f"got {r.status}")
+        conn.close()
+        stats0 = srv.batcher.stats()
+        del log[:]
+
+        kernels = kernel_wrappers()
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with sampled_kernel_calls() as samples:
+            recs, lat, wall = serve_traffic(base, model, bodies, sizes,
+                                            clients, waves, last_wave)
+        counts = {n: k.launches for n, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sampled = samples["bytes"] / 2**30
+        stats = srv.batcher.stats()
+        served = len(log)  # the dispatches of the served traffic
+
+        # a .bin with a good header and a corrupt y string gets a 200
+        # (garbage decoded: rANS does not detect it; K2 clamps its reads to
+        # the stream) or a 400, never a hang; the server goes on serving
+        beta = "?beta=2.56" if model.use_beta else ""
+        corrupt = {how: post_status(base + "/decompress" + beta,
+                                    corrupt_y(recs[0]["bin"], how))
+                   for how in ("cut", "flip")}
+        check(all(v in (200, 400) for v in corrupt.values()),
+              f"{label}: corrupt y strings got {corrupt}")
+        after = decode_png(http_post(base + "/decompress" + beta,
+                                     recs[0]["bin"])[0])
+        torch.cuda.synchronize()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    serving.join(30)
+    check(not serving.is_alive() and not srv.batcher._worker.is_alive()
+          and srv.batcher.stats()["queued"] == 0,
+          f"{label}: the server did not shut down drained")
+    del model.compress_batch, model.decompress_batch  # the class's again
+    del log[served:]
+    held = hold_served_kernels(samples, label, card)
+
+    want = expected_launches(model, log)
+    hist = {}
+    for kind, n, *_ in log:
+        hist.setdefault(kind, {}).setdefault(n, 0)
+        hist[kind][n] += 1
+    check(counts == want, f"{label}: kernel launches over the served "
+                          f"traffic {counts}, expected {want} for the "
+                          f"dispatches {hist}")
+    check(stats["batches"] - stats0["batches"] == len(log),
+          f"{label}: the batcher's count of dispatches != the model's")
+    check(max(n for _, n, *_ in log) >= 2,
+          f"{label}: no batch of 2 or more: {hist}")
+
+    # every served .bin is the image's own stream; every served PNG the
+    # stream's own decode (equal where the dispatch's betas were uniform:
+    # asserted; mixed: printed, and asserted too, the synthesis running at
+    # a fixed batch with a beta row per image)
+    uniform = {}
+    for entry in log:
+        if entry[0] == "d":
+            beta, ys = entry[2], entry[3]
+            same = beta is None or np.ndim(beta) == 0
+            for j, y in enumerate(ys):
+                b = None if beta is None else float(np.float32(
+                    beta if same else np.asarray(beta)[j]))
+                # uniform only if every dispatch of it was
+                uniform[(y, b)] = uniform.get((y, b), True) and same
+    alone, mixed_diff = {}, 0
+    for rec in recs:
+        key = (rec["client"], rec["q"])
+        if key not in alone:
+            kw = {} if rec["q"] is None else {"rate_ind": rec["q"]}
+            alone[key] = model.compress(imgs[rec["client"]], **kw)
+        strings = unpack_byte_strings(rec["bin"])
+        check(strings == alone[key]["string_list"],
+              f"{label}: the served .bin of client {rec['client']} at q "
+              f"{rec['q']} != compress of the image alone")
+        for beta, png in rec["pngs"]:
+            kw = {} if beta is None else {"beta": beta}
+            fake, _, y_hat = model.decompress(strings, **kw)
+            check(np.array_equal(y_hat, alone[key]["y_hat"]),
+                  f"{label}: the decode of client {rec['client']}'s stream "
+                  "gave other symbols than its encoder")
+            want_img = tensor_to_uint8(fake[0])
+            got = decode_png(png)
+            diff = int(np.abs(got.astype(np.int16) - want_img).max())
+            if uniform[(strings[2], None if beta is None
+                        else float(np.float32(beta)))]:
+                check(diff == 0, f"{label}: a served PNG (uniform-beta "
+                                 f"dispatch) is {diff} levels from the "
+                                 "stream's own decode")
+            else:
+                mixed_diff = max(mixed_diff, diff)
+    last = [p for b, p in recs[0]["pngs"]
+            if b == (2.56 if model.use_beta else None)][-1]
+    check(np.array_equal(after, decode_png(last)),
+          f"{label}: after the corrupt streams, a good one decoded to "
+          "another image")
+    n_req = sum(len(v) for v in lat.values())
+    res = {"requests": n_req, "requests_per_s": n_req / wall,
+           "corrupt_y_status": corrupt, "held_vs_twin": held,
+           "wall_s": wall, "dispatches": hist,
+           "batcher_hist": stats["batch_hist"],
+           "mixed_beta_max_level_diff": mixed_diff,
+           "peak_gib": peak, "sampled_calls_gib": sampled,
+           "launches": counts,
+           **{f"{route}_p{p}_ms": float(np.percentile(v, p)) * 1e3
+              for route, v in lat.items() for p in (50, 95)}}
+    print(f"served {label}: {n_req} requests in {wall:.2f} s "
+          f"({res['requests_per_s']:.2f} req/s); compress p50 / p95 "
+          f"{res['compress_p50_ms']:.1f} / {res['compress_p95_ms']:.1f} ms, "
+          f"decompress {res['decompress_p50_ms']:.1f} / "
+          f"{res['decompress_p95_ms']:.1f} ms; dispatches by size {hist}; "
+          f"mixed-beta served vs alone: {mixed_diff} levels at most; peak "
+          f"{peak:.2f} GiB ({sampled:.2f} GiB of it the kernels' sampled "
+          f"calls); launches {counts}; corrupt y strings got "
+          f"{corrupt}, the next request served [{card}]")
+    check(mixed_diff == 0, f"{label}: a served mixed-beta PNG is "
+                           f"{mixed_diff} levels from its own decode")
+    return res
+
+
+def serving_phase(card: str):
+    """Phase 18: the flagship served on the compressai wire and the device
+    wire (E1), then the GDN model; returns ({leg: figures}, {path:
+    launches})."""
+    import torch
+
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+    from crdr_tpu_torch.utils.img_utils import encode_png
+
+    t0 = time.perf_counter()
+    big = synthetic_images(SERVE_CLIENTS - len(SMALL_CLIENTS), IMG_H, IMG_W,
+                           seed=21)
+    small = synthetic_images(len(SMALL_CLIENTS), IMG_H // 2, IMG_W // 2,
+                             seed=22)
+    imgs = list(big) + list(small)
+    sizes = [im.shape[:2] for im in imgs]
+    bodies = [encode_png(im) for im in imgs]
+    res, counts = {}, {}
+    model, args = serve_model(card)
+    for wire in ("compressai", "device"):
+        if wire == "device":  # the default device encoder, E1
+            model.opt["wire_format"] = "device"
+            model.codec_setup()
+            check(model.device_wire_encoder == "device",
+                  "the device wire's default encoder is E1")
+        label = f"flagship {wire} wire"
+        res[label] = serve_leg(model, args, label, bodies, imgs, sizes,
+                               SERVE_CLIENTS, SERVE_WAVES, True, card)
+        counts[f"serve {wire}"] = res[label]["launches"]
+    del model
+    torch.cuda.empty_cache()
+    gdn = build_gdn_model(np.stack(imgs[:1]), card)
+    res["GDN model"] = serve_leg(gdn, args, "GDN model", bodies[:4],
+                                 imgs[:4], sizes[:4], 4, 1, False, card)
+    counts["serve gdn"] = res["GDN model"]["launches"]
+    del gdn
+    torch.cuda.empty_cache()
+    print(f"serving phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return res, counts
+
+
 def main() -> None:
     try:
         import torch
@@ -3348,15 +4143,18 @@ def main() -> None:
     counts_cb, _ = checkerboard_phase(imgs, card, profiling)
     counts_gw, _, long_k2 = generic_device_phase(imgs, card)
     train, counts_tr = training_phase(card, profiling)
+    cross_device_phase(imgs[:1], card)
+    serving, counts_sv = serving_phase(card)
 
     print("training " + json.dumps(train))
+    print("serving " + json.dumps(serving))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
     launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g,
                 **counts_m, **counts_t, **counts_e,
                 "flagship device encoder": counts_f, **counts_cb,
-                **counts_gw, **counts_tr}
+                **counts_gw, **counts_tr, **counts_sv}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",

@@ -46,12 +46,15 @@ path secures by:
   the GDN kernel of the Balle18 transforms, is too, though it only runs in
   the side-local transforms).
 
-The analysis transform is side-local, so it cannot desync the stream, but an
-image's bytes should not depend on the batch it was encoded in (JAX holds
-batch streams equal to batch-1 streams).  It runs at one fixed batch size,
-``ANALYSIS_BATCH`` images per call with the last call padded with zero
-images: every call has one shape, so cuDNN makes one algorithm choice, and
-no convolution mixes images.
+The analysis and synthesis transforms are side-local, so they cannot desync
+the stream, but an image's bytes should not depend on the batch it was
+encoded in (JAX holds batch streams equal to batch-1 streams), nor a decoded
+image on the batch it was decoded in or on its neighbours' beta (a serving
+batch mixes requests).  Both run at one fixed batch size,
+``TRANSFORM_BATCH`` images per call with the last call padded with zero
+images, and the synthesis takes ``rate_ind`` / ``beta`` as one row per
+image: every call has one shape, so cuDNN and cuBLAS make one algorithm
+choice, and no convolution or matmul mixes images.
 
 Wires: ``wire_format: compressai`` (host C++ rANS, decoded between the
 slice steps, or, for the generic family, each image's stream in one call)
@@ -93,9 +96,29 @@ from .codec_common import _checkerboard_serialize
 
 Tensor = torch.Tensor
 
-# Images per analysis call (see the module doc): a batch-4 encode runs one
-# call, a batch-1 encode pads three zero images.
-ANALYSIS_BATCH = 4
+# Images per analysis / synthesis call (see the module doc): a batch-4
+# encode or decode runs one call, a batch-1 one pads three zero images.
+TRANSFORM_BATCH = 4
+
+
+def _fixed_batches(fn, x: Tensor, *rows) -> Tuple[Tensor, ...]:
+    """``fn(x_i, *rows_i)`` over ``x`` in calls of ``TRANSFORM_BATCH``
+    images, the last padded with zeros; each of ``rows`` is None or one row
+    per image, padded and split with ``x``.  ``fn`` returns a tuple of
+    per-image tensors; each is joined over the calls and cut to the batch."""
+    n, chunk = x.shape[0], TRANSFORM_BATCH
+    pad = -n % chunk
+
+    def padded(t):
+        if t is None or not pad:
+            return t
+        return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+
+    x, rows = padded(x), [padded(t) for t in rows]
+    outs = [fn(x[i:i + chunk], *(None if t is None else t[i:i + chunk]
+                                 for t in rows))
+            for i in range(0, n + pad, chunk)]
+    return tuple(torch.cat(parts)[:n] for parts in zip(*outs))
 
 
 # The numerics flags are process-wide torch state: one codec call at a time
@@ -179,7 +202,21 @@ class CodecMixin:
     def codec_setup(self) -> None:
         """Host CDF tables, device scale table, packed Charm / checkerboard
         weights (and their bf16 kernel copies), bf16 transform copies.  Run
-        again after loading weights."""
+        again after loading weights.  The JAX package's multi-device serving
+        (``serving_devices`` > 1, ``serving_partition: spatial``) is not
+        ported and raises."""
+        if int(self.opt.get("serving_devices", 1) or 1) > 1:
+            raise NotImplementedError(
+                "serving_devices > 1 (a batch sharded over several GPUs) is "
+                "not ported (ROADMAP.md, Queue 1 item 9)")
+        partition = self.opt.get("serving_partition", "batch")
+        if partition not in ("batch", "spatial"):
+            raise ValueError(f"serving_partition {partition!r}: batch or "
+                             "spatial")
+        if partition == "spatial":
+            raise NotImplementedError(
+                "serving_partition: spatial (one image split over several "
+                "GPUs) is not ported (ROADMAP.md, Queue 1 item 9)")
         self.wire_format = self.opt.get("wire_format", "compressai")
         if self.wire_format not in ("compressai", "device"):
             raise ValueError(f"wire_format {self.wire_format!r}: compressai "
@@ -285,25 +322,17 @@ class CodecMixin:
         return _nhwc(y), _nhwc(z_sym), pred_z_bits
 
     def _analysis(self, x: Tensor, rate_ind) -> Tuple[Tensor, Tensor]:
-        """Analysis + hyper-analysis of NCHW ``x`` in calls of
-        ``ANALYSIS_BATCH`` images, the last padded with zero images.
-        ``rate_ind`` is None, [1] or one per image."""
-        n, chunk = x.shape[0], ANALYSIS_BATCH
-        pad = -n % chunk
+        """Analysis + hyper-analysis of NCHW ``x`` at the fixed batch
+        (``_fixed_batches``).  ``rate_ind`` is None, [1] (passed to every
+        call as it is) or one per image."""
         per_image = rate_ind is not None and rate_ind.numel() > 1
-        if pad:
-            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
-            if per_image:
-                rate_ind = torch.cat([rate_ind, rate_ind.new_zeros(pad)])
-        ys, zs = [], []
+
+        def call(xi, ri):
+            return self.net.encode_latents(xi, rate_ind if ri is None else ri,
+                                           self._enc_t, self._henc_t)
+
         with _tf32(self._transform_tf32):
-            for i in range(0, n + pad, chunk):
-                ri = rate_ind[i:i + chunk] if per_image else rate_ind
-                y, z = self.net.encode_latents(x[i:i + chunk], ri,
-                                               self._enc_t, self._henc_t)
-                ys.append(y)
-                zs.append(z)
-        return torch.cat(ys)[:n], torch.cat(zs)[:n]
+            return _fixed_batches(call, x, rate_ind if per_image else None)
 
     def _hyper_decode(self, z_sym: Tensor) -> Tuple[Tensor, Tensor]:
         """z dequantize + hyper-decode, one image at a time (module doc).
@@ -498,17 +527,27 @@ class CodecMixin:
         return self._synthesis(y_hat, rate_ind, beta), y_hat
 
     def _synthesis(self, y_hat: Tensor, rate_ind, beta) -> Tensor:
-        """Synthesis of NHWC ``y_hat`` (``rate_ind`` / ``beta`` None where
-        the model has none).  Returns the image NHWC: f32 in [-1, 1], or
-        uint8 with codec_uint8_io."""
+        """Synthesis of NHWC ``y_hat`` at the fixed batch
+        (``_fixed_batches``); ``rate_ind`` / ``beta`` (None where the model
+        has none, else [1] or one per image) reach each call as one row per
+        image, so the beta MLP and its 1x1 projections run at one row count
+        too (module doc).  Returns the image NHWC: f32 in [-1, 1], or uint8
+        with codec_uint8_io."""
         yc = _nchw(y_hat)
-        tdt = self.transform_dtype
+        n, tdt = yc.shape[0], self.transform_dtype
+        conds = [None if t is None else
+                 t.reshape(-1).expand(n).contiguous()
+                 for t in (rate_ind, beta)]
         if tdt is not None:
             yc = yc.to(tdt)
-            rate_ind, beta = (None if t is None else t.to(tdt)
-                              for t in (rate_ind, beta))
+            conds = [None if t is None else t.to(tdt) for t in conds]
+
+        def call(yi, ri, bi):
+            return (self.net.decode(yi, ri, bi, self._dec_t),)
+
         with _tf32(self._transform_tf32):
-            img = self.net.decode(yc, rate_ind, beta, self._dec_t).float()
+            img, = _fixed_batches(call, yc, *conds)
+        img = img.float()
         lo = 0.0 if self.convert_img_range else -1.0
         img = _nhwc(torch.clamp(img, lo, 1.0))
         if self.codec_uint8_io:

@@ -227,40 +227,39 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit non-interlaced PNG (gray, gray+alpha, RGB or RGBA) ->
-    uint8 [H, W, 3] RGB: alpha dropped, gray expanded.  Chunk CRCs are
-    checked; other bit depths, palettes and interlacing raise."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """The bytes of an 8-bit non-interlaced PNG (gray, gray+alpha, RGB or
+    RGBA) -> uint8 [H, W, 3] RGB: alpha dropped, gray expanded.  Chunk CRCs
+    are checked; other bit depths, palettes and interlacing raise a
+    ``ValueError`` that starts with ``name``."""
     if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError(f"{name}: not a PNG file")
     header, idat = None, []
-    for kind, body in _png_chunks(data, path):
+    for kind, body in _png_chunks(data, name):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
+        raise ValueError(f"{name}: PNG without IHDR")
     w, h, depth, color, _comp, _filt, interlace = header
     if depth != 8 or color not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray / RGB / "
+        raise ValueError(f"{name}: only 8-bit non-interlaced gray / RGB / "
                          f"RGBA PNG is read (bit depth {depth}, color type "
                          f"{color}, interlace {interlace})")
     ch = _PNG_CHANNELS[color]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch, path)
+    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch, name)
     img = img.reshape(h, w, ch)
     if ch <= 2:
         return np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """uint8 [H, W, 3] RGB -> an 8-bit RGB PNG (row filter 0)."""
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] RGB -> the bytes of an 8-bit RGB PNG (row filter 0)."""
     img = np.ascontiguousarray(img, np.uint8)
     if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"write_png takes uint8 [H, W, 3], got {img.shape}")
+        raise ValueError(f"encode_png takes uint8 [H, W, 3], got {img.shape}")
     h, w, _ = img.shape
     raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
                          axis=1).tobytes()
@@ -269,12 +268,24 @@ def write_png(path: str, img: np.ndarray) -> None:
         return struct.pack(">I", len(body)) + kind + body \
             + struct.pack(">I", zlib.crc32(kind + body))
 
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6))
+            + chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """``decode_png`` of a file; errors name the path."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """uint8 [H, W, 3] RGB -> an 8-bit RGB PNG file (``encode_png``)."""
+    data = encode_png(img)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 6))
-                + chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _check_png(path: str) -> None:

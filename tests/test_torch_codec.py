@@ -87,22 +87,51 @@ def test_batch_streams_equal_batch_1_streams(model):
 
 
 def test_analysis_runs_at_a_fixed_batch(model, monkeypatch):
-    """The analysis sees ANALYSIS_BATCH images per call whatever the batch
+    """The analysis sees TRANSFORM_BATCH images per call whatever the batch
     (zero images pad the last call), so cuDNN makes one algorithm choice
     and an image's stream does not depend on its batch on the GPU either."""
-    from crdr_tpu_torch.models.codec import ANALYSIS_BATCH
+    from crdr_tpu_torch.models.codec import TRANSFORM_BATCH
 
     sizes = []
     real = model.net.encode_latents
     monkeypatch.setattr(model.net, "encode_latents",
                         lambda x, *a: sizes.append(len(x)) or real(x, *a))
-    x = _smooth(ANALYSIS_BATCH + 1, 64, 64, seed=8)
+    x = _smooth(TRANSFORM_BATCH + 1, 64, 64, seed=8)
     batch = model.compress_batch(x, rate_ind=[0.5] * len(x))
-    assert sizes == [ANALYSIS_BATCH, ANALYSIS_BATCH]
+    assert sizes == [TRANSFORM_BATCH, TRANSFORM_BATCH]
     sizes.clear()
     one = model.compress(x[-1:], rate_ind=0.5)
-    assert sizes == [ANALYSIS_BATCH]
+    assert sizes == [TRANSFORM_BATCH]
     assert one["string_list"] == batch[-1]["string_list"]
+
+
+def test_synthesis_runs_at_a_fixed_batch(model, monkeypatch):
+    """The synthesis sees TRANSFORM_BATCH images per call and one rate /
+    beta row per image, so a decoded image equals its decode alone, whatever
+    its batch and its neighbours' beta (on the H100, cuDNN's bf16 convs
+    gave batch 2 and 8 other bits than batch 1, and a mixed-beta batch ran
+    the beta MLP at another row count)."""
+    from crdr_tpu_torch.models.codec import TRANSFORM_BATCH
+
+    calls = []
+    real = model.net.decode
+    monkeypatch.setattr(model.net, "decode", lambda y, r, b, d: calls.append(
+        (len(y), len(r), len(b))) or real(y, r, b, d))
+    x = _smooth(TRANSFORM_BATCH + 1, 64, 64, seed=9)
+    encs = model.compress_batch(x, rate_ind=[0.5, 1.0, 2.0, 0.0, 1.5])
+    betas = [0.0, 1.28, 2.56, 5.12, 2.56]
+    fake, _, _ = model.decompress_batch([e["string_list"] for e in encs],
+                                        beta=betas)
+    assert calls == [(TRANSFORM_BATCH,) * 3] * 2
+    for i in (0, 3, 4):
+        calls.clear()
+        one, _, _ = model.decompress(encs[i]["string_list"], beta=betas[i])
+        assert calls == [(TRANSFORM_BATCH,) * 3]
+        np.testing.assert_array_equal(one[0], fake[i])
+    uniform, _, _ = model.decompress_batch(
+        [e["string_list"] for e in encs[:2]], beta=2.56)
+    one, _, _ = model.decompress(encs[1]["string_list"], beta=2.56)
+    np.testing.assert_array_equal(uniform[1], one[0])
 
 
 def test_slice_transform_calls_per_direction(model, monkeypatch):

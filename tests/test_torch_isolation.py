@@ -1,5 +1,6 @@
 """The port stands alone: no file of crdr_tpu_torch/ nor chip_smoke.py imports
-JAX, flax or the JAX package, and importing the port leaves them unloaded."""
+JAX, flax, the JAX package or PIL (absent where the port runs), and importing
+the port leaves them unloaded."""
 
 import ast
 import os
@@ -9,7 +10,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "crdr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "crdr_tpu", "PIL")
 
 
 def _port_files():
@@ -48,6 +49,9 @@ def test_importing_the_port_loads_no_jax():
         "import crdr_tpu_torch.ops.charm_uniform, crdr_tpu_torch.runtime\n"
         "import crdr_tpu_torch.ops.lane_decode, crdr_tpu_torch.runtime.lane_rans\n"
         "import crdr_tpu_torch.trainer, crdr_tpu_torch.cli.train\n"
+        "import crdr_tpu_torch.serving, crdr_tpu_torch.serving.http_server\n"
+        "import crdr_tpu_torch.cli.serve, crdr_tpu_torch.cli.serve_smoke\n"
+        "import crdr_tpu_torch.runtime.cache\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n")
