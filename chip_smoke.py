@@ -223,8 +223,41 @@ Phases, each asserted (any failure exits non-zero):
    next request is served; the server shuts down drained.  Printed:
    requests/s, p50 / p95 latency by route, the dispatches by size, the
    peak memory (and the part of it the sampled calls hold).
-19. one JSON line of kernel figures (launches by path, every path above);
-20. the ok line.
+19. the evaluation protocol. (a) the RD sweep, python -m
+   crdr_tpu_torch.cli.rd_sweep (its main, in process) on
+   crdr_throughput.yaml's seeded init (y scales raised, the encoder's last
+   InterpCA gains spread so the rate matters, saved as a .pth.tar), two
+   512x768 synthetic PNGs, 17 qualities x betas 0 and 3.84, on the
+   compressai wire and on the device wire (E1): launches K1 90 an image
+   (30 a 17-image encode and a decode), K2 22 and E1 2 an image on the
+   device wire, every K1 / K2 / E1 call at each shape (N 17 among them)
+   held against its plain twin, every (image, q) stream of a batch of 17
+   equal to the image's batch-1 stream at q, every decode giving its
+   encoder's symbols, rd_curve.csv with 34 rows in JAX's columns and bpp
+   rising with q; (b) python -m crdr_tpu_torch.cli.calc_metrics on 50
+   synthetic 512x768 images and the flagship's decodes, with seeded
+   Inception / DISTS weight files in pytorch-fid's and DISTS' layouts (a
+   temporary directory) and a random LPIPS: JAX's _metrics.json keys,
+   every value finite; the FID of the reals against themselves within
+   1e-3 of 2 tr(sigma); Inception features on the card within 1e-3 of the
+   largest of the CPU's, DISTS within 1e-4; (c) python -m
+   crdr_tpu_torch.cli.bd_rate with the compressai sweep as anchor and the
+   device sweep as test, at each beta: PSNR equal on the two wires, the
+   BD-rate within the per-quality rate gaps; printed.
+20. Cheng20 and HiFiC: Cheng20 (N 192, y 192, the Cheng20 hyper pair to
+   384), Cheng20-InterpCA (rate_level 5) and HiFiC (y 220, filters
+   60-960, the Balle18 hyper pair 220 -> 192 / 440), configs built in
+   memory, seeded init with the GDN edits of phase 7: the checks of phases
+   3 and 4 (generic device wire, E1) with K3 6 a round trip on the Cheng20
+   families, every K3 call held against gdn_plain, 0 on HiFiC; one timed
+   round trip a wire (no padding measurement).
+21. resize_range: endurance_r4_stage1.yaml on 16 synthetic 512x768 PNG
+   sources in a temporary directory; the recipe as it is (bicubic) must
+   raise, then with interpolation: bilinear laid over it 5 steps through
+   train_loop (losses finite, uint8 crops); the resampler's ms a sample at
+   768x512 and 1024x768, the loader's wait a step against the step.
+22. one JSON line of kernel figures (launches by path, every path above);
+23. the ok line.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -864,17 +897,18 @@ def check_round_trip(label, encs, fake, y_hat) -> None:
               f"{label} image {i}: real bpp {real} vs predicted {pred}")
 
 
-def timed_runs(model, imgs, label: str, card: str) -> dict:
-    """Median encode / decode ms over TIMED_RUNS batch round trips."""
+def timed_runs(model, imgs, label: str, card: str,
+               runs: int = TIMED_RUNS) -> dict:
+    """Median encode / decode ms over ``runs`` batch round trips."""
     enc, dec = [], []
-    for _ in range(TIMED_RUNS):
+    for _ in range(runs):
         *_, e, d = round_trip(model, imgs)
         enc.append(e * 1e3)
         dec.append(d * 1e3)
     res = {"encode_ms": float(np.median(enc)), "decode_ms":
            float(np.median(dec)), "encode_runs_ms": enc, "decode_runs_ms": dec}
     mpix = N_IMG * IMG_H * IMG_W / 1e6
-    print(f"{label} batch {N_IMG} {IMG_W}x{IMG_H}, median of {TIMED_RUNS}: "
+    print(f"{label} batch {N_IMG} {IMG_W}x{IMG_H}, median of {runs}: "
           f"encode {res['encode_ms']:.1f} ms, decode {res['decode_ms']:.1f} "
           f"ms, {mpix / (res['encode_ms'] + res['decode_ms']) * 1e3:.4f} "
           f"Mpix/s (encode runs {[round(v, 1) for v in enc]}, decode runs "
@@ -882,10 +916,13 @@ def timed_runs(model, imgs, label: str, card: str) -> dict:
     return res
 
 
-def host_wire_path(model, imgs, label: str, expected: dict, card: str):
+def host_wire_path(model, imgs, label: str, expected: dict, card: str,
+                   runs: int = TIMED_RUNS, padding: bool = True):
     """A model on the compressai wire: kernel counts (``expected``, by
-    kernel, per batch round trip), checks, batch-1 equality, times.  A model
-    without rates or beta ignores RATE and BETA."""
+    kernel, per batch round trip), checks, batch-1 equality, times (the
+    median of ``runs`` round trips; with ``padding``, what the fixed-batch
+    synthesis costs a batch-1 decode).  A model without rates or beta
+    ignores RATE and BETA."""
     import torch
 
     expected = {"lane_encode_rounds": 0, **expected}
@@ -924,9 +961,10 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str):
           f"{counts} [{card}]")
     print(f"timing of the batch round trip: encode "
           f"{json.dumps(encs[0]['timing'])} decode {json.dumps(dec_timing)}")
-    times = timed_runs(model, imgs, label, card)
-    times["batch1_decode_ms"] = padding_cost(model, encs[0]["string_list"],
-                                             label, card)
+    times = timed_runs(model, imgs, label, card, runs)
+    if padding:
+        times["batch1_decode_ms"] = padding_cost(
+            model, encs[0]["string_list"], label, card)
     return encs, counts, times
 
 
@@ -991,7 +1029,7 @@ def device_chain(model):
 
 def device_wire_path(model, imgs, y_compressai, card: str,
                      label: str = "device wire", encoder: str = "host",
-                     gdn: int = 0):
+                     gdn: int = 0, runs: int = TIMED_RUNS):
     """The device wire on the same model, lane-encoded by ``encoder``:
     counts, checks, a sync-free decode chain, a batch-1 stream equal to its
     batch-4 stream, times.  Returns (the K2 inputs the warm-up decode
@@ -1054,7 +1092,7 @@ def device_wire_path(model, imgs, y_compressai, card: str,
           f"decode {dec_s * 1e3:.1f} ms; launches {counts} [{card}]")
     print(f"timing encode {json.dumps(encs[0]['timing'])} decode "
           f"{json.dumps(model.last_decode_timing)}")
-    times = timed_runs(model, imgs, label, card)
+    times = timed_runs(model, imgs, label, card, runs)
     return recorded, counts, times, encs
 
 
@@ -4064,6 +4102,616 @@ def serving_phase(card: str):
     return res, counts
 
 
+# ---------------- phase 19: the evaluation protocol -------------------------
+
+SWEEP_IMAGES = 2            # 512x768 images, each swept as one batch of 17
+SWEEP_QS = [q * 0.25 for q in range(17)]
+SWEEP_BETAS = (0.0, 3.84)
+METRIC_IMAGES = 50          # the HiFiC FID protocol's minimum
+# the metrics' networks on the card (f32, TF32 off) against the CPU: the
+# largest |feature difference| over the largest |feature| (Inception pool3,
+# cuDNN vs the CPU's convolutions summing in another order through ~90
+# layers), and DISTS' value
+INCEPTION_REL, DISTS_ATOL = 1e-3, 1e-4
+# the FID of a feature set against itself, over the size of its terms
+# (2 tr(sigma)): scipy's sqrtm of the product of two rank-deficient
+# covariances (fewer patches than the 2048 features) is not exact; on the
+# CPU, 100 patches of the seeded net gave -0.066 (about 1e-6 of the terms)
+SELF_FID_REL = 1e-3
+CARD = "cuda"               # the device of phases 19-21
+
+
+@contextlib.contextmanager
+def recorded_codec_calls():
+    """Within the block, every ``compress_batch`` / ``decompress_batch`` of
+    the port's models: [(model, method name, args, kwargs, result)]."""
+    from crdr_tpu_torch.models.codec import CodecMixin
+
+    calls, saved = [], {}
+    for name in ("compress_batch", "decompress_batch"):
+        real = saved[name] = getattr(CodecMixin, name)
+
+        def rec(self, *args, _real=real, _name=name, **kw):
+            out = _real(self, *args, **kw)
+            calls.append((self, _name, args, kw, out))
+            return out
+
+        setattr(CodecMixin, name, rec)
+    try:
+        yield calls
+    finally:
+        for name, real in saved.items():
+            setattr(CodecMixin, name, real)
+
+
+def read_csv(path: str) -> list:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def sweep_check(calls, img_paths, label: str) -> None:
+    """Each image's 17-image batch: every (image, q) stream equal to the
+    image's batch-1 stream at q, every decode's y_hat its encoder's."""
+    from crdr_tpu_torch.utils.img_utils import imread
+
+    model = calls[0][0]
+    encs = [out for _, name, _, _, out in calls if name == "compress_batch"]
+    decs = [(kw.get("beta", args[1] if len(args) > 1 else 0.0), out)
+            for _, name, args, kw, out in calls
+            if name == "decompress_batch"]
+    check(len(encs) == len(img_paths) and
+          len(decs) == len(img_paths) * len(SWEEP_BETAS),
+          f"{label}: {len(encs)} batch encodes and {len(decs)} batch "
+          "decodes")
+    for i, path in enumerate(img_paths):
+        real = imread(path)[None]
+        check(len(encs[i]) == len(SWEEP_QS), f"{label}: image {i}'s batch "
+              f"holds {len(encs[i])} streams")
+        for q, e in zip(SWEEP_QS, encs[i]):
+            one = model.compress(real, rate_ind=q)
+            check(one["string_list"] == e["string_list"],
+                  f"{label}: image {i} at q {q}: its stream in the batch of "
+                  f"{len(SWEEP_QS)} != its batch-1 stream")
+        y_enc = np.concatenate([e["y_hat"] for e in encs[i]])
+        for beta, (_, _, y_dec) in decs[i * len(SWEEP_BETAS):
+                                         (i + 1) * len(SWEEP_BETAS)]:
+            check(np.array_equal(y_dec, y_enc), f"{label}: image {i}'s "
+                  f"decode at beta {beta} != its encoder's symbols")
+    print(f"{label}: every (image, q) stream of the batches of "
+          f"{len(SWEEP_QS)} equals the image's batch-1 stream at q; every "
+          "decode gives its encoder's symbols")
+
+
+def sweep_phase(card: str, tmp: str):
+    """Phase 19 (a): ``python -m crdr_tpu_torch.cli.rd_sweep`` (its
+    ``main``, in process) on crdr_throughput.yaml's seeded init (y scales
+    raised, the rates spread), two 512x768 images, 17 qualities x betas 0
+    and 3.84, on each wire.  Returns ({wire: CSV path}, {path: launches})."""
+    import torch
+
+    from crdr_tpu_torch.cli import rd_sweep
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+    from crdr_tpu_torch.utils.img_utils import write_png
+
+    model = build_model(card)
+    spread_rates(model)
+    ckpt = os.path.join(tmp, "flagship.pth.tar")
+    torch.save({"comp_model": model.state_dict()}, ckpt)
+    del model
+    torch.cuda.empty_cache()
+    img_dir = os.path.join(tmp, "sweep_images")
+    os.makedirs(img_dir)
+    paths = []
+    for i, img in enumerate(synthetic_images(SWEEP_IMAGES, IMG_H, IMG_W,
+                                             19)):
+        paths.append(os.path.join(img_dir, f"img{i}.png"))
+        write_png(paths[-1], img)
+    kernels = kernel_wrappers()
+    csvs, counts = {}, {}
+    n = SWEEP_IMAGES
+    for wire in ("compressai", "device"):
+        label = f"sweep {wire}"
+        out = os.path.join(tmp, f"sweep_{wire}")
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with sampled_kernel_calls() as samples, \
+                recorded_codec_calls() as calls:
+            rd_sweep.main([os.path.join(ROOT, "config",
+                                        "crdr_throughput.yaml"),
+                           "--model_path", ckpt, "--img_dir", img_dir,
+                           "--save_dir", out, "--wire", wire])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[label] = {name: k.launches for name, k in kernels.items()}
+        dev = wire == "device"
+        expected = {"slice_transform": 90 * n, "gdn": 0,
+                    "lane_decode_round": 22 * n if dev else 0,
+                    "lane_encode_rounds": 2 * n if dev else 0}
+        check(counts[label] == expected, f"{label}: launches "
+              f"{counts[label]} (expected {expected}: K1 30 a batch encode "
+              "and decode, K2 11 a decode, E1 2 an encode)")
+        held = hold_served_kernels(samples, label, card)
+        for name in (("slice_transform", "lane_decode_round",
+                      "lane_encode_rounds") if dev else ("slice_transform",)):
+            check(any(re.match(rf"\(+{len(SWEEP_QS)},", s)
+                      for s in held.get(name, {}).get("shapes", [])),
+                  f"{label}: no {name} call at N {len(SWEEP_QS)} was held "
+                  f"against its twin ({held.get(name)})")
+        sweep_check(calls, paths, label)
+        csvs[wire] = os.path.join(out, "rd_curve.csv")
+        rows = read_csv(csvs[wire])
+        check(len(rows) == len(SWEEP_QS) * len(SWEEP_BETAS) and list(rows[0])
+              == ["quality", "beta", "bpp", "psnr", "ms_ssim"],
+              f"{label}: rd_curve.csv has {len(rows)} rows, columns "
+              f"{list(rows[0])}")
+        for beta in SWEEP_BETAS:
+            bpp = [float(r["bpp"]) for r in rows if float(r["beta"]) == beta]
+            check(all(b >= a for a, b in zip(bpp, bpp[1:]))
+                  and bpp[-1] > bpp[0],
+                  f"{label}: bpp does not rise with q at beta {beta}: {bpp}")
+            check(all(np.isfinite(float(r[k])) for r in rows
+                      for k in ("psnr", "ms_ssim")), f"{label}: a "
+                  "non-finite PSNR / MS-SSIM")
+        print(f"{label}: {n} images x {len(SWEEP_QS)} qualities x "
+              f"{len(SWEEP_BETAS)} betas in {secs:.1f} s (model build and "
+              f"checkpoint load included; {secs / n:.2f} s an image); "
+              f"launches {counts[label]}; bpp at beta 0 from "
+              f"{float(rows[0]['bpp']):.4f} to {float(rows[-2]['bpp']):.4f} "
+              f"[{card}]")
+        del calls, samples
+        torch.cuda.empty_cache()
+    return csvs, counts
+
+
+def metrics_phase(card: str, tmp: str) -> dict:
+    """Phase 19 (b): ``python -m crdr_tpu_torch.cli.calc_metrics`` (its
+    ``main``, in process) on METRIC_IMAGES synthetic 512x768 images and the
+    flagship's decodes of them, on seeded Inception / DISTS weight files in
+    pytorch-fid's and DISTS' layouts and a random LPIPS; the FID of the
+    reals against themselves; the card's Inception features and DISTS
+    values against the same modules on the CPU."""
+    import pickle
+
+    import torch
+
+    from crdr_tpu_torch.cli import calc_metrics
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+    from crdr_tpu_torch.metrics.dists import (DISTS, load_dists_params,
+                                              seeded_dists_state)
+    from crdr_tpu_torch.metrics.fid import (activation_statistics,
+                                            compute_fid,
+                                            crop_hific_fid_patches,
+                                            patch_features)
+    from crdr_tpu_torch.metrics.inception import (f32_numerics,
+                                                  load_inception,
+                                                  make_inception_extractor,
+                                                  seeded_inception_state)
+    from crdr_tpu_torch.utils.img_utils import (read_png, tensor_to_uint8,
+                                                write_png)
+
+    real_dir, fake_dir = (os.path.join(tmp, d) for d in ("reals", "fakes"))
+    os.makedirs(real_dir)
+    os.makedirs(fake_dir)
+    model = build_model(card)
+    imgs = synthetic_images(METRIC_IMAGES, IMG_H, IMG_W, 23)
+    bpps = []
+    t0 = time.perf_counter()
+    for s in range(0, METRIC_IMAGES, N_IMG):
+        batch = imgs[s:s + N_IMG]
+        encs = model.compress_batch(batch, rate_ind=RATE)
+        fake, _, _ = model.decompress_batch([e["string_list"] for e in encs],
+                                            beta=BETA)
+        for j, (img, e) in enumerate(zip(batch, encs)):
+            write_png(os.path.join(real_dir, f"img{s + j:02d}.png"), img)
+            write_png(os.path.join(fake_dir, f"img{s + j:02d}.png"),
+                      tensor_to_uint8(fake[j]))
+            bpps.append(sum(len(x) for x in e["string_list"][1:]) * 8
+                        / (IMG_H * IMG_W))
+    with open(os.path.join(fake_dir, "_avg_bitrate.json"), "w") as f:
+        json.dump({"avg_bpp": float(np.mean(bpps))}, f)
+    prep_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+
+    inc_state, dists_state = seeded_inception_state(0), seeded_dists_state(0)
+    inc_path, dists_path = (os.path.join(tmp, f) for f in
+                            ("inception.pkl", "dists.pkl"))
+    for path, state in ((inc_path, inc_state), (dists_path, dists_state)):
+        with open(path, "wb") as f:
+            pickle.dump(state, f)
+    env = {"CRDR_INCEPTION_WEIGHTS": inc_path,
+           "CRDR_DISTS_WEIGHTS": dists_path, "CRDR_ALLOW_RANDOM_LPIPS": "1",
+           "CRDR_LPIPS_WEIGHTS": None}
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        t0 = time.perf_counter()
+        res = calc_metrics.main(["--real_dir", real_dir, "--fake_dir",
+                                 fake_dir, "-d", CARD, "--metrics", "psnr",
+                                 "ms_ssim", "lpips", "fid", "dists"])
+        metrics_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    keys = {"PSNR", "MS-SSIM", "LPIPS", "LPIPS_weights", "FID", "DISTS",
+            "bpp"}
+    check(set(res) == keys, f"calc_metrics keys {sorted(res)} (expected the "
+          f"JAX script's {sorted(keys)})")
+    check(res["LPIPS_weights"] == "random", "LPIPS on a random init must be "
+          f"tagged 'random', got {res['LPIPS_weights']!r}")
+    check(all(np.isfinite(res[k]) for k in keys - {"LPIPS_weights"}),
+          f"calc_metrics: a non-finite value {res}")
+    with open(os.path.join(fake_dir, "_metrics.json")) as f:
+        check(json.load(f) == res, "_metrics.json != the returned metrics")
+    print(f"calc_metrics on {METRIC_IMAGES} pairs (seeded Inception / DISTS "
+          f"weights, random LPIPS: not the metrics' values): {res}; "
+          f"{metrics_s:.1f} s (encode / decode / PNG writing before it "
+          f"{prep_s:.1f} s) [{card}]")
+
+    # the FID of the reals against themselves; the card against the CPU
+    reals = [read_png(os.path.join(real_dir, f"img{i:02d}.png"))
+             for i in range(METRIC_IMAGES)]
+    extract = make_inception_extractor(inc_path, CARD)
+    t0 = time.perf_counter()
+    feats = patch_features(reals, extract)
+    feat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    self_fid = compute_fid(feats, feats)
+    fid_s = time.perf_counter() - t0
+    terms = 2 * float(np.trace(activation_statistics(feats)[1]))
+    check(abs(self_fid) <= SELF_FID_REL * terms, f"FID of the reals "
+          f"against themselves {self_fid} (|.| <= {SELF_FID_REL} x "
+          f"2 tr(sigma) = {SELF_FID_REL * terms:.3e} expected)")
+    patches = crop_hific_fid_patches(reals[0])[:4]
+    cpu_inc = load_inception(inc_state, "cpu")
+    with torch.no_grad():
+        ref = cpu_inc(torch.from_numpy(patches).permute(0, 3, 1, 2).float())
+    ref = ref.numpy()
+    inc_err = float(np.abs(extract(patches) - ref).max()
+                    / np.abs(ref).max())
+    check(inc_err <= INCEPTION_REL, f"Inception features card vs CPU: "
+          f"{inc_err:.3e} of the largest (<= {INCEPTION_REL})")
+    crop = (slice(128, 384), slice(256, 512))
+    a = torch.from_numpy(reals[0][crop]).permute(2, 0, 1)[None].float() / 255
+    b = torch.from_numpy(read_png(os.path.join(fake_dir, "img00.png"))[crop])
+    b = b.permute(2, 0, 1)[None].float() / 255
+    vals = {}
+    for dev in ("cpu", CARD):
+        mod = DISTS()
+        mod.load_state_dict(load_dists_params(dists_state))
+        mod = mod.to(dev).eval()
+        with f32_numerics():
+            vals[dev] = float(mod(a.to(dev), b.to(dev))[0])
+    dists_err = abs(vals[CARD] - vals["cpu"])
+    check(dists_err <= DISTS_ATOL, f"DISTS card {vals[CARD]} vs CPU "
+          f"{vals['cpu']} (|diff| <= {DISTS_ATOL})")
+    print(f"FID of the reals against themselves {self_fid:.3e}, "
+          f"{abs(self_fid) / terms:.2e} of 2 tr(sigma) ({len(feats)} "
+          f"patches; features {feat_s:.2f} s on the card, statistics and "
+          f"sqrtm {fid_s:.1f} s on the host); Inception pool3 card vs CPU "
+          f"on {len(patches)} patches: max |diff| {inc_err:.3e} of the "
+          f"largest feature; DISTS on a 256x256 pair card {vals[CARD]:.6f} "
+          f"vs CPU {vals['cpu']:.6f} (|diff| {dists_err:.2e}) [{card}]")
+    return {**res, "self_fid": self_fid, "self_fid_terms": terms,
+            "inception_rel_err": inc_err,
+            "dists_abs_err": dists_err, "seconds": metrics_s}
+
+
+def bd_phase(csvs: dict, card: str) -> dict:
+    """Phase 19 (c): ``python -m crdr_tpu_torch.cli.bd_rate`` (its ``main``)
+    with the compressai wire's sweep as the anchor and the device wire's as
+    the test.  y_hat is equal on the two wires, so is PSNR: the BD-rate is
+    an average of the per-quality rate gaps, and lies within their range."""
+    from crdr_tpu_torch.cli import bd_rate
+
+    res = {}
+    rows = {w: read_csv(p) for w, p in csvs.items()}
+    for beta in SWEEP_BETAS:
+        out = bd_rate.main([csvs["compressai"], csvs["device"], "--beta",
+                            str(beta)])
+        a, t = ([r for r in rows[w] if float(r["beta"]) == beta]
+                for w in ("compressai", "device"))
+        check([r["psnr"] for r in a] == [r["psnr"] for r in t],
+              f"beta {beta}: PSNR differs between the wires")
+        gaps = [(float(y["bpp"]) / float(x["bpp"]) - 1) * 100
+                for x, y in zip(a, t)]
+        mean = (np.exp(np.mean([np.log(1 + g / 100) for g in gaps])) - 1) * 100
+        check(min(gaps) - 0.05 <= out["bd_rate_pct"] <= max(gaps) + 0.05,
+              f"beta {beta}: BD-rate {out['bd_rate_pct']} % outside the "
+              f"per-quality gaps [{min(gaps):.3f}, {max(gaps):.3f}] %")
+        print(f"BD-rate, device wire against compressai wire, beta {beta}: "
+              f"{out['bd_rate_pct']:+.3f} % (mean log-rate gap "
+              f"{mean:+.3f} %, per-quality gaps {min(gaps):+.3f} .. "
+              f"{max(gaps):+.3f} %; BD-PSNR {out['bd_quality']}) [{card}]")
+        res[str(beta)] = {"bd_rate_pct": out["bd_rate_pct"],
+                          "mean_gap_pct": float(mean)}
+    return res
+
+
+def eval_phase(card: str):
+    """Phase 19: the sweep, the metrics, BD-rate."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        csvs, counts = sweep_phase(card, tmp)
+        metrics = metrics_phase(card, tmp)
+        bd = bd_phase(csvs, card)
+    res = {"metrics": metrics, "bd": bd,
+           "phase_s": time.perf_counter() - t0}
+    print(f"evaluation phase: {res['phase_s']:.1f} s [{card}]")
+    return res, counts
+
+
+# ---------------- phase 20: Cheng20 and HiFiC on the card --------------------
+
+FAMILIES = ("cheng20", "cheng20_interp_ca", "hific")
+# one timed round trip a wire and no padding measurement: a Cheng20 batch
+# direction takes 1-2 s (PERF.md §5: ~124k launches of cuDNN's FFT-tiling
+# GEMM)
+FAMILY_RUNS = 1
+
+
+def family_config(family: str, tiny: bool = False) -> dict:
+    """An in-memory model config of the Cheng20 / Cheng20-InterpCA / HiFiC
+    families (no file in config/ builds them): config/balle18_mean_scale
+    .yaml with the family's subnets.  Cheng20: N 192, y 192, the Cheng20
+    hyper pair to 384 (CompressAI's cheng2020-attn, qualities 4-6);
+    InterpCA: rate_level 5; HiFiC: y 220, filters 60-960, the Balle18
+    hyper pair 220 -> 192 / 440.  ``tiny``: y 32, z 16, main 16 (HiFiC
+    filters 8-32, 2 residual blocks), for a CPU rehearsal."""
+    from crdr_tpu_torch.utils.config import Config
+
+    opt = Config.from_file(os.path.join(
+        ROOT, "config", "balle18_mean_scale.yaml")).to_dict()
+    y, z, m = (32, 16, 16) if tiny else (192, 192, 192)
+    if family == "hific":
+        y = 32 if tiny else 220
+        f = [8, 8, 16, 16, 32] if tiny else [60, 120, 240, 480, 960]
+        enc = {"type": "HificEncoder", "bottleneck_y": y, "filters": f}
+        dec = {"type": "HificDecoder", "bottleneck_y": y, "filters": f[::-1],
+               "n_residual_blocks": 2 if tiny else 9}
+        hyper = "Balle18"
+    else:
+        cls = "Cheng20InterpCa" if family == "cheng20_interp_ca" \
+            else "Cheng20"
+        enc = {"type": f"{cls}Encoder", "in_ch": 3, "out_ch": y,
+               "main_ch": m}
+        dec = {"type": f"{cls}Decoder", "in_ch": y, "out_ch": 3,
+               "main_ch": m}
+        if family == "cheng20_interp_ca":
+            ca = {"actv": "softplus", "use_interp": True, "use_bias": True}
+            for d in (enc, dec):
+                d.update(rate_level=5, ca_kwargs=dict(ca))
+        hyper = "Cheng20"
+    opt["subnet"] = {
+        "encoder": enc, "decoder": dec,
+        "hyperencoder": {"type": f"{hyper}HyperEncoder", "in_ch": y,
+                         "out_ch": z, "main_ch": m},
+        "hyperdecoder": {"type": f"{hyper}HyperDecoder", "in_ch": z,
+                         "out_ch": 2 * y, "main_ch": m},
+        "entropy_model_z": {"type": "SteEntropyBottleneck", "channels": z},
+        "entropy_model_y": {"type": "SteGaussianMeanScaleConditional",
+                            "scale_bound": 0.11}}
+    opt["model_type"] = "InterpCaHyperpriorModel" \
+        if family == "cheng20_interp_ca" else "HyperpriorModel"
+    return opt
+
+
+def build_family_model(family: str, imgs, card: str):
+    """The family's model: seeded init, every GDN's gamma re-drawn
+    non-symmetric, y spread over ~Y_STD bins by a gain on the last analysis
+    conv, the hyper-decoder's scale half raised (as phase 7)."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.nn import GDN, NonNegativeParam
+    from crdr_tpu_torch.utils.config import ConfigDict
+
+    t0 = time.perf_counter()
+    model = build_comp_model(ConfigDict(family_config(family)), device=CARD)
+    net = model.net
+    g = torch.Generator(device=model.device).manual_seed(4321)
+    last_conv = net.encoder.conv_block_out if family == "hific" \
+        else net.encoder.conv7
+    last_hyper = net.hyperdecoder.c3 if family == "hific" \
+        else net.hyperdecoder.c5
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, GDN):
+                c = m.gamma.shape[0]
+                m.gamma.copy_(NonNegativeParam().init(torch.empty_like(
+                    m.gamma).uniform_(0.0, 2.0 / c, generator=g)))
+        x = torch.from_numpy(imgs[:1]).to(model.device)
+        x = ((x.float() / 255.0 - 0.5) * 2.0).permute(0, 3, 1, 2)
+        ri = torch.full((1,), RATE, device=model.device)
+        y = net.encode(x.contiguous(), ri)
+        gain = Y_STD / float(y.std())
+        last_conv.weight.mul_(gain)
+        last_conv.bias.mul_(gain)
+        half = last_hyper.bias.numel() // 2
+        last_hyper.bias[half:] += Y_STD
+    model.codec_setup()
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    nparam = sum(p.numel() for p in net.parameters())
+    print(f"{family} {model.opt.model_type} ({type(net.encoder).__name__}): "
+          f"{nparam / 1e6:.1f}M params, analysis gain {gain:.2f}, built in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return model
+
+
+def family_phase(imgs, card: str, profiling: bool = False):
+    """Phase 20: each family on both wires (the generic device wire, E1),
+    the checks of phases 3 and 4, K3 6 a round trip on Cheng20 (every K3
+    call held against gdn_plain), 0 on HiFiC.  Returns ({path: launches},
+    {path: times})."""
+    import torch
+
+    counts, times = {}, {}
+    for family in FAMILIES:
+        model = build_family_model(family, imgs, card)
+        gdn = 0 if family == "hific" else 6
+        label = f"{family} compressai"
+        with sampled_kernel_calls() as samples:
+            encs, counts[label], times[label] = host_wire_path(
+                model, imgs, label, {"slice_transform": 0,
+                                     "lane_decode_round": 0, "gdn": gdn},
+                card, runs=FAMILY_RUNS, padding=False)
+        if gdn:  # batch 4; batch 1 too from the padding measurement
+            held = hold_served_kernels(samples, label, card)
+            at4 = [s for s in held["gdn"]["shapes"]
+                   if s.startswith(f"(({N_IMG},")]
+            check(len(at4) == 6, f"{label}: K3 held at {at4} at batch "
+                  f"{N_IMG} (3 shapes x 2 directions expected)")
+        del samples
+        y_c = np.concatenate([e["y_hat"] for e in encs])
+        label = f"{family} device wire"
+        _, counts[label], times[label], _ = device_wire_path(
+            model, imgs, y_c, card, label, encoder="device", gdn=gdn,
+            runs=FAMILY_RUNS)
+        if profiling:
+            encs = model.compress_batch(imgs, rate_ind=RATE)
+            profile_phase(lambda: model.compress_batch(imgs, rate_ind=RATE),
+                          f"{family} device-wire encode batch {N_IMG}", card,
+                          ("gdn_kernel", "lane_encode"))
+            profile_phase(lambda: model.decompress_batch(
+                [e["string_list"] for e in encs], beta=BETA),
+                f"{family} device-wire decode batch {N_IMG}", card,
+                ("gdn_kernel", "lane_decode"))
+        del model, encs
+        torch.cuda.empty_cache()
+    return counts, times
+
+
+# ---------------- phase 21: the train transform's resize_range --------------
+
+RESIZE_STEPS = 5
+STAGE1_STEP_MS = 125.0   # stage 1's step on the H100 (PERF.md §6)
+
+
+class TimedLoader:
+    """A data loader whose consumer's wait for each batch is timed."""
+
+    def __init__(self, loader):
+        self.loader, self.waits = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+
+def resize_phase(card: str) -> dict:
+    """Phase 21: endurance_r4_stage1.yaml's recipe (resize_range [0.5,
+    1.0], uint8 samples) on synthetic 512x768 PNG sources in a temporary
+    directory.  The recipe's own interpolation is bicubic, which the port
+    refuses (cv2's IPP bicubic is not reproduced byte for byte); the run
+    lays interpolation: bilinear over it.  5 steps through train_loop; the
+    resampler's ms per sample at 768x512 and 1024x768; the loader's wait
+    per step."""
+    import tempfile
+
+    import torch
+
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+    from crdr_tpu_torch.data import build_dataset
+    from crdr_tpu_torch.data.resize import resize_linear_u8
+    from crdr_tpu_torch.trainer import build_trainer
+    from crdr_tpu_torch.utils.img_utils import write_png
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "sources")
+        os.makedirs(src)
+        for i, img in enumerate(synthetic_images(16, IMG_H, IMG_W, 29)):
+            write_png(os.path.join(src, f"src{i:02d}.png"), img)
+        cfg = train_config("endurance_r4_stage1.yaml", tmp, "r4",
+                           total_iter=RESIZE_STEPS, log_step=RESIZE_STEPS)
+        try:
+            build_dataset(cfg.dataset.train_dataset, is_train=True)
+            check(False, "the recipe's bicubic resize_range did not raise")
+        except NotImplementedError as e:
+            print(f"endurance_r4_stage1.yaml as it is: {e}")
+        cfg.dataset.train_dataset.update(root_dir=src,
+                                         interpolation="bilinear")
+        cfg.dataset.eval_dataset.update(root_dir=src)
+
+        # the resampler alone, at the scales the transform draws
+        rng = np.random.default_rng(0)
+        for h, w in ((512, 768), (768, 1024)):
+            img = synthetic_images(1, h, w, 31)[0]
+            runs = []
+            for _ in range(12):
+                s = rng.uniform(0.5, 1.0)
+                t0 = time.perf_counter()
+                resize_linear_u8(img, (int(w * s), int(h * s)))
+                runs.append((time.perf_counter() - t0) * 1e3)
+            res[f"resize_ms_{w}x{h}"] = float(np.median(runs[2:]))
+        ds = build_dataset(cfg.dataset.train_dataset, is_train=True)
+        runs = []
+        for i in range(12):
+            t0 = time.perf_counter()
+            ds[i]
+            runs.append((time.perf_counter() - t0) * 1e3)
+        res["sample_ms_768x512"] = float(np.median(runs[2:]))
+
+        tr = build_trainer(cfg, CARD)
+        check(tr.train_loader.dataset.resize_range is not None,
+              "the trainer's dataset has no resize_range")
+        loader = TimedLoader(tr.train_loader)
+        tr.train_loader = loader
+        logs, steps, _ = record_steps(tr)
+        t0 = time.perf_counter()
+        tr.train_loop()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(len(logs) == RESIZE_STEPS, f"resize_range run: {len(logs)} "
+              f"steps ({RESIZE_STEPS} expected)")
+        last = check_logs(logs, "resize_range run")
+        batch = next(iter(tr.train_loader.loader))["real_images"]
+        check(batch.dtype == np.uint8 and batch.shape == (8, 256, 256, 3),
+              f"resize_range batch {batch.dtype} {batch.shape}")
+        waits = loader.waits[1:]  # the first includes the loader's start
+        res.update(steps=len(logs), step_ms=float(np.median(steps[1:])),
+                   wait_ms=float(np.mean(waits)),
+                   wait_max_ms=float(np.max(waits)),
+                   first_wait_ms=loader.waits[0], run_s=secs,
+                   loss_last=last["total"])
+        del tr
+        torch.cuda.empty_cache()
+    print(f"resize_range (bilinear, uint8): resampler "
+          f"{res['resize_ms_768x512']:.2f} ms a sample at 768x512, "
+          f"{res['resize_ms_1024x768']:.2f} ms at 1024x768; a whole train "
+          f"transform {res['sample_ms_768x512']:.2f} ms at 768x512 (PNG read "
+          f"included); {res['steps']} steps of endurance_r4_stage1.yaml, "
+          f"median step {res['step_ms']:.1f} ms, the loader's wait "
+          f"{res['wait_ms']:.2f} ms a step (max {res['wait_max_ms']:.2f}; "
+          f"first {res['first_wait_ms']:.1f}) against the "
+          f"{STAGE1_STEP_MS:.0f} ms stage-1 step; last total loss "
+          f"{res['loss_last']:.4f} [{card}]")
+    return res
+
+
 def main() -> None:
     try:
         import torch
@@ -4145,16 +4793,22 @@ def main() -> None:
     train, counts_tr = training_phase(card, profiling)
     cross_device_phase(imgs[:1], card)
     serving, counts_sv = serving_phase(card)
+    evaluation, counts_ev = eval_phase(card)
+    counts_fam, _ = family_phase(imgs, card, profiling)
+    resize = resize_phase(card)
 
     print("training " + json.dumps(train))
     print("serving " + json.dumps(serving))
+    print("evaluation " + json.dumps(evaluation))
+    print("resize_range " + json.dumps(resize))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
     launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g,
                 **counts_m, **counts_t, **counts_e,
                 "flagship device encoder": counts_f, **counts_cb,
-                **counts_gw, **counts_tr, **counts_sv}
+                **counts_gw, **counts_tr, **counts_sv, **counts_ev,
+                **counts_fam}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",

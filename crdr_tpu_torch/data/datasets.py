@@ -7,8 +7,11 @@ per-index generators seeded ``[seed, index, k]`` (k counts the index's
 draws), the random crop (reflect pad if needed) and horizontal flip of the
 train transform, ``SyntheticImageDataset``'s procedural images.  Images are
 read with the port's own PNG reader (``utils/img_utils.py``): the machines
-the port runs on have no cv2, so a JPEG raises, and the train transform's
-scale jitter (``resize_range``, a ``cv2.resize``) is not ported.
+the port runs on have no cv2, so a JPEG raises.  The train transform's
+scale jitter (``resize_range``, a ``cv2.resize`` in the JAX package) runs
+``data/resize.py``'s numpy copy of cv2's uint8 bilinear path, byte for
+byte; with ``interpolation: bicubic`` or float samples (``uint8_io``
+off) it raises, since those cv2 paths are not reproduced exactly.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..utils.img_utils import read_png, uint8_to_tensor
+from .resize import resize_linear_u8
 from ..utils.registry import DATASET_REGISTRY
 
 
@@ -30,15 +34,17 @@ class BaseImageDataset:
                  resize_range: Optional[Tuple[float, float]] = None,
                  interpolation: str = "bicubic", seed: Optional[int] = None,
                  uint8_io: bool = False, repeat: int = 1):
-        if resize_range is not None:
+        if resize_range is not None and (interpolation == "bicubic"
+                                         or not uint8_io):
             raise NotImplementedError(
-                "resize_range (the train transform's scale jitter, a "
-                "cv2.resize in the JAX package) is not ported: the port has "
-                "no image resampler (ROADMAP.md, Queue 1, the training "
-                "slice's exclusions)")
+                f"resize_range with interpolation {interpolation!r} on "
+                f"{'uint8' if uint8_io else 'float32'} samples: the port "
+                "reproduces only cv2's uint8 bilinear resize byte for byte "
+                "(data/resize.py); set interpolation: bilinear and uint8_io")
         self.img_path_list = img_path_list
         self.is_train = is_train
-        self.image_size = image_size  # interpolation: resize_range's only
+        self.image_size = image_size
+        self.resize_range = resize_range
         # repeat: virtually oversample a small source set; each virtual
         # index draws its own generator, so crops and flips differ
         self.repeat = max(int(repeat), 1)
@@ -76,6 +82,12 @@ class BaseImageDataset:
                          rng: np.random.Generator) -> np.ndarray:
         size = self.image_size
         h, w = img.shape[:2]
+        if self.resize_range is not None:
+            fmin, fmax = self.resize_range
+            lo = max(size / min(h, w), fmin)
+            scale = rng.uniform(lo, max(lo, fmax))
+            img = resize_linear_u8(img, (int(w * scale), int(h * scale)))
+            h, w = img.shape[:2]
         # reflect pad if needed, then a random crop and a random flip
         pad_h = max(size - h, 0)
         pad_w = max(size - w, 0)

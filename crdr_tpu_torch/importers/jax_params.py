@@ -12,6 +12,13 @@ and the layout transform is inverted:
 * InterpCA    (L, C)          -> (L, 1, C, 1, 1)
 * EntropyBottleneck matrices_K/biases_K/factors_K -> _matrixK/_biasK/_factorK
 
+The Cheng20 and HiFiC modules carry the flax names themselves (a GDN
+activation under ``actvN.gdn`` / ``actvN.igdn``, the ``shortcut`` /
+``shortcut_up`` convs, a norm under ``<name>.norm``), so they need no rule
+beyond ``interp_ca_list.N`` -> ``interp_ca_N``; which of their convs is
+transposed follows the module type (the Cheng20 hyper-decoder's ``c2`` /
+``c4``, HiFiC's ``upconv_blockN.deconv``).
+
 ``export_discriminator_state`` carries a discriminator's ``params`` and its
 state (``batch_stats``: BatchNorm's ``mean`` / ``var``, spectral norm's
 ``u`` / ``sigma``, which flax files under ``SpectralNorm_0`` as
@@ -104,6 +111,9 @@ def export_state_dict(params: Dict, net: nn.Module, use_rate: bool,
                       ) -> Dict[str, torch.Tensor]:
     """Strict: every port key finds its flax leaf and every leaf is used."""
     flat = _flatten(params)
+    # the ELIC InterpCA nets hold their layers under `body` in the flax
+    # tree; the Cheng20 InterpCA nets hold theirs directly
+    use_rate = use_rate and any(".body." in k for k in flat)
     # the layout of a weight follows its module's type, not its shape
     kinds = {f"{name}.weight": "deconv" if isinstance(m, ConvTranspose2d)
              else "dense" for name, m in net.named_modules()

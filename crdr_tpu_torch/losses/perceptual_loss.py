@@ -16,13 +16,13 @@ from __future__ import annotations
 
 import logging
 import os
-import pickle
 from typing import Optional
 
 import torch
 from torch import nn
 
 from ..metrics.lpips import LPIPSAlex, init_lpips, load_lpips_params
+from ..utils.numpy_pickle import load_numpy_pickle
 from ..utils.registry import LOSS_REGISTRY
 
 logger = logging.getLogger(__name__)
@@ -67,23 +67,6 @@ class LPIPSLoss(nn.Module):
         return self.lamb * torch.mean(self.module(real_images, fake_images))
 
 
-class _NumpyUnpickler(pickle.Unpickler):
-    """Admits the classes a pickled dict of numpy arrays needs, no other."""
-
-    _ALLOWED = {("numpy", "ndarray"), ("numpy", "dtype"),
-                ("numpy.core.multiarray", "_reconstruct"),
-                ("numpy._core.multiarray", "_reconstruct"),
-                ("numpy.core.multiarray", "scalar"),
-                ("numpy._core.multiarray", "scalar")}
-
-    def find_class(self, module, name):
-        if (module, name) not in self._ALLOWED:
-            raise pickle.UnpicklingError(
-                f"LPIPS weights may hold numpy arrays only, not {module}.{name}")
-        return super().find_class(module, name)
-
-
 def _load_weights(path: str):
-    with open(path, "rb") as f:
-        blob = _NumpyUnpickler(f).load()
+    blob = load_numpy_pickle(path)
     return load_lpips_params(blob["alexnet"], blob["lpips"])

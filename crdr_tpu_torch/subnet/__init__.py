@@ -13,8 +13,8 @@ from ..utils.config import ConfigDict
 from ..utils.registry import (CONTEXTMODEL_REGISTRY, DECODER_REGISTRY,
                               ENCODER_REGISTRY, ENTROPYMODEL_REGISTRY,
                               HYPERDECODER_REGISTRY, HYPERENCODER_REGISTRY)
-from .autoencoder import (balle18, elic, elic_interpca,  # noqa: F401
-                          elic_interpca_beta_cond)
+from .autoencoder import (balle18, cheng20, elic,  # noqa: F401
+                          elic_interpca, elic_interpca_beta_cond, hific)
 from .context_model import charm, checkerboard  # noqa: F401
 from .hyperprior import alt, minnen20  # noqa: F401
 
