@@ -256,12 +256,45 @@ Phases, each asserted (any failure exits non-zero):
    raise, then with interpolation: bilinear laid over it 5 steps through
    train_loop (losses finite, uint8 crops); the resampler's ms a sample at
    768x512 and 1024x768, the loader's wait a step against the step.
-22. one JSON line of kernel figures (launches by path, every path above);
-23. the ok line.
+22. data parallel: two ranks spawned on the one card over gloo
+   (crdr_tpu_torch.parallel.spawn; NCCL refuses two ranks on one GPU),
+   4 images each, against one process at batch 8 from the same seed, on
+   config/endurance_stage1.yaml at full width (256x256, f32: mixed
+   precision and TF32 off), then on the GDN model the same way: each
+   rank's rows are the one process's batch, the ranks' parameters equal
+   and bit-equal to the same shards taken in one process, losses within
+   2e-3 each step, step 1's averaged gradient within 1e-3 relative L2
+   per parameter; the parameters after 4 steps against rtol 2e-3 / atol
+   2e-5 (JAX's tests/test_trainer_dp.py): the elements past it printed
+   with how many have, on some step, averaged gradients more than 1%
+   apart in the two runs and, of those, how many a batch-8 gradient no
+   farther from 0 than the two are apart (the sign of Adam's update is
+   rounding there), and every element whose gradients agree to 1% every
+   step held to the tolerance (DP_GRAD_APART); K3 6 a rank-step on the GDN model, each
+   rank's K3 calls (3 shapes x GDN / IGDN at 4 images) held against
+   gdn_plain on the rank; one step in a group of one rank over NCCL,
+   bit-equal to the step alone; the 2 ranks' checkpoint resumed in one
+   process, its next step against the ranks'.  Ms a step per rank
+   printed, the two ranks sharing one card (no scaling figure).
+23. the serving mesh: crdr_throughput.yaml with serving_devices 2 on
+   [cuda:0, cuda:0] (two replicas on the one card), 4 images of 512x768,
+   on both wires (E1 encoding): streams byte-equal to one device's,
+   decodes equal to the encoders' symbols and to one device's images,
+   K1 / K2 / E1 launches = 2 shards x the per-dispatch counts, each
+   kernel's calls held against its twin at the shard's shapes, then
+   warm round trips of the mesh and one device timed in turns; then
+   serving_partition: spatial on one 2048x3072 still split 2 ways:
+   symbols apart from one device's printed, cross-decode exact both ways,
+   peak memory and times of the split and the whole encode / decode; then
+   cli/serve.py with serving_devices 2 and --mesh_devices cuda:0,cuda:0,
+   two requests in one dispatch of 2.
+24. one JSON line of kernel figures (launches by path, every path above);
+25. the ok line.
 Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import gc
 import importlib
 import json
 import os
@@ -3652,6 +3685,7 @@ def sampled_kernel_calls():
             # and its pointer and version name these contents
             key = (v.data_ptr(), v._version, v.shape, v.stride(), v.dtype)
             if key not in copies:
+                v = v.detach()  # a training call's: no graph is kept
                 copies[key] = (v, v.clone())
                 samples["bytes"] += 2 * v.numel() * v.element_size()
             return copies[key][1]
@@ -4712,6 +4746,644 @@ def resize_phase(card: str) -> dict:
     return res
 
 
+# ---------------- phase 22: data parallel on the card -------------------------
+
+def card_device():
+    """The one card as a device of a mesh (``CARD``: the CPU in a
+    rehearsal)."""
+    import torch
+
+    return torch.device("cuda", 0) if CARD == "cuda" else torch.device(CARD)
+
+
+DP_STEPS = 4          # compared steps; the 2-rank run takes one more after
+#                       its checkpoint
+DP_RTOL, DP_ATOL, DP_LOSS = 2e-3, 2e-5, 2e-3   # tests/test_trainer_dp.py
+# Gradients that agree to this fraction every step move Adam's update by
+# about twice it a step (its m / sqrt(v) is homogeneous in g), so over 4
+# steps at lr 1e-4 a parameter by <= 8 x 0.01 x 1e-4 = 8e-6 < DP_ATOL:
+# the parameters are held to JAX's tolerance wherever the two runs'
+# gradients agree to it
+DP_GRAD_APART = 0.01
+DP_LABELS = ("stage1", "gdn")
+
+
+def dp_config(label: str, tmp: str, exp: str, **over):
+    """Phase 22's configs: endurance_stage1.yaml at full width, batch 8,
+    256x256, f32 (mixed_precision off); ``gdn``: its recipe on the Balle18
+    GDN model (phase 15's)."""
+    from crdr_tpu_torch.utils.config import Config
+
+    cfg = train_config("endurance_stage1.yaml", tmp, exp,
+                       total_iter=DP_STEPS + 1, mixed_precision=False,
+                       num_workers=2, **over)
+    if label == "gdn":
+        bal = Config.from_file(os.path.join(ROOT, "config",
+                                            "balle18_mean_scale.yaml"))
+        cfg["model_type"], cfg["subnet"] = bal.model_type, bal.subnet
+    return cfg
+
+
+def dp_steps(tr, steps: int, out: dict, tag: str,
+             keep_grads: bool = False) -> None:
+    """``steps`` steps on the trainer's loader, each timed between two
+    synchronizes: its rows of each batch, the logs, step 1's averaged main
+    gradient (with ``keep_grads``, every step's: "grads") and the
+    parameters after the last step (the flat buffers), and K3's
+    launches."""
+    import hashlib
+
+    import torch
+
+    from crdr_tpu_torch.data import cycle
+    from crdr_tpu_torch.ops.gdn import gdn
+
+    rows, logs, ms, grads = [], [], [], []
+    gdn.launches = 0
+    for itr, data in cycle(tr.train_loader, tr.step, tr.step + steps):
+        rows.append(np.asarray(data["real_images"]).copy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs.append(tr.optimize_parameters(itr, data))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if itr == 1 or keep_grads:
+            grads.append(tr.g_opt.flat_grad.cpu().numpy().copy())
+    flat = tr.g_opt.flat.cpu().numpy()
+    out.update({f"{tag}rows": rows, f"{tag}logs": logs, f"{tag}ms": ms,
+                f"{tag}k3": gdn.launches,
+                f"{tag}digest": hashlib.sha256(flat.tobytes()).hexdigest(),
+                f"{tag}flat": flat.copy()})
+    if grads:
+        out[f"{tag}grad1"] = grads[0]
+    if keep_grads:
+        out[f"{tag}grads"] = grads
+
+
+def dp_rank(rank: int, world: int, device, tmp: str, card: str) -> dict:
+    """One rank of phase 22 (a spawned process on the card, over gloo):
+    each model DP_STEPS steps, the GDN model's K3 calls sampled and each
+    held against gdn_plain here (a failure fails the rank); stage 1 then
+    saves (rank 0 writes) and takes one more step.  Rank 0's arrays (every
+    step's averaged gradient, the parameters) go to .npy files under
+    ``tmp``; every rank returns its digests, rows, logs, times, K3 launches
+    and the K3 shapes held."""
+    import torch
+
+    from crdr_tpu_torch.trainer import build_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    res = {}
+    for label in DP_LABELS:
+        tr = build_trainer(dp_config(label, tmp, f"dp2_{label}",
+                                     n_devices=world), device)
+        out = {}
+        with sampled_kernel_calls() as samples:
+            dp_steps(tr, DP_STEPS, out, "", keep_grads=rank == 0)
+        out["held"] = hold_served_kernels(
+            samples, f"DP {label} rank {rank}", card)
+        del samples
+        if label == "stage1":
+            tr.save(tr.step)
+            dp_steps(tr, 1, out, "next_")
+        for key in [k for k in out if k.endswith(("grad1", "flat"))]:
+            arr = out.pop(key)
+            if rank == 0:
+                path = os.path.join(tmp, f"rank0_{label}_{key}.npy")
+                np.save(path, arr)
+                out[key] = path
+        if rank == 0:
+            grads = out.pop("grads")
+            out["grads"] = []
+            for s, g in enumerate(grads):
+                path = os.path.join(tmp, f"rank0_{label}_grad_step{s + 1}.npy")
+                np.save(path, g)
+                out["grads"].append(path)
+            del grads
+        res[label] = out
+        del tr
+        torch.cuda.empty_cache()
+    return res
+
+
+def dp_blocks_step(tr, shards, itr: int) -> None:
+    """One step of the one-process trainer ``tr`` on the ranks' ``shards``
+    taken as the ranks take them: the trainer's own step at
+    ``micro_batches`` = the shard count (rd_trainer.py's module doc)."""
+    tr.micro_batches = len(shards)
+    tr.optimize_parameters(itr, {"real_images": np.concatenate(shards)})
+
+
+def flat_digest(tr) -> str:
+    import hashlib
+
+    return hashlib.sha256(tr.g_opt.flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def per_param_rel(tr, a: np.ndarray, b: np.ndarray) -> dict:
+    """Relative L2 of a against b, per parameter of ``tr.g_opt``'s flat
+    layout: {name: rel}."""
+    out = {}
+    for name, off, size in zip(tr.g_opt.names, tr.g_opt.offsets,
+                               tr.g_opt.sizes):
+        x, y = a[off:off + size].astype(np.float64), b[off:off + size]
+        out[name] = float(np.linalg.norm(x - y) / max(np.linalg.norm(y),
+                                                      1e-30))
+    return out
+
+
+def dp_rounding(opt, rank_grads, one_grads) -> tuple:
+    """Where the two runs' averaged gradients (``rank_grads``: the ranks',
+    .npy paths; ``one_grads``: batch 8's) part on some step, over ``opt``'s
+    flat buffer: (sign, where |g2 - g8| >= |g8| > 0 or g8 = 0 < |g2|: batch
+    8's gradient no farther from 0 than the two sums are apart, its sign
+    rounding; apart, where |g2 - g8| > DP_GRAD_APART |g8|; the mask of the
+    parameters' own elements, not the buffer's padding)."""
+    sign = np.zeros(opt.flat.numel(), bool)
+    apart = np.zeros_like(sign)
+    for path, g8 in zip(rank_grads, one_grads):
+        diff = np.abs(np.load(path).astype(np.float64) - g8)
+        sign |= (diff > 0) & (diff >= np.abs(g8))
+        apart |= diff > DP_GRAD_APART * np.abs(g8)
+        del diff
+    own = np.zeros_like(sign)
+    for off, size in zip(opt.offsets, opt.sizes):
+        own[off:off + size] = True
+    return sign, apart, own
+
+
+def dp_close(a: np.ndarray, b: np.ndarray, masks) -> dict:
+    """|a - b| / (atol + rtol |b|) per element (<= 1 passes): its worst,
+    the count past it, of those how many ``dp_rounding``'s masks cover,
+    and the worst and the count past it among the elements whose gradients
+    never part by DP_GRAD_APART."""
+    sign, apart, own = masks
+    excess = np.abs(a.astype(np.float64) - b) / (DP_ATOL + DP_RTOL * np.abs(b))
+    past = (excess > 1) & own
+    rest = excess[own & ~apart]
+    return {"worst": float(excess.max()), "past": int(past.sum()),
+            "past_sign_rounding": int((past & sign).sum()),
+            "past_apart": int((past & apart).sum()),
+            "sign_rounding": int((sign & own).sum()),
+            "apart": int((apart & own).sum()),
+            "worst_rest": float(rest.max()) if rest.size else 0.0,
+            "past_rest": int((rest > 1).sum())}
+
+
+def dp_phase(card: str) -> tuple:
+    """Phase 22: data parallel on the card (module doc)."""
+    import tempfile
+
+    import torch
+
+    from crdr_tpu_torch.parallel import spawn
+    from crdr_tpu_torch.trainer import build_trainer
+
+    t_phase = time.perf_counter()
+    res, counts = {}, {}
+    saved_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = card_device()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = spawn(dp_rank, 2, backend="gloo", devices=[dev, dev],
+                      args=(tmp, card))
+        res["ranks_s"] = time.perf_counter() - t0
+        for label in DP_LABELS:
+            r0, r1 = (r[label] for r in ranks)
+            check(r0["digest"] == r1["digest"],
+                  f"DP {label}: the two ranks' parameters differ")
+            check(r0["logs"] == r1["logs"], f"DP {label}: rank logs differ")
+            # the ranks' arithmetic in one process, with no group
+            acc = build_trainer(dp_config(label, tmp, f"acc_{label}"))
+            for s in range(DP_STEPS):
+                dp_blocks_step(acc, [r0["rows"][s], r1["rows"][s]], s + 1)
+                if s == 0:
+                    acc_g1 = acc.g_opt.flat_grad.cpu().numpy().copy()
+            exact = flat_digest(acc) == r0["digest"] and np.array_equal(
+                acc_g1, np.load(r0["grad1"]))
+            print(f"DP {label}: the 2 ranks' parameters after {DP_STEPS} "
+                  f"steps and step 1's averaged gradient bit-equal to one "
+                  f"process taking the same 2 shards a step with no group "
+                  f"(its step at micro_batches 2): "
+                  f"{exact}")
+            check(exact, f"DP {label}: the ranks differ from the same "
+                  "arithmetic in one process")
+            del acc
+            # one process at batch 8 (cuDNN sums a batch of 8 otherwise)
+            tr = build_trainer(dp_config(label, tmp, f"one_{label}"))
+            one = {}
+            dp_steps(tr, DP_STEPS, one, "", keep_grads=True)
+            for s in range(DP_STEPS):
+                check(np.array_equal(np.concatenate(
+                    [r0["rows"][s], r1["rows"][s]]), one["rows"][s]),
+                    f"DP {label}: the ranks' rows of step {s + 1} are not "
+                    "the one process's batch")
+            loss_d = max(abs(a[k] - b[k]) for a, b in zip(one["logs"],
+                                                           r0["logs"])
+                         for k in ("total", "rate", "distortion", "bpp"))
+            rel = per_param_rel(tr, np.load(r0["grad1"]), one["grad1"])
+            worst_g = max(rel, key=rel.get)
+            close = dp_close(np.load(r0["flat"]), one["flat"], dp_rounding(
+                tr.g_opt, r0["grads"], one.pop("grads")))
+            k3 = [r0["k3"], r1["k3"]]
+            row = {"bit_equal_to_shards_in_one_process": exact,
+                   "loss_max_abs_diff": loss_d,
+                   "grad1_rel_l2_max": rel[worst_g], "grad1_worst": worst_g,
+                   "grad1_rel_l2_median": float(np.median(list(
+                       rel.values()))),
+                   "params_worst_ratio": close["worst"],
+                   "params_past_tol": close["past"],
+                   **{f"params_{k}": v for k, v in close.items()
+                      if k not in ("worst", "past")},
+                   "params": int(sum(tr.g_opt.sizes)),
+                   "rank_ms_per_step": [float(np.median(r0["ms"][1:])),
+                                        float(np.median(r1["ms"][1:]))],
+                   "one_ms_per_step": float(np.median(one["ms"][1:])),
+                   "k3_per_rank": k3,
+                   "k3_held_per_rank": [r0["held"].get("gdn"),
+                                        r1["held"].get("gdn")]}
+            print(f"DP {label}: 2 ranks (gloo, both on {card}, 4 images "
+                  f"each) vs one process at batch 8, {DP_STEPS} steps, f32: "
+                  f"losses within {loss_d:.2e}, step 1's averaged gradient "
+                  f"relative L2 per parameter max {rel[worst_g]:.2e} "
+                  f"({worst_g}), median {row['grad1_rel_l2_median']:.2e}; "
+                  f"parameters after step {DP_STEPS}: worst |diff| / (atol "
+                  f"+ rtol |p|) {close['worst']:.3f}, {close['past']} of "
+                  f"{row['params']} past rtol {DP_RTOL} / atol {DP_ATOL}, "
+                  f"of them {close['past_apart']} where on some step the "
+                  f"two runs' averaged gradients part by more than "
+                  f"{DP_GRAD_APART:.0%} ({close['apart']} such elements in "
+                  f"all), {close['past_sign_rounding']} of those where batch "
+                  f"8's is no farther from 0 than the two are apart (its "
+                  f"sign rounding; {close['sign_rounding']} in all); the "
+                  f"{row['params'] - close['apart']} others: worst "
+                  f"{close['worst_rest']:.3f}, {close['past_rest']} past; "
+                  f"ms a step per rank "
+                  f"{[round(v, 1) for v in row['rank_ms_per_step']]} (the "
+                  f"two ranks share one card and all-reduce over gloo: not "
+                  f"a scaling figure), one process "
+                  f"{row['one_ms_per_step']:.1f}; K3 per rank {k3}")
+            check(loss_d < DP_LOSS, f"DP {label}: losses apart by {loss_d}")
+            check(close["past_rest"] == 0, f"DP {label}: {close['past_rest']}"
+                  f" parameters past rtol {DP_RTOL} / atol {DP_ATOL} whose "
+                  f"gradients agree to {DP_GRAD_APART} every step")
+            for r, rk in enumerate((r0, r1)):
+                check(len(rk["held"].get("gdn", {}).get("shapes", [])) ==
+                      (6 if label == "gdn" else 0), f"DP {label} rank {r}: "
+                      f"K3 held at {rk['held']} (6 shapes expected)")
+            check(rel[worst_g] <= GRAD_REL, f"DP {label}: step 1's gradient "
+                  f"of {worst_g} {rel[worst_g]:.2e} from batch 8's")
+            want_k3 = 6 * (DP_STEPS if label == "gdn" else 0)
+            check(k3 == [want_k3] * 2 and one["k3"] == want_k3,
+                  f"DP {label}: K3 launched {k3} / {one['k3']} times "
+                  f"({want_k3} expected a rank)")
+            counts[f"dp {label} rank 0"] = {"gdn": r0["k3"]}
+            counts[f"dp {label} rank 1"] = {"gdn": r1["k3"]}
+            res[label] = row
+            del tr
+            torch.cuda.empty_cache()
+            if label == "stage1":
+                res["nccl_world1"] = dp_nccl_world1(label, tmp, card)
+                # the 2-rank checkpoint resumes in one process
+                rs = build_trainer(dp_config(label, tmp, "dp2_stage1",
+                                             start_iter=DP_STEPS))
+                dp_blocks_step(rs, [r0["next_rows"][0], r1["next_rows"][0]],
+                               DP_STEPS + 1)
+                same = rs.world == 1 and flat_digest(rs) == \
+                    r0["next_digest"]
+                print(f"DP resume: the 2 ranks' step-{DP_STEPS} checkpoint "
+                      f"in one process; its step {DP_STEPS + 1} on the "
+                      f"ranks' shards bit-equal to the ranks': {same}")
+                check(same, "DP resume: one process did not follow the "
+                      "ranks")
+                res["resume_bit_equal"] = same
+                del rs
+                torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = saved_tf32
+    gc.collect()  # the trainers' reference cycles hold their buffers
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"data-parallel phase: {res['phase_s']:.1f} s (ranks "
+          f"{res['ranks_s']:.1f} s) [{card}]")
+    return res, counts
+
+
+def dp_nccl_world1(label: str, tmp: str, card: str) -> dict:
+    """One step of a trainer in a group of one rank over NCCL (its
+    collectives run) against the same step alone: bit-equal."""
+    import torch
+    import torch.distributed as tdist
+
+    from crdr_tpu_torch.parallel.distributed import free_port
+    from crdr_tpu_torch.trainer import build_trainer
+
+    alone = build_trainer(dp_config(label, tmp, "alone"))
+    data = next(iter(alone.train_loader))
+    a = alone.optimize_parameters(1, data)
+    flat_a = alone.g_opt.flat.clone()
+    del alone
+    backend = "nccl" if CARD == "cuda" else "gloo"
+    tdist.init_process_group(backend, init_method=f"tcp://127.0.0.1:"
+                             f"{free_port()}", world_size=1, rank=0)
+    try:
+        tr = build_trainer(dp_config(label, tmp, "nccl1", n_devices=1))
+        check(tr.dp and tr.world == 1, "NCCL world 1: no group")
+        b = tr.optimize_parameters(1, data)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(tr.g_opt.flat, flat_a)) and a == b
+    finally:
+        tdist.destroy_process_group()
+    print(f"DP over {backend} at world size 1: one step, parameters and "
+          f"logs bit-equal to the step alone: {equal} [{card}]")
+    check(equal, "NCCL world 1: the step differs from the step alone")
+    return {"bit_equal": equal}
+
+
+# ---------------- phase 23: the serving mesh on the card ------------------------
+
+SPATIAL_H, SPATIAL_W = 2048, 3072
+
+
+def mesh_model(card: str, mesh, **opts):
+    """build_model's flagship with ``opts`` in its options and the serving
+    mesh on ``mesh``."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.utils.config import Config
+
+    cfg = Config.from_file(os.path.join(ROOT, "config",
+                                        "crdr_throughput.yaml"))
+    cfg.update(opts)
+    model = build_comp_model(cfg)
+    raise_y_scales(model)
+    model.codec_setup(mesh)
+    torch.cuda.synchronize()
+    return model
+
+
+def mesh_phase(imgs, card: str) -> tuple:
+    """Phase 23: the serving mesh on the card (module doc)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    mesh = [card_device()] * 2
+    kernels = kernel_wrappers()
+    res, counts = {}, {}
+    one = build_model(card)
+    two = mesh_model(card, mesh, serving_devices=2)
+    check(len(two._replicas) == 2 and two._replicas[1].net is not one.net,
+          "batch mesh: no second replica")
+    per_dispatch = {"compressai": {"slice_transform": 6 * one.num_slices,
+                                   "lane_decode_round": 0,
+                                   "lane_encode_rounds": 0, "gdn": 0},
+                    "device": {"slice_transform": 6 * one.num_slices,
+                               "lane_decode_round": 1 + one.num_slices,
+                               "lane_encode_rounds": 2, "gdn": 0}}
+    for wire, want in per_dispatch.items():
+        for m in (one, two):
+            m.opt["wire_format"] = wire
+            m.opt["device_wire_encoder"] = "device"
+            m.codec_setup()
+        round_trip(one, imgs)  # warm: this wire's first call
+        enc1, (f1, _, y1), _, _ = round_trip(one, imgs)
+        with sampled_kernel_calls() as samples:
+            for k in kernels.values():
+                k.launches = 0
+            enc2, (f2, _, y2), t2e, t2d = round_trip(two, imgs)
+            got = {n: k.launches for n, k in kernels.items()}
+        label = f"mesh batch {wire}"
+        same = all(a["string_list"] == b["string_list"]
+                   for a, b in zip(enc1, enc2))
+        check(same, f"{label}: streams differ from one device's")
+        check_round_trip(label, enc2, f2, y2)
+        check(np.array_equal(f2, f1) and np.array_equal(y2, y1),
+              f"{label}: decodes differ from one device's")
+        check(got == {k: 2 * v for k, v in want.items()},
+              f"{label}: launches {got}, expected 2 x {want}")
+        held = hold_served_kernels(samples, label, card)
+        counts[label] = got
+        # warm, unsampled round trips in turns (one, mesh, mesh, one, ...)
+        times = {id(one): [], id(two): []}
+        for r in range(2 * TIMED_RUNS):
+            m = (one, two)[(r + r // 2) % 2]
+            times[id(m)].append(round_trip(m, imgs)[2:])
+        one_ms, mesh_ms = ([float(v) * 1e3 for v in np.median(
+            times[id(m)], axis=0)] for m in (one, two))
+        res[wire] = {"launches": got, "held": held, "one_ms": one_ms,
+                     "mesh_ms": mesh_ms,
+                     "mesh_first_ms": [t2e * 1e3, t2d * 1e3]}
+        print(f"{label}: 2 replicas on {card}, batch {N_IMG} of "
+              f"{IMG_W}x{IMG_H}: streams byte-equal to one device's, decodes "
+              f"equal, launches {got} (2 shards x {want}); encode / decode, "
+              f"medians of {TIMED_RUNS} in turns, {mesh_ms[0]:.1f} / "
+              f"{mesh_ms[1]:.1f} ms against one device's {one_ms[0]:.1f} / "
+              f"{one_ms[1]:.1f} ms (the mesh's first call, sampled: "
+              f"{t2e * 1e3:.1f} / {t2d * 1e3:.1f}; two replicas share one "
+              f"card: not a scaling figure)")
+    del two
+    gc.collect()  # a mesh model and its replicas form a reference cycle
+    torch.cuda.empty_cache()
+    for m in (one,):
+        m.opt["wire_format"] = "compressai"
+        m.codec_setup()
+    res["spatial"], counts["mesh spatial"] = spatial_mesh_check(one, mesh,
+                                                                card)
+    res["serve"] = mesh_serve_check(card)
+    del one
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"serving-mesh phase: {res['phase_s']:.1f} s [{card}]")
+    return res, counts
+
+
+def spatial_mesh_check(one, mesh, card: str) -> tuple:
+    """One 2048x3072 still split 2 ways on the card against one device:
+    the symbols apart, cross-decode both ways, peak memory (of the round
+    trip, and of the analysis and the synthesis alone) and times."""
+    import torch
+
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+    from crdr_tpu_torch.models.codec import codec_numerics
+    from crdr_tpu_torch.utils.img_utils import pad_image
+
+    kernels = kernel_wrappers()
+    # what earlier phases left in reference cycles (a model and its
+    # replicas, the trainers) goes first: the still's round trip peaks near
+    # the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    sp = mesh_model(card, mesh, serving_devices=2,
+                    serving_partition="spatial")
+    big = synthetic_images(1, SPATIAL_H, SPATIAL_W, 11)
+    out = {"margins": list(sp._spatial_margins),
+           "plan": sp._spatial_plan(SPATIAL_H // 16, 0),
+           "held_before_gib": held_gib}
+    encs, decs = {}, {}
+    gib = lambda: torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, gib()
+
+    for name, m in (("whole", one), ("split", sp)):
+        for k in kernels.values():
+            k.launches = 0
+        encs[name], enc_ms, enc_gib = peak_of(
+            lambda: m.compress(big, rate_ind=RATE))
+        decs[name], dec_ms, dec_gib = peak_of(
+            lambda: m.decompress(encs[name]["string_list"], beta=BETA))
+        launches = {n: k.launches for n, k in kernels.items()}
+        ri = torch.full((1,), RATE, device=m.device)
+        bt = torch.full((1,), BETA, device=m.device)
+        x = torch.from_numpy(pad_image(big, m.stride)).to(m.device)
+        y = torch.from_numpy(encs[name]["y_hat"]).to(m.device)
+        with codec_numerics(m._chain_tf32):
+            _, ana_ms, ana_gib = peak_of(lambda: m.encode_head(x, ri))
+            _, syn_ms, syn_gib = peak_of(lambda: m._synthesis(y, ri, bt))
+        del x, y
+        out[name] = {"encode_ms": enc_ms, "decode_ms": dec_ms,
+                     "peak_encode_gib": enc_gib, "peak_decode_gib": dec_gib,
+                     "analysis_ms": ana_ms, "peak_analysis_gib": ana_gib,
+                     "synthesis_ms": syn_ms, "peak_synthesis_gib": syn_gib,
+                     "launches": launches}
+        check(np.isfinite(decs[name][0]).all(), f"spatial {name}: "
+              "non-finite decode")
+        if not np.array_equal(decs[name][2], encs[name]["y_hat"]):
+            spatial_mismatch(m, big, encs[name], decs[name], held_gib)
+        check(np.array_equal(decs[name][2], encs[name]["y_hat"]),
+              f"spatial {name}: decoded y_hat != its encoder's")
+    apart = compare_latents(one, encs["split"]["y_hat"],
+                            encs["whole"]["y_hat"])
+    cross = {"whole decodes split": cross_decode(
+        one, encs["split"], "spatial: one device decodes the split stream"),
+        "split decodes whole": cross_decode(
+        sp, encs["whole"], "spatial: the split decodes one device's stream")}
+    for key, c in cross.items():
+        check(c.get("equal") is True, f"spatial cross-decode ({key}): {c}")
+    img_diff = float(np.abs(decs["split"][0] - decs["whole"][0]).max())
+    out.update({"symbols_apart": apart["symbols_apart"],
+                "streams_equal": encs["split"]["string_list"]
+                == encs["whole"]["string_list"],
+                "latent": apart, "cross_decode": cross,
+                "image_max_abs_diff_own_streams": img_diff})
+    w, sl = out["whole"], out["split"]
+    print(f"mesh spatial: one {SPATIAL_W}x{SPATIAL_H} still over 2 replicas "
+          f"on {card} (margins {out['margins']} latent rows, tiles "
+          f"{out['plan']}; {held_gib:.2f} GiB held before): streams equal "
+          f"{out['streams_equal']}, symbols "
+          f"apart {apart['symbols_apart']} of {encs['whole']['y_hat'].size}; "
+          f"cross-decode exact both ways; peak memory, split vs whole: "
+          f"analysis {sl['peak_analysis_gib']:.2f} vs "
+          f"{w['peak_analysis_gib']:.2f} GiB, synthesis "
+          f"{sl['peak_synthesis_gib']:.2f} vs {w['peak_synthesis_gib']:.2f}, "
+          f"the encode {sl['peak_encode_gib']:.2f} vs "
+          f"{w['peak_encode_gib']:.2f}, the decode "
+          f"{sl['peak_decode_gib']:.2f} vs {w['peak_decode_gib']:.2f}; ms, "
+          f"split vs whole: analysis {sl['analysis_ms']:.0f} vs "
+          f"{w['analysis_ms']:.0f}, synthesis {sl['synthesis_ms']:.0f} vs "
+          f"{w['synthesis_ms']:.0f}, encode {sl['encode_ms']:.0f} vs "
+          f"{w['encode_ms']:.0f}, decode {sl['decode_ms']:.0f} vs "
+          f"{w['decode_ms']:.0f} (two replicas share one card: not a "
+          f"scaling figure); launches split {sl['launches']}")
+    # a 128x192 latent is past JAX's VMEM gate for the fused SliceTransform
+    # (ops/slice_transform.py::fits_fused): the chain's plain f32 convs, as
+    # in JAX, on either setting
+    check(sl["launches"] == w["launches"] and
+          sl["launches"]["slice_transform"] == 0,
+          f"spatial: launches {sl['launches']} vs whole {w['launches']}")
+    del sp
+    torch.cuda.empty_cache()
+    return out, sl["launches"]
+
+
+def spatial_mismatch(m, big, enc, dec, held_gib: float) -> None:
+    """What a still's decode that missed its encoder's y_hat tells: how far
+    apart, the numerics flags, the memory and threads around it, and
+    whether a second encode and decode repeat the first ones."""
+    import torch
+
+    b = torch.backends
+    apart = compare_latents(m, dec[2], enc["y_hat"])
+    print(f"spatial mismatch: decode vs encoder {apart}; flags cudnn tf32 "
+          f"{b.cudnn.allow_tf32} "
+          f"deterministic {b.cudnn.deterministic} benchmark "
+          f"{b.cudnn.benchmark}, matmul tf32 {b.cuda.matmul.allow_tf32}; "
+          f"{held_gib:.2f} GiB held before, free / total "
+          f"{[v / 2 ** 30 for v in torch.cuda.mem_get_info()]} GiB; threads "
+          f"{sorted(t.name for t in threading.enumerate())}", flush=True)
+    dec2 = m.decompress(enc["string_list"], beta=BETA)
+    enc2 = m.compress(big, rate_ind=RATE)
+    same = enc2["string_list"] == enc["string_list"]
+    print(f"spatial mismatch: a second decode vs the first "
+          f"{compare_latents(m, dec2[2], dec[2])}, vs the encoder "
+          f"{compare_latents(m, dec2[2], enc['y_hat'])}; a second encode's "
+          f"stream equal to the first {same}, its y_hat vs the first "
+          f"{compare_latents(m, enc2['y_hat'], enc['y_hat'])}", flush=True)
+
+
+def mesh_serve_check(card: str) -> dict:
+    """cli/serve.py with serving_devices: 2 (CRDR_SERVING_DEVICES) and
+    --mesh_devices cuda:0,cuda:0: two concurrent requests coalesce into one
+    dispatch of two, one image a replica; each .bin equals the model's own
+    single-device stream of the image."""
+    import threading as th
+
+    import torch
+
+    from crdr_tpu_torch.cli import serve as serve_cli
+    from crdr_tpu_torch.serving.http_server import make_server
+    from crdr_tpu_torch.utils.codec_utils import unpack_byte_strings
+    from crdr_tpu_torch.utils.img_utils import encode_png
+
+    dev = card_device()
+    os.environ["CRDR_SERVING_DEVICES"] = "2"
+    try:
+        model = serve_cli.build_model(serve_cli.parse_args(
+            [os.path.join(ROOT, "config", "crdr_throughput.yaml"), "-d",
+             str(dev), "--mesh_devices", f"{dev},{dev}"]))
+    finally:
+        del os.environ["CRDR_SERVING_DEVICES"]
+    check(len(model._replicas) == 2, "serve CLI: no serving mesh")
+    imgs = smooth_images(5)[:2]
+    srv = make_server(model, port=0, max_batch=4, max_wait_s=2.0)
+    th.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        got = [None, None]
+
+        def send(i):
+            got[i] = http_post(f"{base}/compress?q={RATE}",
+                               encode_png(imgs[i]))
+
+        threads = [th.Thread(target=send, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        hist = srv.batcher.stats()["batch_hist"]
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+    for i, reply in enumerate(got):
+        want = model.compress(imgs[i:i + 1], rate_ind=RATE)["string_list"]
+        check(reply is not None and unpack_byte_strings(reply[0]) == want,
+              f"serve CLI mesh: request {i} differs from the stream alone")
+    check(hist == {2: 1}, f"serve CLI mesh: dispatches {hist}")
+    print(f"serve CLI (serving_devices 2, --mesh_devices {dev},{dev}): "
+          f"two requests in one dispatch of 2, one image a replica, each "
+          f".bin equal to the image's stream alone [{card}]")
+    del model
+    torch.cuda.empty_cache()
+    return {"batch_hist": {str(k): v for k, v in hist.items()}}
+
+
 def main() -> None:
     try:
         import torch
@@ -4796,11 +5468,15 @@ def main() -> None:
     evaluation, counts_ev = eval_phase(card)
     counts_fam, _ = family_phase(imgs, card, profiling)
     resize = resize_phase(card)
+    data_parallel, counts_dp = dp_phase(card)
+    serving_mesh, counts_mesh = mesh_phase(imgs, card)
 
     print("training " + json.dumps(train))
     print("serving " + json.dumps(serving))
     print("evaluation " + json.dumps(evaluation))
     print("resize_range " + json.dumps(resize))
+    print("data_parallel " + json.dumps(data_parallel))
+    print("serving_mesh " + json.dumps(serving_mesh))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
@@ -4808,7 +5484,7 @@ def main() -> None:
                 **counts_m, **counts_t, **counts_e,
                 "flagship device encoder": counts_f, **counts_cb,
                 **counts_gw, **counts_tr, **counts_sv, **counts_ev,
-                **counts_fam}
+                **counts_fam, **counts_dp, **counts_mesh}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",

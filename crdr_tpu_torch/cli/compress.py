@@ -31,6 +31,7 @@ from typing import Dict, List
 import numpy as np
 
 from ..models import build_comp_model
+from ..models.codec import serving_mesh
 from ..utils.codec_utils import load_byte_strings, save_byte_strings
 from ..utils.config import Config
 from ..utils.img_utils import imread, imwrite
@@ -76,7 +77,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "it is encoded)")
     p.add_argument("--serving_devices", type=int, default=None,
                    help="shard each serving batch over this many devices "
-                        "(not ported yet)")
+                        "(cuda:0 .. N-1, or the CPU N times with -d cpu; "
+                        "one model replica a device)")
     args = p.parse_args(argv)
     args.config_path = args.config_path or args.config_path_flag
     if not args.config_path:
@@ -85,12 +87,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def _build_model(args: argparse.Namespace):
-    if args.serving_devices:
-        raise NotImplementedError(
-            "--serving_devices (a batch sharded over several GPUs) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 9)")
     cfg = Config.from_file(args.config_path)
     cfg["is_train"] = False
+    if args.serving_devices:
+        cfg["serving_devices"] = args.serving_devices
+    serving_mesh(cfg, args.device)  # fails before the model is built
     if args.shape_bucket:
         cfg["shape_bucket"] = args.shape_bucket
     if args.wire:

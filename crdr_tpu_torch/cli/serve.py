@@ -15,6 +15,12 @@ Concurrent requests with the same image size coalesce into one batched
 dispatch; each image keeps its own q / beta.  Every kernel library the
 model's path launches is built before the server listens.  A JPEG body gets
 a 400 (the port reads PNG only).
+
+Several devices: the config's ``serving_devices`` / ``serving_partition``
+(``models/codec.py``) serve each dispatch over a mesh, one model replica a
+device: ``cuda:0 .. N-1`` (fewer cards raise before the model is built),
+or the devices ``--mesh_devices`` lists (``cuda:0,cuda:0``: two replicas
+on one card).  ``--aot_package`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import argparse
 import logging
 
 from ..models import build_comp_model
+from ..models.codec import serving_mesh
 from ..runtime.cache import warm_kernel_cache
 from ..utils.config import Config
 
@@ -49,6 +56,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="AOT serving package (not ported yet: refused)")
     ap.add_argument("-d", "--device", type=str, default="cuda",
                     help="torch device (default cuda; cpu on request)")
+    ap.add_argument("--mesh_devices", type=str, default=None,
+                    help="the serving mesh's devices, comma-separated "
+                         "(with the config's serving_devices > 1)")
     return ap.parse_args(argv)
 
 
@@ -63,16 +73,17 @@ def build_model(args: argparse.Namespace):
             "(ROADMAP.md, Queue 1 item 9)")
     cfg = Config.from_file(args.config)
     cfg["is_train"] = False
+    mesh = args.mesh_devices.split(",") if args.mesh_devices else None
+    serving_mesh(cfg, args.device, mesh)  # fails before the model is built
     model = build_comp_model(cfg, device=args.device)
     if args.model_path:
         model.load_learned_weight(args.model_path)
     else:
         logger.warning("no --model_path: serving the seeded random init "
                        "(demo only)")
-    model.codec_setup()
     if args.wire:
         model.opt["wire_format"] = args.wire
-        model.codec_setup()
+    model.codec_setup(mesh)
     built = warm_kernel_cache(model)
     logger.info(f"kernel libraries ready: {sorted(built)}")
     return model

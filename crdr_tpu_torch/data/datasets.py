@@ -65,6 +65,14 @@ class BaseImageDataset:
             self._draws[index] = k + 1
         return np.random.default_rng([self._seed, index, k])
 
+    def skip(self, index: int) -> None:
+        """Count a draw of ``index`` that another rank of a data-parallel
+        run loads, so the next draw of it here is the one a single process
+        would make."""
+        if self._seed is not None and self.is_train:
+            with self._lock:
+                self._draws[index] = self._draws.get(index, 0) + 1
+
     def __len__(self) -> int:
         return len(self.img_path_list) * self.repeat
 

@@ -4,6 +4,12 @@ seed): ``num_workers`` threads load and transform samples, up to
 ``prefetch`` whole batches stay in flight, and batches are handed out in a
 deterministic order while the card runs the previous step.  A sample that
 fails to load raises in the consumer.
+
+With ``shard=(rank, world)`` (one rank of a data-parallel run) the loader
+walks the global batches of the single-process order and loads rank
+``rank``'s block of rows of each, ``batch_size / world`` images; the rows
+of the other ranks are only counted as drawn (``dataset.skip``), so every
+image's random crop and flip is the one the single process draws.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ import queue
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -20,7 +26,12 @@ import numpy as np
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 8,
-                 prefetch: int = 4, seed: Optional[int] = None):
+                 prefetch: int = 4, seed: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)):
+        self.rank, self.world = shard
+        if batch_size % self.world:
+            raise ValueError(f"batch_size {batch_size} must be divisible by "
+                             f"the {self.world} ranks of the run")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -43,6 +54,14 @@ class DataLoader:
             batch = order[start:start + self.batch_size]
             if self.drop_last and len(batch) < self.batch_size:
                 return
+            if self.world > 1:
+                k = len(batch) // self.world
+                own = batch[self.rank * k:(self.rank + 1) * k]
+                skip = getattr(self.dataset, "skip", None)
+                if skip is not None:
+                    for i in np.setdiff1d(batch, own):
+                        skip(int(i))
+                batch = own
             yield batch
 
     @staticmethod

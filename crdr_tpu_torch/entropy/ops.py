@@ -53,14 +53,26 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
 class UniformNoise:
     """The training forward's noise source: U(-0.5, 0.5) in ``like``'s
     dtype, drawn on ``like``'s device from ``generator`` (which must live on
-    that device).  ``name`` is not used: the draws come in call order."""
+    that device).  ``name`` is not used: the draws come in call order.
 
-    def __init__(self, generator: torch.Generator):
+    As rank ``rank`` of ``world`` (data parallel, ``like`` holding this
+    rank's block of a global batch) it draws the global batch's noise and
+    keeps its block: the values are those one process would draw for the
+    same rows, and every rank's generator stays in the same state."""
+
+    def __init__(self, generator: torch.Generator, rank: int = 0,
+                 world: int = 1):
         self.generator = generator
+        self.rank, self.world = rank, world
 
     def __call__(self, name: str, like: torch.Tensor) -> torch.Tensor:
-        return torch.rand(like.shape, generator=self.generator,
-                          device=like.device, dtype=like.dtype) - 0.5
+        shape = (like.shape[0] * self.world,) + tuple(like.shape[1:])
+        u = torch.rand(shape, generator=self.generator, device=like.device,
+                       dtype=like.dtype)
+        if self.world > 1:
+            b = like.shape[0]
+            u = u[self.rank * b:(self.rank + 1) * b]
+        return u - 0.5
 
 
 def standardized_cumulative(x: torch.Tensor) -> torch.Tensor:

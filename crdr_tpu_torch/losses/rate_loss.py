@@ -6,6 +6,10 @@ on the device (``torch.where`` on the detached mean qbpp), so a step makes
 no host sync.  The per-rate-level lists are indexed on the host with the
 step's ``rate_ind`` (a number, sampled on the host), and the schedules are
 resolved on the host from the iteration (``schedule_mults``), as in JAX.
+The switch compares the mean qbpp of the *global* batch: in a
+data-parallel run the trainer passes ``batch_mean``, the mean over the
+ranks (``parallel/distributed.py::batch_mean``), so every rank picks the
+same lambda, the one JAX picks over the whole batch.
 """
 
 from __future__ import annotations
@@ -34,8 +38,9 @@ def get_scheduled_params(param: float, schedule: Dict, step: int) -> float:
     return param * vals[idx]
 
 
-def _switch(bpp, qbpp, la, lb, tgt):
-    weight = torch.where(torch.mean(qbpp.detach()) > tgt, la, lb)
+def _switch(bpp, qbpp, la, lb, tgt, batch_mean=None):
+    mean_q = (batch_mean or torch.mean)(qbpp.detach())
+    weight = torch.where(mean_q > tgt, la, lb)
     return weight * torch.mean(bpp)
 
 
@@ -76,10 +81,10 @@ class HificRateLoss:
         return lm, tm
 
     def __call__(self, bpp, qbpp, lambda_mult=1.0, target_mult=1.0,
-                 **kwargs):
+                 batch_mean=None, **kwargs):
         return _switch(bpp, qbpp, self.lambda_A * lambda_mult,
                        self.lambda_B * lambda_mult,
-                       self.target_rate * target_mult)
+                       self.target_rate * target_mult, batch_mean)
 
 
 @LOSS_REGISTRY.register()
@@ -111,8 +116,8 @@ class HificVariableRateLoss(HificRateLoss):
         self.target_rate_schedule = target_rate_schedule
 
     def __call__(self, bpp, qbpp, rate_ind, lambda_mult=1.0,
-                 target_mult=1.0, **kwargs):
+                 target_mult=1.0, batch_mean=None, **kwargs):
         i = int(rate_ind)
         return _switch(bpp, qbpp, self.lambda_A[i] * lambda_mult,
                        self.lambda_B[i] * lambda_mult,
-                       self.target_rate[i] * target_mult)
+                       self.target_rate[i] * target_mult, batch_mean)

@@ -65,6 +65,39 @@ default, as in JAX) or by the host C++ lane coder (``host``); the bytes are
 the same.  ``fused_decode_loop`` is accepted and changes nothing: in JAX it
 merges the same per-slice programs into one ``lax.scan`` with
 byte-identical streams, and eager PyTorch runs one loop either way.
+
+Several devices (``serving_devices: N``, or ``CRDR_SERVING_DEVICES``, over
+the mesh of ``parallel/mesh.py``): ``codec_setup`` builds one replica of
+the model per device, each with its own tables and packed (K1) weights,
+the first being the model itself.  JAX partitions each program over the
+mesh; here each replica runs its share from its own worker thread:
+
+* ``serving_partition: batch``: ``compress_batch`` / ``decompress_batch``
+  split the batch into N equal blocks, one per replica, and join the
+  results in order.  A batch that does not divide runs whole on the first
+  device, as in JAX.  Each block goes through the same fixed-batch
+  transforms and per-image chain as one device would run, so the streams
+  are byte-identical to one device's;
+* ``serving_partition: spatial``: one image's height over the mesh, for
+  the side-local transforms only (``parallel/spatial.py``'s overlap tiles:
+  the analysis, and the synthesis, which hold the full-resolution
+  activations).  The hyper pair, the entropy chain (K1) and the entropy
+  coding run whole on the first device, so encode and decode compute the
+  entropy parameters from the same unsplit function of ``y_hat``: a stream
+  of either setting decodes on the other.  Heights whose latent rows do
+  not divide by N run whole.  A transform with a global operation
+  (``InstanceNorm2D``, HiFiC with ``channel_norm: False``) raises.
+
+The mesh is ``cuda:0 .. N-1`` on the card (fewer cards raise), N times the
+CPU on the CPU, or the list ``codec_setup(mesh_devices=...)`` gives (two
+replicas may share one card).  The replicas' worker threads run while the
+caller holds ``codec_numerics``.  The TF32 flags are process-wide, and an
+operation reads them when it is launched, so a worker launches only inside
+a precision section (``_PrecisionSections``): one lock, the flags set to
+the section's own precision, the chain's around the whole call and the
+transforms' nested in it.  The sections let go of the lock for host work
+(the rANS coders, the unpacking, the waits for the device), where another
+replica launches meanwhile.
 """
 
 from __future__ import annotations
@@ -89,6 +122,8 @@ from ..ops.cb_uniform import (cb_phase_a, cb_phase_b, cb_reconstruct_last,
                               pack_cb_weights)
 from ..ops.charm_uniform import (kernel_stacks, pack_charm_weights,
                                  uniform_decode_step, uniform_reconstruct_last)
+from ..parallel.mesh import make_mesh, shard_rows
+from ..parallel.spatial import grid_margin, join_rows, split_rows, tile_plan
 from ..subnet.context_model.checkerboard import anchor_mask
 from ..utils.codec_utils import HeaderHandler, MultiRateHeaderHandler
 from ..utils.img_utils import pad_image, uint8_to_tensor
@@ -167,16 +202,70 @@ def codec_numerics(tf32: bool = False):
              b.cudnn.deterministic, b.cudnn.benchmark) = saved
 
 
-@contextlib.contextmanager
-def _tf32(allowed: bool):
-    """TF32 for convolutions and matmuls inside the block (restored on exit)."""
-    b = torch.backends
-    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
-    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = allowed
-    try:
-        yield
-    finally:
-        b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = saved
+class _PrecisionSections:
+    """The TF32 flags of codec work launched from several threads (module
+    doc).  ``hold(tf32)``: inside the block this thread holds the one lock
+    and the flags are ``tf32`` (a nested block sets its own and restores
+    them on exit).  ``release()``: host work inside a held block; other
+    threads may launch meanwhile, and on exit this thread takes the lock
+    again and sets its block's flags back.  Outside any held block
+    ``release`` does nothing."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def _blocks(self) -> List:
+        """This thread's open blocks, innermost last: a hold's flags, or
+        None for a release."""
+        if not hasattr(self._local, "blocks"):
+            self._local.blocks = []
+        return self._local.blocks
+
+    @staticmethod
+    def _owns(blocks: List) -> bool:
+        return bool(blocks) and blocks[-1] is not None
+
+    @staticmethod
+    def _set(tf32: bool) -> None:
+        b = torch.backends
+        b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = tf32
+
+    @contextlib.contextmanager
+    def hold(self, tf32: bool):
+        blocks = self._blocks()
+        if not self._owns(blocks):
+            self._lock.acquire()
+        b = torch.backends
+        saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32)
+        blocks.append(bool(tf32))
+        self._set(blocks[-1])
+        try:
+            yield
+        finally:
+            blocks.pop()
+            b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = saved
+            if not self._owns(blocks):
+                self._lock.release()
+
+    @contextlib.contextmanager
+    def release(self):
+        blocks = self._blocks()
+        if not self._owns(blocks):
+            yield
+            return
+        self._lock.release()
+        blocks.append(None)
+        try:
+            yield
+        finally:
+            blocks.pop()
+            self._lock.acquire()
+            self._set(blocks[-1])
+
+
+_SECTIONS = _PrecisionSections()
+_tf32, _host = _SECTIONS.hold, _SECTIONS.release
 
 
 def device_uint8_to_tensor(x: Tensor) -> Tensor:
@@ -186,6 +275,56 @@ def device_uint8_to_tensor(x: Tensor) -> Tensor:
     and a stream would then depend on whether its image came as uint8."""
     return (x.to(torch.float32) / torch.full((), 255.0, device=x.device)
             - 0.5) * 2.0
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card)."""
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return norm(a) == norm(b)
+
+
+def _on_device(device: torch.device):
+    """The current CUDA device inside the block (kernels launch on its
+    stream); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def serving_mesh(opt, device, mesh_devices=None):
+    """The serving mesh of the options (module doc): None for one device,
+    else its devices, ``mesh_devices`` when given (the first must be
+    ``device``), N GPUs on the card (fewer raise) or the CPU N times."""
+    n = int(os.environ.get("CRDR_SERVING_DEVICES",
+                           opt.get("serving_devices", 1)) or 1)
+    partition = opt.get("serving_partition", "batch")
+    if partition not in ("batch", "spatial"):
+        raise ValueError(f"serving_partition {partition!r}: batch or "
+                         "spatial")
+    if n <= 1:
+        return None
+    device = torch.device(device)
+    if mesh_devices is None and device.type == "cpu":
+        mesh_devices = [device] * n
+    try:
+        mesh = make_mesh(n, mesh_devices)
+    except RuntimeError as e:
+        raise RuntimeError(f"serving_devices={n} (serving_partition: "
+                           f"{partition}): {e}") from e
+    if not _same_device(mesh[0], device):
+        raise ValueError(f"the serving mesh {mesh} must start with the "
+                         f"model's device {device}")
+    return mesh
+
+
+def _rows_of(value, rows: slice):
+    """A rate_ind / beta argument for the images ``rows``: itself when it is
+    None or one value, else its rows."""
+    if value is None or np.size(value) == 1:
+        return value
+    return np.asarray(value).reshape(-1)[rows]
 
 
 def _nhwc(t: Tensor) -> Tensor:
@@ -199,24 +338,62 @@ def _nchw(t: Tensor) -> Tensor:
 class CodecMixin:
     # ---------------- setup ----------------------------------------------------
 
-    def codec_setup(self) -> None:
+    def codec_setup(self, mesh_devices=None) -> None:
         """Host CDF tables, device scale table, packed Charm / checkerboard
         weights (and their bf16 kernel copies), bf16 transform copies.  Run
-        again after loading weights.  The JAX package's multi-device serving
-        (``serving_devices`` > 1, ``serving_partition: spatial``) is not
-        ported and raises."""
-        if int(self.opt.get("serving_devices", 1) or 1) > 1:
-            raise NotImplementedError(
-                "serving_devices > 1 (a batch sharded over several GPUs) is "
-                "not ported (ROADMAP.md, Queue 1 item 9)")
-        partition = self.opt.get("serving_partition", "batch")
-        if partition not in ("batch", "spatial"):
-            raise ValueError(f"serving_partition {partition!r}: batch or "
-                             "spatial")
-        if partition == "spatial":
-            raise NotImplementedError(
-                "serving_partition: spatial (one image split over several "
-                "GPUs) is not ported (ROADMAP.md, Queue 1 item 9)")
+        again after loading weights.  With ``serving_devices`` (or
+        ``CRDR_SERVING_DEVICES``) N > 1, the serving mesh (module doc): its
+        devices are ``mesh_devices`` when given (N of them, the first the
+        model's device; kept for the next setup), else N GPUs, or the CPU N
+        times for a model on the CPU; one replica a device."""
+        if mesh_devices is None:  # the list of an earlier setup, if any
+            mesh_devices = getattr(self, "_mesh_devices", None)
+        self._mesh_devices = mesh_devices
+        mesh = serving_mesh(self.opt, self.device, mesh_devices)
+        self._setup_tables()
+        if getattr(self, "_pool", None) is not None:
+            self._pool.shutdown()
+        self._mesh, self._replicas, self._pool = mesh, [self], None
+        self._spatial_margins = None
+        if mesh is not None:
+            self._replicas += [self._replica(d) for d in mesh[1:]]
+            if self.opt.get("serving_partition", "batch") == "spatial":
+                self._spatial_margins = self._transform_margins()
+            # the replicas' worker threads, kept between calls (a thread's
+            # first launches create its cuDNN and cuBLAS handles)
+            self._pool = ThreadPoolExecutor(len(mesh),
+                                            thread_name_prefix="crdr-mesh")
+
+    def _replica(self, device: torch.device):
+        """A copy of the model on ``device``, for a serving mesh: its own net
+        and codec state, sharing the options."""
+        rep = copy.copy(self)
+        rep.device = device
+        rep.net = copy.deepcopy(self.net).to(device)
+        rep._setup_tables()
+        rep._mesh, rep._replicas, rep._spatial_margins = None, [rep], None
+        rep._pool = None
+        return rep
+
+    def _transform_margins(self) -> Tuple[int, int]:
+        """The overlap margins, in latent rows, of the analysis and the
+        synthesis (``parallel/spatial.py::grid_margin``, on CPU copies)."""
+        net = self.net
+        enc, dec = (copy.deepcopy(m).cpu().float()
+                    for m in (net.encoder, net.decoder))
+        one = torch.ones(1)
+        ri = one if self.use_rate else None
+        bt = one if self.use_beta else None
+        with torch.no_grad():
+            # 4 latent columns: reflect padding needs more than its width
+            m_enc = grid_margin(enc, lambda x: net.encode(x, ri, enc),
+                                self.y_stride, 1, 3, 4 * self.y_stride)
+            m_dec = grid_margin(dec, lambda y: net.decode(y, ri, bt, dec),
+                                1, self.y_stride, self.yC, 4)
+        return m_enc, m_dec
+
+    def _setup_tables(self) -> None:
+        """The codec state of the model's own device (``codec_setup``)."""
         self.wire_format = self.opt.get("wire_format", "compressai")
         if self.wire_format not in ("compressai", "device"):
             raise ValueError(f"wire_format {self.wire_format!r}: compressai "
@@ -324,15 +501,80 @@ class CodecMixin:
     def _analysis(self, x: Tensor, rate_ind) -> Tuple[Tensor, Tensor]:
         """Analysis + hyper-analysis of NCHW ``x`` at the fixed batch
         (``_fixed_batches``).  ``rate_ind`` is None, [1] (passed to every
-        call as it is) or one per image."""
+        call as it is) or one per image.  On a spatial mesh the analysis
+        runs in overlap tiles, one a replica, and the hyper-analysis whole
+        (module doc)."""
+        plan = self._spatial_plan(x.shape[2] // self.y_stride, 0)
+        if plan is None:
+            per_image = rate_ind is not None and rate_ind.numel() > 1
+
+            def call(xi, ri):
+                return self.net.encode_latents(
+                    xi, rate_ind if ri is None else ri, self._enc_t,
+                    self._henc_t)
+
+            with _tf32(self._transform_tf32):
+                return _fixed_batches(call, x, rate_ind if per_image else None)
+        y = self._spatial_map(x, plan, self.y_stride, 1, lambda rep, xt: (
+            rep._encode_y(xt, None if rate_ind is None
+                          else rate_ind.to(rep.device))))
+        with _tf32(self._transform_tf32):
+            z, = _fixed_batches(lambda yi: (self._henc_t(yi),), y)
+        return y, z
+
+    def _encode_y(self, x: Tensor, rate_ind) -> Tensor:
+        """The analysis alone at the fixed batch (a spatial tile)."""
         per_image = rate_ind is not None and rate_ind.numel() > 1
 
         def call(xi, ri):
-            return self.net.encode_latents(xi, rate_ind if ri is None else ri,
-                                           self._enc_t, self._henc_t)
+            return (self.net.encode(xi, rate_ind if ri is None else ri,
+                                    self._enc_t),)
 
         with _tf32(self._transform_tf32):
-            return _fixed_batches(call, x, rate_ind if per_image else None)
+            y, = _fixed_batches(call, x, rate_ind if per_image else None)
+        return y
+
+    # ---------------- the serving mesh ---------------------------------------
+
+    def _batch_shards(self, n: int):
+        """The row block of each replica for a batch of ``n`` on a batch
+        mesh; None without one or when ``n`` does not divide."""
+        if self._mesh is None or self._spatial_margins is not None:
+            return None
+        return shard_rows(n, self._mesh)
+
+    def _spatial_plan(self, grid_rows: int, which: int):
+        """The tiles of a spatial mesh for ``grid_rows`` latent rows
+        (``which``: 0 the analysis, 1 the synthesis); None without one or
+        when the rows do not divide."""
+        if self._spatial_margins is None:
+            return None
+        return tile_plan(grid_rows, len(self._mesh),
+                         self._spatial_margins[which])
+
+    def _on_replicas(self, fn, items: List) -> List:
+        """``fn(replica i, items[i])`` for each replica, from the mesh's
+        worker threads, without gradients, on its own device, inside a
+        precision section at the chain's precision (module doc); the
+        results in order.  A failure on any replica raises here."""
+        def run(i):
+            rep = self._replicas[i]
+            with torch.no_grad(), _on_device(rep.device), \
+                    _tf32(rep._chain_tf32):
+                return fn(rep, items[i])
+
+        futures = [self._pool.submit(run, i) for i in range(len(items))]
+        return [f.result() for f in futures]
+
+    def _spatial_map(self, x: Tensor, plan, in_rows: int, out_rows: int,
+                     fn) -> Tensor:
+        """``fn(replica, tile)`` over the overlap tiles of NCHW ``x`` (each
+        moved to its replica's device), the own rows joined on the model's
+        device."""
+        tiles = split_rows(x, plan, in_rows)
+        outs = self._on_replicas(lambda rep, t: fn(rep, t.to(rep.device)),
+                                 tiles)
+        return join_rows(outs, plan, out_rows, self.device)
 
     def _hyper_decode(self, z_sym: Tensor) -> Tuple[Tensor, Tensor]:
         """z dequantize + hyper-decode, one image at a time (module doc).
@@ -531,13 +773,37 @@ class CodecMixin:
         (``_fixed_batches``); ``rate_ind`` / ``beta`` (None where the model
         has none, else [1] or one per image) reach each call as one row per
         image, so the beta MLP and its 1x1 projections run at one row count
-        too (module doc).  Returns the image NHWC: f32 in [-1, 1], or uint8
-        with codec_uint8_io."""
+        too (module doc).  On a spatial mesh it runs in overlap tiles, one
+        a replica.  Returns the image NHWC: f32 in [-1, 1], or uint8 with
+        codec_uint8_io."""
         yc = _nchw(y_hat)
-        n, tdt = yc.shape[0], self.transform_dtype
+        n = yc.shape[0]
         conds = [None if t is None else
                  t.reshape(-1).expand(n).contiguous()
                  for t in (rate_ind, beta)]
+        plan = self._spatial_plan(yc.shape[2], 1)
+        if plan is None:
+            img = self._synthesis_rows(yc, conds)
+        else:
+            img = self._spatial_map(
+                yc, plan, 1, self.y_stride, lambda rep, yt: (
+                    rep._synthesis_rows(yt, [None if c is None else
+                                             c.to(rep.device)
+                                             for c in conds])))
+        img = img.float()
+        lo = 0.0 if self.convert_img_range else -1.0
+        img = _nhwc(torch.clamp(img, lo, 1.0))
+        if self.codec_uint8_io:
+            if self.convert_img_range:
+                img = img * 2.0 - 1.0
+            img = torch.clamp(torch.round((img + 1.0) * 127.5), 0, 255) \
+                .to(torch.uint8)
+        return img
+
+    def _synthesis_rows(self, yc: Tensor, conds) -> Tensor:
+        """The decoder on NCHW ``yc`` at the fixed batch, in the transform
+        dtype (one spatial tile, or the whole latent)."""
+        tdt = self.transform_dtype
         if tdt is not None:
             yc = yc.to(tdt)
             conds = [None if t is None else t.to(tdt) for t in conds]
@@ -547,14 +813,6 @@ class CodecMixin:
 
         with _tf32(self._transform_tf32):
             img, = _fixed_batches(call, yc, *conds)
-        img = img.float()
-        lo = 0.0 if self.convert_img_range else -1.0
-        img = _nhwc(torch.clamp(img, lo, 1.0))
-        if self.codec_uint8_io:
-            if self.convert_img_range:
-                img = img * 2.0 - 1.0
-            img = torch.clamp(torch.round((img + 1.0) * 127.5), 0, 255) \
-                .to(torch.uint8)
         return img
 
     # ---------------- compress ---------------------------------------------------
@@ -570,8 +828,9 @@ class CodecMixin:
 
     def compress_batch(self, real_images, rate_ind=None) -> List[Dict]:
         """Batched encode: one device pass for N same-size images, per-image
-        host rANS.  Returns one dict per image with ``string_list = [header,
-        z_str, y_str]``."""
+        host rANS (on a batch mesh, one block of the batch a replica).
+        Returns one dict per image with ``string_list = [header, z_str,
+        y_str]``."""
         if self.codec_z is None:
             raise RuntimeError("call codec_setup() first")
         if self.use_rate and rate_ind is None:
@@ -584,9 +843,15 @@ class CodecMixin:
             if real_images.dtype == np.uint8:
                 real_images = uint8_to_tensor(real_images)
             x = self.data_preprocess(real_images)
+        x = torch.from_numpy(np.ascontiguousarray(x))
         with codec_numerics(self._chain_tf32):
-            x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            return self._compress(x, N, H, W, rate_ind)
+            shards = self._batch_shards(N)
+            if shards is None:
+                return self._compress(x.to(self.device), N, H, W, rate_ind)
+            parts = self._on_replicas(lambda rep, sl: rep._compress(
+                x[sl].to(rep.device), sl.stop - sl.start, H, W,
+                _rows_of(rate_ind, sl)), shards)
+            return [r for part in parts for r in part]
 
     def _compress(self, x: Tensor, N: int, H: int, W: int, rate_ind):
         """Encode by replay of the decoder's entropy chain (module doc),
@@ -608,10 +873,11 @@ class CodecMixin:
         meta = torch.stack([pred_y_bits, pred_z_bits, maxabs], 1)
         code = self._lane_wire if self.wire_format == "device" \
             else self._compressai_wire
-        y_str, z_str, meta = code(symbols, indexes, z_sym, meta, timing, t0)
-
-        y_hat_np = y_hat.cpu().numpy()
-        z_hat_np = z_hat.cpu().numpy()
+        with _host():  # the wires launch no precision-sensitive operation
+            y_str, z_str, meta = code(symbols, indexes, z_sym, meta, timing,
+                                      t0)
+            y_hat_np = y_hat.cpu().numpy()
+            z_hat_np = z_hat.cpu().numpy()
         if self.use_rate:
             rates = np.broadcast_to(
                 np.asarray(rate_ind, np.float32).reshape(-1), (N,))
@@ -679,8 +945,9 @@ class CodecMixin:
 
     def decompress_batch(self, string_lists: List[List[bytes]], beta=0.0):
         """Batched decode: N same-size bitstreams through one set of device
-        steps; per-image host rANS.  ``beta`` is a scalar or one per image.
-        Returns (fake [N, H, W, 3], z_hat, y_hat)."""
+        steps (on a batch mesh, one block of the batch a replica); per-image
+        host rANS.  ``beta`` is a scalar or one per image.  Returns (fake
+        [N, H, W, 3], z_hat, y_hat)."""
         if self.codec_z is None:
             raise RuntimeError("call codec_setup() first")
         for sl in string_lists:
@@ -689,10 +956,37 @@ class CodecMixin:
         H, W = heads[0]["img_size"]
         if any(tuple(hd["img_size"]) != (H, W) for hd in heads[1:]):
             raise ValueError("decompress_batch requires equal image sizes")
-        n = len(string_lists)
         padH = math.ceil(H / self.stride) * self.stride
         padW = math.ceil(W / self.stride) * self.stride
         zH, zW = padH // self.model_stride, padW // self.model_stride
+        timing: Dict[str, float] = {}
+        with codec_numerics(self._chain_tf32):
+            shards = self._batch_shards(len(string_lists))
+            if shards is None:
+                fake, z_hat, y_hat = self._decode_on_device(
+                    string_lists, heads, beta, zH, zW, timing)
+            else:
+                parts = self._on_replicas(lambda rep, sl: (
+                    rep._decode_on_device(string_lists[sl], heads[sl],
+                                          _rows_of(beta, sl), zH, zW,
+                                          timing if sl.start == 0 else {})),
+                    shards)
+                fake, z_hat, y_hat = (np.concatenate(p) for p in zip(*parts))
+        t0 = time.perf_counter()
+        if fake.dtype == np.uint8:  # codec_uint8_io: the device sent uint8
+            fake = uint8_to_tensor(fake)
+            if self.convert_img_range:
+                fake = (fake + 1.0) / 2.0
+        fake = self.data_postprocess(fake, (H, W))
+        timing["postprocess_s"] = time.perf_counter() - t0
+        self.last_decode_timing = timing
+        return fake, z_hat, y_hat
+
+    def _decode_on_device(self, string_lists, heads, beta, zH: int, zW: int,
+                          timing: Dict[str, float]):
+        """The device part of ``decompress_batch`` on this model's device:
+        (image NHWC as the device gave it, z_hat, y_hat), numpy."""
+        n = len(string_lists)
         if self._is_checkerboard:
             chain, decode = self._cb_device_chain, self._decompress_cb
         elif self.use_charm:
@@ -702,31 +996,21 @@ class CodecMixin:
                              self._decompress_generic)
         if self.wire_format == "device":
             decode = functools.partial(self._device_decode, chain)
-        timing: Dict[str, float] = {}
-        with codec_numerics(self._chain_tf32):
-            ri = bt = None
-            if self.use_rate:
-                rates = np.asarray([hd["rate_ind"] for hd in heads],
-                                   np.float32)
-                ri = self._cond_arg(
-                    rates[:1] if np.all(rates == rates[0]) else rates, n)
-            if self.use_beta:
-                bt = self._cond_arg(beta, n)
-            fake, z_hat, y_hat = decode(
-                [sl[1] for sl in string_lists], [sl[2] for sl in string_lists],
-                zH, zW, ri, bt, timing)
-            t0 = time.perf_counter()
+        ri = bt = None
+        if self.use_rate:
+            rates = np.asarray([hd["rate_ind"] for hd in heads], np.float32)
+            ri = self._cond_arg(
+                rates[:1] if np.all(rates == rates[0]) else rates, n)
+        if self.use_beta:
+            bt = self._cond_arg(beta, n)
+        fake, z_hat, y_hat = decode(
+            [sl[1] for sl in string_lists], [sl[2] for sl in string_lists],
+            zH, zW, ri, bt, timing)
+        t0 = time.perf_counter()
+        with _host():
             fake = fake.cpu().numpy()  # waits for the device's last steps
             timing["fetch_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if fake.dtype == np.uint8:  # codec_uint8_io: the device sent uint8
-            fake = uint8_to_tensor(fake)
-            if self.convert_img_range:
-                fake = (fake + 1.0) / 2.0
-        fake = self.data_postprocess(fake, (H, W))
-        timing["postprocess_s"] = time.perf_counter() - t0
-        self.last_decode_timing = timing
-        return fake, z_hat.cpu().numpy(), y_hat.cpu().numpy()
+            return fake, z_hat.cpu().numpy(), y_hat.cpu().numpy()
 
     def _decompress_charm(self, z_strs, y_strs, zH: int, zW: int, ri: Tensor,
                           bt: Tensor, timing: Dict[str, float]):
@@ -737,7 +1021,8 @@ class CodecMixin:
         from ..runtime import RansStreamDecoder
 
         t0 = time.perf_counter()
-        z_sym = self.codec_z.decompress(z_strs, (zH, zW))
+        with _host():
+            z_sym = self.codec_z.decompress(z_strs, (zH, zW))
         hm, hs, support, mu, _sigma, idx, z_hat = self.decode_begin(
             torch.from_numpy(z_sym).to(self.device))
         timing["decode_begin_s"] = time.perf_counter() - t0
@@ -749,10 +1034,12 @@ class CodecMixin:
         y_slices: List[Tensor] = []
         try:
             for i in range(self.num_slices):
-                idx_np = idx.cpu().numpy()  # [n, h, w, sc]
-                dec = np.stack(self._host_pmap(lambda j: decoders[j].decode(
-                    idx_np[j].transpose(2, 0, 1).reshape(-1),
-                    cy.quantized_cdf, cy.cdf_length, cy.offset), n))
+                with _host():
+                    idx_np = idx.cpu().numpy()  # [n, h, w, sc]
+                    dec = np.stack(self._host_pmap(
+                        lambda j: decoders[j].decode(
+                            idx_np[j].transpose(2, 0, 1).reshape(-1),
+                            cy.quantized_cdf, cy.cdf_length, cy.offset), n))
                 sym = torch.from_numpy(
                     dec.reshape(n, sc, h, w).transpose(0, 2, 3, 1)
                     .astype(np.float32)).to(self.device)
@@ -779,11 +1066,13 @@ class CodecMixin:
         from ..runtime import rans_decode_with_indexes
 
         t0 = time.perf_counter()
-        z_sym = self.codec_z.decompress(z_strs, (zH, zW))
+        with _host():
+            z_sym = self.codec_z.decompress(z_strs, (zH, zW))
         z_hat, mean, _scale, idx = self.generic_params(
             torch.from_numpy(z_sym).to(self.device))
         n, h, w, c = idx.shape
-        idx_np = idx.permute(0, 3, 1, 2).reshape(n, -1).cpu().numpy()
+        with _host():
+            idx_np = idx.permute(0, 3, 1, 2).reshape(n, -1).cpu().numpy()
         timing["z_hyper_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         cy = self.codec_y
@@ -800,9 +1089,11 @@ class CodecMixin:
 
     @staticmethod
     def _host_pmap(fn, n: int) -> List:
-        """Map ``fn`` over ``range(n)``, in threads when it helps: the C++
-        coders release the GIL."""
-        if n > 1 and (os.cpu_count() or 1) > 1:
-            with ThreadPoolExecutor(min(n, os.cpu_count() or 1)) as ex:
-                return list(ex.map(fn, range(n)))
-        return [fn(i) for i in range(n)]
+        """Map ``fn`` over ``range(n)``, in threads when it helps (the C++
+        coders release the GIL): host work, outside any precision
+        section."""
+        with _host():
+            if n > 1 and (os.cpu_count() or 1) > 1:
+                with ThreadPoolExecutor(min(n, os.cpu_count() or 1)) as ex:
+                    return list(ex.map(fn, range(n)))
+            return [fn(i) for i in range(n)]

@@ -58,6 +58,7 @@ from ..ops.lane_encode import lane_encode_rounds
 from ..runtime.lane_rans import (LANE_MAGIC, lane_encode, pack_lane_container,
                                  unpack_lane_container)
 from ..subnet.context_model.checkerboard import split_checkerboard
+from .codec import _host
 from .codec_common import _merge_np
 
 Tensor = torch.Tensor
@@ -430,7 +431,8 @@ class DeviceWireCodecMixin:
         z_hat, y_hat) on the device; the caller's fetch of the image is the
         decode's one blocking sync."""
         t0 = time.perf_counter()
-        z, y_lanes = self._device_wire_inputs(z_strs, y_strs, zh, zw)
+        with _host():
+            z, y_lanes = self._device_wire_inputs(z_strs, y_strs, zh, zw)
         timing["host_unpack_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         out = chain(z, y_lanes, zh, zw, ri, bt)
@@ -450,7 +452,8 @@ class DeviceWireCodecMixin:
         from ..runtime import RansStreamDecoder
 
         t0 = time.perf_counter()
-        z_sym = self.codec_z.decompress(z_strs, (zh, zw))
+        with _host():
+            z_sym = self.codec_z.decompress(z_strs, (zh, zw))
         hm, hs, support, sym_na, y_a, mu_c, z_hat = self.cb_begin(
             torch.from_numpy(z_sym).to(self.device))
         timing["z_hyper_s"] = time.perf_counter() - t0

@@ -34,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from ..utils.device import build_library, nvcc_command, package_path
+from ..utils.device import (build_library, count_launch, nvcc_command,
+                            package_path)
 
 Tensor = torch.Tensor
 
@@ -129,7 +130,7 @@ def _forward(x: Tensor, beta: Tensor, gamma: Tensor, inverse: bool) -> Tensor:
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gdn: kernel launch failed (cudaError {rc})")
-    gdn.launches += 1
+    count_launch(gdn)
     return out
 
 

@@ -36,7 +36,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import build_library, nvcc_command, package_path
+from ..utils.device import (build_library, count_launch, nvcc_command,
+                            package_path)
 from .device_rans import lane_decode_round_instep
 
 Tensor = torch.Tensor
@@ -263,7 +264,7 @@ def lane_decode_round(states: Tensor, ptrs: Tensor, words: Tensor,
         return lane_decode_round_instep(states, ptrs, words, idx, table.cdf,
                                         table.cdf_len, table.cdf_off, m)
     out = launch_round(states, ptrs, words, idx, table, m)
-    lane_decode_round.launches += 1
+    count_launch(lane_decode_round)
     return out
 
 

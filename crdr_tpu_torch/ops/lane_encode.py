@@ -30,7 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..utils.device import build_library, nvcc_command, package_path
+from ..utils.device import (build_library, count_launch, nvcc_command,
+                            package_path)
 from .device_rans import lane_encode_operands, lane_encode_scan, lane_fixups
 
 Tensor = torch.Tensor
@@ -106,7 +107,7 @@ def lane_encode_rounds(sym: Tensor, idx: Tensor, grid: Tensor, cdf: Tensor,
         words, lens = lane_encode_scan(low_g, freq_g)
     else:
         words, lens = launch_scan(low_g, freq_g)
-        lane_encode_rounds.launches += 1
+        count_launch(lane_encode_rounds)
     return (words, lens) + lane_fixups(sym, esc, fix_cap)
 
 

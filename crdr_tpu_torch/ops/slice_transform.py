@@ -17,7 +17,8 @@ output (the contract of ``_fused_kernel`` / ``slice_transform_reference``).
   wrapper passes it to the kernel, so every output's summation order is
   fixed by shape alone.
 * ``slice_transform_plain`` is the plain PyTorch version: bf16-rounded
-  operands, f32 convolutions (TF32 off), bf16 rounding after each ReLU.
+  operands, f32 convolutions (TF32 off; on a GPU im2col products,
+  ``_conv_nhwc``), bf16 rounding after each ReLU.
 
 The source note in the .cu file states the bound and the design.
 """
@@ -32,7 +33,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..utils.device import build_library, nvcc_command, package_path
+from ..utils.device import (build_library, count_launch, nvcc_command,
+                            package_path)
 
 _SRC = package_path("csrc", "slice_transform.cu")
 _lock = threading.Lock()
@@ -193,11 +195,23 @@ def _get_lib() -> ctypes.CDLL:
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                pad: int) -> torch.Tensor:
-    """NHWC x, HWIO w -> NHWC conv + bias (f32, per image: the result must
-    not depend on the batch size)."""
+    """NHWC x, HWIO w -> NHWC 'same' conv + bias (f32, per image: the
+    result must not depend on the batch size).  On a GPU it is an im2col
+    product (``unfold``, then one matmul an image; TF32 as the matmul flag
+    says), not cuDNN: cuDNN takes the first of its plans whose workspace it
+    can allocate, so on a large latent (past K1's gate, where a plan asked
+    for tens of GiB) the plan, and the bits of mu, followed the memory free
+    at the call, and a decoder could part from its encoder's replay."""
     wk = w.permute(3, 2, 0, 1)
-    outs = [F.conv2d(xi.permute(0, 3, 1, 2), wk, b, padding=pad)
-            for xi in x.split(1)]
+    if x.device.type != "cuda":
+        outs = [F.conv2d(xi.permute(0, 3, 1, 2), wk, b, padding=pad)
+                for xi in x.split(1)]
+        return torch.cat(outs).permute(0, 2, 3, 1)
+    _, h, wd, _ = x.shape
+    wm = wk.reshape(wk.shape[0], -1)  # unfold's (channel, kh, kw) order
+    outs = [torch.addmm(b[:, None], wm, F.unfold(
+        xi.permute(0, 3, 1, 2), w.shape[0], padding=pad)[0]).view(
+        1, -1, h, wd) for xi in x.split(1)]
     return torch.cat(outs).permute(0, 2, 3, 1)
 
 
@@ -210,11 +224,18 @@ def slice_transform_plain(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
     def conv(v, w, b, pad):
         return _conv_nhwc(v.to(bf).to(f32), w.to(bf).to(f32), b.to(f32), pad)
 
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                     deterministic=True, allow_tf32=False):
-        h = torch.relu(conv(x, w0, b0, 2)).to(bf)
-        h = torch.relu(conv(h, w2, b2, 2)).to(bf)
-        return conv(h, w4, b4, 1).contiguous()
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                         deterministic=True,
+                                         allow_tf32=False):
+            h = torch.relu(conv(x, w0, b0, 2)).to(bf)
+            h = torch.relu(conv(h, w2, b2, 2)).to(bf)
+            return conv(h, w4, b4, 1).contiguous()
+    finally:
+        matmul.allow_tf32 = saved
 
 
 def slice_transform(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
@@ -289,7 +310,7 @@ def _launch(x, w0, b0, w2, b2, w4, b4, idx: int,
         what = {-1: "the plan does not fit the call",
                 -2: "cuTensorMapEncodeTiled failed"}.get(rc, f"cudaError {rc}")
         raise RuntimeError(f"slice_transform: kernel launch failed ({what})")
-    slice_transform.launches += 1
+    count_launch(slice_transform)
     return out
 
 

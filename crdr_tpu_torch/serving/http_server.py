@@ -16,7 +16,8 @@ status codes and keep-alive handling.
 Where it departs from the JAX server: PNG is read and written by the port's
 own zlib codec (``utils/img_utils.py``), whose bytes are not PIL's (the
 pixels are); a JPEG body gets a 400 (the port has no JPEG decoder);
-``/healthz`` names the model's ``torch.device`` and the card.
+``/healthz`` names the model's ``torch.device`` (or its serving mesh's
+devices) and the card.
 
 Concurrent requests are coalesced into batched dispatches by
 :class:`crdr_tpu_torch.serving.MicroBatcher`: the HTTP layer is a thin
@@ -52,10 +53,12 @@ def _image_body(data: bytes):
 
 
 def _device_info(model) -> dict:
-    """``devices`` (JAX's field: here the model's ``torch.device``) and, on
-    a GPU, ``card``: the card's name."""
+    """``devices`` (JAX's field: here the model's ``torch.device``, or the
+    devices of its serving mesh) and, on a GPU, ``card``: the card's
+    name."""
     dev = torch.device(getattr(model, "device", "cpu"))
-    info = {"devices": [str(dev)]}
+    mesh = getattr(model, "_mesh", None) or [dev]
+    info = {"devices": [str(d) for d in mesh]}
     if dev.type == "cuda":
         info["card"] = torch.cuda.get_device_name(dev)
     return info

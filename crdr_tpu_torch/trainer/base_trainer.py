@@ -18,8 +18,28 @@ analysis and hyper-analysis run in bf16 over f32 weights, and from the
 entropy models on, where bf16 meets an f32 tensor, the computation is f32
 (the JAX package's promotion rules); the losses are f32.
 
-Left out, as ROADMAP.md says: ``use_wandb``, and several devices
-(``n_devices``, ``distributed``).
+Several devices: data parallel, one process (rank) a device, joined in a
+``torch.distributed`` group (``parallel/distributed.py``; ``python -m
+crdr_tpu_torch.cli.train --n_devices N`` starts the ranks, ``--distributed``
+joins a configured group).  JAX's step is one SPMD program over the global
+batch; here each rank runs the step on its block of rows and the ranks
+agree through collectives, so the trajectory is the single process's:
+
+* each rank loads its rows of each global batch in the single-process
+  order (``DataLoader(shard=...)``), draws the global batch's noise from
+  the shared generator and keeps its rows (``UniformNoise(rank, world)``),
+  and samples ``rate_ind`` / ``beta`` from the same host sequence;
+* every optimizer's flat gradient buffer is averaged over the ranks, one
+  all-reduce a step, before the clip and the update; the parameters start
+  from rank 0's (a broadcast);
+* the statistics JAX takes over the global batch are global: the rate
+  loss's switch, the anomaly skip (every rank skips together), the logs;
+* rank 0 alone writes the checkpoints (the single-process format: a
+  checkpoint of N ranks resumes in one process and the reverse), the CSV
+  logs and the validation.
+
+``batch_size`` must divide by the ranks.  ``use_wandb`` is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -35,6 +55,7 @@ from ..data import DataLoader, build_dataset, cycle
 from ..entropy import UniformNoise
 from ..models import build_comp_model
 from ..models.codec import device_uint8_to_tensor
+from ..parallel import distributed as dist
 from ..utils.device import resolve_device
 from ..utils.logger import (AvgMeter, CSVLogger, bolded_log, get_root_logger,
                             log_dict_items)
@@ -46,14 +67,20 @@ Tensor = torch.Tensor
 
 
 class BaseTrainer:
+    micro_batches = 1  # the RD trainer's blocks a step (rd_trainer.py)
+
     def __init__(self, opt, device=None):
         self.opt = opt
-        for key in ("use_wandb", "distributed"):
-            if opt.get(key):
-                raise NotImplementedError(f"{key} is not ported")
-        if int(opt.get("n_devices", 0) or 0) > 1:
-            raise NotImplementedError("training on several devices is not "
-                                      "ported (ROADMAP.md, Queue 1 item 9)")
+        if opt.get("use_wandb"):
+            raise NotImplementedError("use_wandb is not ported")
+        self.rank, self.world = self.data_parallel(opt)
+        # collectives whenever this process is a rank of a group, even of
+        # one (a group over NCCL at world size 1 runs them too)
+        self.dp = dist.active()
+        # the step's collectives: the optimizers' gradient mean, and the
+        # mean over the global batch (the rate switch, RaGAN's logits)
+        self.grad_mean = dist.all_reduce_mean_ if self.dp else None
+        self.batch_mean = dist.batch_mean
         self.device = resolve_device(device if device is not None
                                      else opt.get("device"))
         torch.backends.cudnn.deterministic = True
@@ -85,9 +112,41 @@ class BaseTrainer:
         if opt.get("load_checkpoint", None):
             lc = dict(opt.load_checkpoint)
             self.load_checkpoint(lc.pop("exp"), lc.pop("iter"), **lc)
+        if self.dp:
+            for optim in self.optimizers():
+                dist.broadcast_(optim.flat)
         if opt.get("dry_run"):
             self.print_models()
             raise SystemExit(0)
+
+    @staticmethod
+    def data_parallel(opt) -> Tuple[int, int]:
+        """(rank, world size) of this process in a data-parallel run, (0, 1)
+        alone.  ``n_devices`` N > 1 needs a group of N ranks (``cli.train
+        --n_devices N`` or ``parallel.spawn`` starts one); ``batch_size``
+        must divide by the ranks."""
+        n = int(opt.get("n_devices", 0) or 0)
+        world = dist.world_size()
+        bs = int(opt.dataset.batch_size)
+        if bs % max(n, world, 1):
+            raise ValueError(f"batch_size {bs} must be divisible by "
+                             f"n_devices {max(n, world)}")
+        if not dist.active():
+            if n > 1:
+                raise RuntimeError(
+                    f"n_devices: {n} trains one process a device: start it "
+                    f"with python -m crdr_tpu_torch.cli.train --n_devices "
+                    f"{n}, or build the trainer in each rank of "
+                    "crdr_tpu_torch.parallel.spawn")
+            return 0, 1
+        if n and n != world:
+            raise ValueError(f"n_devices {n} in a group of {world} ranks")
+        return dist.rank(), world
+
+    def optimizers(self) -> List:
+        """The trainer's optimizers (their parameters' flat buffers are what
+        the ranks broadcast and average)."""
+        raise NotImplementedError
 
     # ------------------ setup hooks ------------------
 
@@ -102,6 +161,9 @@ class BaseTrainer:
         ``pretrained_weight_path`` its partial merge's counts (the stage
         handoff) are kept in ``pretrained_counts``."""
         self.comp_model = build_comp_model(self.opt, self.device)
+        if self.world > 1:
+            self.comp_model.noise = UniformNoise(
+                self.comp_model.noise.generator, self.rank, self.world)
         self.pretrained_counts = None
         if self.opt.get("pretrained_weight_path", None):
             self.pretrained_counts = self.comp_model.load_learned_weight(
@@ -123,14 +185,18 @@ class BaseTrainer:
             train_dataset, batch_size=ds_opt.batch_size, shuffle=True,
             drop_last=True, seed=self.opt.get("seed", None),
             num_workers=self.opt.get("num_workers", 8),
-            prefetch=self.opt.get("prefetch_batches", 4))
+            prefetch=self.opt.get("prefetch_batches", 4),
+            shard=(self.rank, self.world))
         eval_dataset = build_dataset(ds_opt.eval_dataset, is_train=False)
         self.eval_loader = DataLoader(eval_dataset, batch_size=1)
 
     def set_csv_loggers(self) -> None:
-        resume = self.opt.start_iter > 0
-        self.train_logger = CSVLogger(self.opt.path.log_loss_path, resume)
-        self.eval_logger = CSVLogger(self.opt.path.log_eval_path, resume)
+        """The CSV logs, on rank 0 alone (None elsewhere)."""
+        self.train_logger = self.eval_logger = None
+        if self.rank == 0:
+            resume = self.opt.start_iter > 0
+            self.train_logger = CSVLogger(self.opt.path.log_loss_path, resume)
+            self.eval_logger = CSVLogger(self.opt.path.log_eval_path, resume)
 
     def print_models(self) -> None:
         bolded_log("Print Models", level="DEBUG", new_line=True)
@@ -142,7 +208,7 @@ class BaseTrainer:
 
     def train_loop(self) -> None:
         bolded_log("train_loop start", new_line=True)
-        if self.opt.get("path"):
+        if self.opt.get("path") and self.rank == 0:
             os.makedirs(self.opt.path.job_dir, exist_ok=True)
             self.opt.dump(self.opt.path.config_dump_path)
         self.time_recorder.start()
@@ -155,7 +221,8 @@ class BaseTrainer:
                 self.log_train_loss(itr)
             if itr % self.opt.eval_step == 0:
                 self.flush_logs()
-                self.validation(itr)
+                if self.rank == 0:
+                    self.validation(itr)
             if itr % self.opt.save_step == 0:
                 self.flush_logs()
                 self.save(itr)
@@ -164,7 +231,8 @@ class BaseTrainer:
         self.flush_logs()
 
     def flush_logs(self) -> List[Tuple[int, Optional[Dict[str, float]]]]:
-        """Pull the pending steps' logs to the host in one copy; a skipped
+        """Pull the pending steps' logs to the host in one copy (averaged
+        over the ranks, one all-reduce, in a data-parallel run); a skipped
         step is reported and left out of the averages.  Returns (iter, log
         or None when skipped) per step."""
         pending, self._pending_logs = self._pending_logs, []
@@ -173,7 +241,10 @@ class BaseTrainer:
         keys = [sorted(log) for _, log in pending]
         flat = torch.stack([log[k].to(torch.float32).reshape(())
                             for (_, log), ks in zip(pending, keys)
-                            for k in ks]).cpu().tolist()
+                            for k in ks])
+        if self.dp:
+            dist.all_reduce_mean_(flat)
+        flat = flat.cpu().tolist()
         out, i = [], 0
         for (itr, _), ks in zip(pending, keys):
             row = dict(zip(ks, flat[i:i + len(ks)]))
@@ -211,10 +282,12 @@ class BaseTrainer:
             t = device_uint8_to_tensor(t)
         return t.to(torch.float32).permute(0, 3, 1, 2).contiguous()
 
-    @staticmethod
-    def loss_anomaly_flag(l_total: Tensor) -> Tensor:
+    def loss_anomaly_flag(self, l_total: Tensor) -> Tensor:
         """NaN / Inf / huge guard, on the device (reference
-        base_trainer.py:228-238)."""
+        base_trainer.py:228-238), on the loss of the global batch (its mean
+        over the ranks: every rank skips together)."""
+        if self.dp:
+            l_total = dist.mean_over_ranks(l_total)
         return torch.isnan(l_total) | torch.isinf(l_total) | (l_total > 1e4)
 
     # ------------------ logging / eval / save ------------------
@@ -234,7 +307,8 @@ class BaseTrainer:
             self.logger.info(
                 f"loss iter{current_iter}: "
                 + " ".join(f"{k}: {v:.3f}" for k, v in avg.items()))
-        self.train_logger.update({"iter": current_iter, **avg})
+        if self.train_logger is not None:
+            self.train_logger.update({"iter": current_iter, **avg})
         self.loss_recorder.reset()
 
     def log_time(self, current_iter: int) -> None:

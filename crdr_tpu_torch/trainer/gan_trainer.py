@@ -27,6 +27,14 @@ A step, as JAX's ``step_fn`` (:160-259), run eagerly with no host sync:
 The log adds ``adv``, ``d_real``, ``d_fake``, ``d_total``, ``out_d_real``
 and ``out_d_fake`` (the mean logits) as device scalars.
 
+Data parallel (``base_trainer.py``): G's and D's flat gradient buffers are
+averaged over the ranks, ``rate_ind`` (which picks D's conditioning) comes
+from the shared host sequence, and RaGAN's mean logits are the global
+batch's (the trainer's ``batch_mean``, with its gradient).  A
+discriminator with BatchNorm (``norm_type: BN``) raises on more than one
+rank: its statistics would be the rank's, where JAX's SPMD takes the
+global batch's.
+
 D is built at construction from ``opt.discriminator``, every parameter drawn
 from a generator seeded with ``seed + 1`` (JAX inits D with
 ``PRNGKey(seed + 1)``; the values differ).  A checkpoint adds
@@ -46,6 +54,7 @@ from typing import Dict
 import torch
 
 from ..losses import build_loss
+from ..nn.norm import BatchNorm2D
 from ..subnet.discriminator import build_discriminator
 from ..utils.path import PathHandler
 from ..utils.registry import TRAINER_REGISTRY
@@ -67,6 +76,12 @@ class GANRateDistortionTrainer(RateDistortionTrainer):
         with self.device:
             self.discriminator = build_discriminator(self.opt.discriminator,
                                                      g)
+        if self.world > 1 and any(isinstance(m, BatchNorm2D)
+                                  for m in self.discriminator.modules()):
+            raise NotImplementedError(
+                f"a discriminator with BatchNorm (norm_type: BN) on "
+                f"{self.world} ranks: its statistics would be each rank's, "
+                "not the global batch's")
         self.discriminator.requires_grad_(True)
 
     def set_losses(self) -> None:
@@ -78,7 +93,11 @@ class GANRateDistortionTrainer(RateDistortionTrainer):
         optim_opt = self.opt.optim
         self.d_opt = build_optimizer(
             list(self.discriminator.named_parameters()),
-            optim_opt.d_optimizer, optim_opt.get("d_scheduler"))
+            optim_opt.d_optimizer, optim_opt.get("d_scheduler"),
+            grad_mean=self.grad_mean)
+
+    def optimizers(self):
+        return super().optimizers() + [self.d_opt]
 
     def print_models(self) -> None:
         super().print_models()
@@ -104,9 +123,10 @@ class GANRateDistortionTrainer(RateDistortionTrainer):
                     + loss(fake_pred - anchor_pred, is_real=True,
                            is_disc=False)) / 2.0
         if self.adv_mode == "ragan":
-            return (loss(anchor_pred - torch.mean(fake_pred), is_real=False,
+            mean = self.batch_mean
+            return (loss(anchor_pred - mean(fake_pred), is_real=False,
                          is_disc=False)
-                    + loss(fake_pred - torch.mean(anchor_pred), is_real=True,
+                    + loss(fake_pred - mean(anchor_pred), is_real=True,
                            is_disc=False)) / 2.0
         raise ValueError(self.adv_mode)
 
@@ -119,8 +139,8 @@ class GANRateDistortionTrainer(RateDistortionTrainer):
             real = real_pred - fake_pred.detach()
             fake = fake_pred - real_pred.detach()
         elif self.adv_mode == "ragan":
-            real = real_pred - torch.mean(fake_pred.detach())
-            fake = fake_pred - torch.mean(real_pred.detach())
+            real = real_pred - self.batch_mean(fake_pred.detach())
+            fake = fake_pred - self.batch_mean(real_pred.detach())
         else:
             raise ValueError(self.adv_mode)
         return (loss(real, is_real=True, is_disc=True) * 0.5,
@@ -174,11 +194,14 @@ class GANRateDistortionTrainer(RateDistortionTrainer):
 
     def optimize_parameters_device(self, itr: int, data: Dict
                                    ) -> Dict[str, Tensor]:
+        if self.micro_batches > 1:
+            raise NotImplementedError("micro_batches: the rate-distortion "
+                                      "trainer's alone")
         batch = self.put_batch(data["real_images"])
         rate_ind, beta, mults = self.sample_controls(itr)
         l_total, losses, out, summary = self.gan_g_losses(batch, rate_ind,
                                                           beta, mults)
-        log, skip = self._g_update(l_total, losses, summary)
+        log, skip = self._g_update([l_total], [losses], [summary])
         d = self.gan_d_losses(batch, out["fake_images"].detach(),
                               out["quantized_code"]["y"].detach(), rate_ind)
         self.d_opt.zero_grad()
@@ -196,6 +219,8 @@ class GANRateDistortionTrainer(RateDistortionTrainer):
 
     def save(self, current_iter: int) -> None:
         super().save(current_iter)
+        if self.rank != 0:
+            return
         state = {k: v.detach().cpu()
                  for k, v in self.discriminator.state_dict().items()}
         self.model_saver.save({"discriminator": state}, "discriminator",

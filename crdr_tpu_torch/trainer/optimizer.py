@@ -27,6 +27,11 @@ where it is set, keeps the whole state: the parameters, the moments and
 the step count (so the LR schedule does not advance either).  The skip is
 decided on the device, and a step makes no host sync.
 
+In a data-parallel run ``grad_mean`` (``parallel/distributed.py::
+all_reduce_mean_``) averages the flat gradient buffer over the ranks, one
+collective a step, before the clip and the update, so every rank takes the
+same step (the global batch's gradient).
+
 ``paramwise_opt`` (per-key-substring LR multipliers, first match wins) keys
 on the port's parameter names, the reference torch names (the JAX package
 matches its flax paths).
@@ -35,7 +40,7 @@ matches its flax paths).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -77,7 +82,9 @@ def lr_schedule(base_lr: float, sched_opt: Optional[Dict]):
 class Optimizer:
     def __init__(self, named_params: Sequence[Tuple[str, nn.Parameter]],
                  optim_opt: Dict, sched_opt: Optional[Dict] = None,
-                 clip_max_norm: Optional[float] = None):
+                 clip_max_norm: Optional[float] = None,
+                 grad_mean: Optional[Callable[[Tensor], Tensor]] = None):
+        self.grad_mean = grad_mean
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         if not self.params:
@@ -147,6 +154,8 @@ class Optimizer:
         if have:
             torch._foreach_copy_([self.grads[i] for i in have],
                                  [self.params[i].grad for i in have])
+        if self.grad_mean is not None:
+            self.grad_mean(self.flat_grad)
         st = self.state
         g, p = self.flat_grad, self.flat
         if self.clip is not None:
@@ -200,5 +209,8 @@ class Optimizer:
 
 def build_optimizer(named_params: Sequence[Tuple[str, nn.Parameter]],
                     optim_opt: Dict, sched_opt: Optional[Dict] = None,
-                    clip_max_norm: Optional[float] = None) -> Optimizer:
-    return Optimizer(named_params, optim_opt, sched_opt, clip_max_norm)
+                    clip_max_norm: Optional[float] = None,
+                    grad_mean: Optional[Callable[[Tensor], Tensor]] = None
+                    ) -> Optimizer:
+    return Optimizer(named_params, optim_opt, sched_opt, clip_max_norm,
+                     grad_mean)

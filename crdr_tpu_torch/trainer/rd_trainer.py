@@ -22,14 +22,26 @@ optimizers' states and the numpy and torch generators' states), so the
 parameters, both optimizers, the noise and the sampled controls go on
 bit for bit after a resume; the data order starts again from the seed, as
 in the JAX package.
+
+``micro_batches`` k > 1 (an attribute, 1 by default) takes each batch in k
+blocks as k data-parallel ranks take their rows (``base_trainer.py``), in
+one process: block j's forward on its rows of the batch's noise (the
+generator rewound for each), the rate loss's switch on the mean of the
+blocks' mean qbpp, each block's loss gradient added into the buffers and
+divided by k, the skip and the logs on the mean over the blocks.  With two
+blocks the parameters are bit for bit those of two ranks (one batch of
+all the rows sums in other orders): the one-process reference of the
+data-parallel tests.  Every block's graph is held until the backward, so it
+saves no memory.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
+from ..entropy import UniformNoise
 from ..losses import build_loss
 from ..models.comp_model import _rate_summary
 from ..utils.path import PathHandler
@@ -43,6 +55,11 @@ Tensor = torch.Tensor
 
 def _is_quantiles(name: str) -> bool:
     return name.split(".")[-1] == "quantiles"
+
+
+def _mean(values: List[Tensor]) -> Tensor:
+    """The mean of per-block device scalars (one block: itself)."""
+    return values[0] if len(values) == 1 else sum(values) / len(values)
 
 
 @TRAINER_REGISTRY.register()
@@ -64,11 +81,14 @@ class RateDistortionTrainer(BaseTrainer):
         self.g_opt = build_optimizer(
             [(n, p) for n, p in named if not _is_quantiles(n)],
             optim_opt.g_optimizer, optim_opt.get("g_scheduler"),
-            optim_opt.get("clip_max_norm", None))
+            optim_opt.get("clip_max_norm", None), self.grad_mean)
         self.aux_opt = build_optimizer(
             [(n, p) for n, p in named if _is_quantiles(n)],
-            optim_opt.aux_optimizer) if optim_opt.get("aux_optimizer") \
-            else None
+            optim_opt.aux_optimizer, grad_mean=self.grad_mean) \
+            if optim_opt.get("aux_optimizer") else None
+
+    def optimizers(self):
+        return [o for o in (self.g_opt, self.aux_opt) if o is not None]
 
     # ------------------ the step ------------------
 
@@ -77,6 +97,13 @@ class RateDistortionTrainer(BaseTrainer):
         """The training forward and the G-side losses on an NCHW f32 batch
         (f64 for a reference step, the net and losses cast to it): (losses,
         the net's output, the rate summary)."""
+        out, summary, fake = self._g_forward(batch, rate_ind, beta, noise)
+        return self._g_terms(batch, fake, summary, rate_ind, mults,
+                             self.batch_mean), out, summary
+
+    def _g_forward(self, batch: Tensor, rate_ind: float, beta: float, noise):
+        """The training forward: (the net's output, the rate summary, the
+        reconstruction in the batch's dtype)."""
         model = self.comp_model
         full = lambda v: torch.full((1,), float(v), dtype=batch.dtype,
                                     device=self.device)
@@ -85,17 +112,40 @@ class RateDistortionTrainer(BaseTrainer):
         out = model.net(x_in, full(rate_ind) if model.use_rate else None,
                         full(beta) if model.use_beta else None, noise)
         summary = _rate_summary(out, batch.shape[2] * batch.shape[3])
-        fake = out["fake_images"].to(batch.dtype)
+        return out, summary, out["fake_images"].to(batch.dtype)
+
+    def _g_terms(self, batch: Tensor, fake: Tensor, summary, rate_ind: float,
+                 mults, batch_mean) -> Dict[str, Tensor]:
+        """The G-side losses of a forward; the rate loss switches on
+        ``batch_mean`` of the detached qbpp."""
         losses = {
             "distortion": self.distortion_loss(batch, fake),
             "rate": self.rate_loss(summary["bpp"], summary["qbpp"],
                                    rate_ind=rate_ind, lambda_mult=mults[0],
-                                   target_mult=mults[1]),
+                                   target_mult=mults[1],
+                                   batch_mean=batch_mean),
         }
         if self.perceptual_loss is not None:
             losses["perceptual"] = self.perceptual_loss(batch, fake)
-        return losses, out, summary
+        return losses
 
+    def _block_losses(self, batch: Tensor, rate_ind: float, beta: float,
+                      mults):
+        """The G-side losses of ``batch`` in ``micro_batches`` blocks
+        (module doc): (each block's losses, each block's rate summary)."""
+        k = self.micro_batches
+        gen = self.noise.generator
+        start = gen.get_state()
+        blocks = []
+        for j, block in enumerate(batch.chunk(k)):
+            gen.set_state(start)
+            noise = UniformNoise(gen, self.rank * k + j, self.world * k)
+            blocks.append((block, *self._g_forward(block, rate_ind, beta,
+                                                   noise)[1:]))
+        q = self.batch_mean(_mean([torch.mean(s["qbpp"].detach())
+                                   for _, s, _ in blocks]))
+        return ([self._g_terms(b, f, s, rate_ind, mults, lambda _: q)
+                 for b, s, f in blocks], [s for _, s, _ in blocks])
     def sample_controls(self, itr: int):
         """(rate_ind, beta, schedule multipliers) of iteration ``itr``."""
         model = self.comp_model
@@ -107,29 +157,46 @@ class RateDistortionTrainer(BaseTrainer):
 
     def optimize_parameters_device(self, itr: int, data: Dict
                                    ) -> Dict[str, Tensor]:
-        """One optimization step; its log as device scalars (no host
-        sync)."""
+        """One optimization step (in ``micro_batches`` blocks: module doc);
+        its log as device scalars (no host sync)."""
         batch = self.put_batch(data["real_images"])
         rate_ind, beta, mults = self.sample_controls(itr)
-        losses, _, summary = self._g_losses(batch, rate_ind, beta,
-                                            self.noise, mults)
-        log, _ = self._g_update(sum(losses.values()), losses, summary)
+        if self.micro_batches > 1:
+            losses, summaries = self._block_losses(batch, rate_ind, beta,
+                                                   mults)
+        else:
+            one, _, summary = self._g_losses(batch, rate_ind, beta,
+                                             self.noise, mults)
+            losses, summaries = [one], [summary]
+        log, _ = self._g_update([sum(ls.values()) for ls in losses], losses,
+                                summaries)
         self.step += 1
         return log
 
-    def _g_update(self, l_total: Tensor, losses: Dict[str, Tensor],
-                  summary: Dict[str, Tensor]):
-        """The backward of ``l_total``, the main optimizer step, then the aux
-        loss and step on the updated parameters, both held where the loss is
-        anomalous: (the log as device scalars, the skip flag)."""
+    def _g_update(self, totals: List[Tensor],
+                  losses: List[Dict[str, Tensor]],
+                  summaries: List[Dict[str, Tensor]]):
+        """The backward of each block's total loss (one block but with
+        ``micro_batches``), the gradients' mean over the blocks, the main
+        optimizer step, then the aux loss and step on the updated
+        parameters, both held where the blocks' mean loss is anomalous:
+        (the log, the blocks' means as device scalars; the skip flag)."""
         self.g_opt.zero_grad()
-        l_total.backward()
-        skip = self.loss_anomaly_flag(l_total.detach())
+        for t in totals:
+            t.backward()
+        if len(totals) > 1:
+            torch._foreach_div_([p.grad for p in self.g_opt.params
+                                 if p.grad is not None], len(totals))
+        l_total = _mean([t.detach() for t in totals])
+        skip = self.loss_anomaly_flag(l_total)
         self.g_opt.step(skip)
-        log = {**{k: v.detach() for k, v in losses.items()},
-               "total": l_total.detach(),
-               "qbpp": torch.mean(summary["qbpp"]).detach(),
-               "bpp": torch.mean(summary["bpp"]).detach(), "skipped": skip}
+        log = {**{k: _mean([ls[k].detach() for ls in losses])
+                  for k in losses[0]},
+               "total": l_total,
+               "qbpp": _mean([torch.mean(s["qbpp"]).detach()
+                              for s in summaries]),
+               "bpp": _mean([torch.mean(s["bpp"]).detach()
+                             for s in summaries]), "skipped": skip}
         if self.aux_opt is not None:
             aux = self.comp_model.net.aux_loss()
             self.aux_opt.zero_grad()
@@ -152,6 +219,9 @@ class RateDistortionTrainer(BaseTrainer):
         }
 
     def save(self, current_iter: int) -> None:
+        """The checkpoint of ``current_iter``, from rank 0 alone."""
+        if self.rank != 0:
+            return
         state = {k: v.detach().cpu()
                  for k, v in self.comp_model.state_dict().items()}
         self.model_saver.save({"comp_model": state}, "comp_model",

@@ -152,6 +152,11 @@ def get_train_config(argv: Optional[List[str]] = None) -> Config:
     parser.add_argument("-l", "--log_step", type=int, default=None)
     parser.add_argument("-s", "--save_step", type=int, default=None)
     parser.add_argument("-nw", "--num_workers", type=int, default=None)
+    parser.add_argument("--n_devices", type=int, default=None,
+                        help="data parallel: one rank a device, N ranks")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join the process group that COORDINATOR_ADDRESS"
+                             " / NUM_PROCESSES / PROCESS_ID configure")
     parser.add_argument("--auto_resume", action="store_true",
                         help="resume from the newest checkpoint in the "
                              "experiment dir")
@@ -160,7 +165,7 @@ def get_train_config(argv: Optional[List[str]] = None) -> Config:
 
     cfg = Config.from_file(args.config_path)
     for key in ("start_iter", "total_iter", "eval_step", "log_step",
-                "save_step"):
+                "save_step", "n_devices"):
         val = getattr(args, key)
         if val is not None:
             cfg[key] = val
@@ -170,6 +175,7 @@ def get_train_config(argv: Optional[List[str]] = None) -> Config:
     if args.num_workers is not None:
         cfg["num_workers"] = args.num_workers
     cfg["device"] = args.device
+    cfg["distributed"] = bool(args.distributed)
     cfg["auto_resume"] = bool(args.auto_resume)
     cfg["dry_run"] = bool(args.dry_run)
     cfg["debug"] = bool(args.debug)

@@ -21,6 +21,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "crdr_tpu_torch")
 _locks_guard = threading.Lock()
 _build_locks = {}  # one per output: different libraries build concurrently
+_count_lock = threading.Lock()
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -31,6 +32,14 @@ def resolve_device(device: Union[str, torch.device, None] = None) -> torch.devic
             "crdr_tpu_torch runs on a CUDA GPU by default and none is "
             "available; pass device='cpu' to run it on the CPU")
     return dev
+
+
+def count_launch(wrapper) -> None:
+    """One more launch on ``wrapper.launches``, the kernel wrappers' count;
+    under a lock, since the replicas of a serving mesh launch from several
+    threads and ``+=`` on an attribute is not atomic."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def package_path(*parts: str) -> str:

@@ -208,9 +208,16 @@ def test_cli_outputs_equal_the_model_api(workdir, wire, tmp_path):
     assert not os.path.exists(tmp_path / "b1" / "im0.png")
 
 
-def test_cli_refuses_what_is_not_ported(workdir, tmp_path):
-    with pytest.raises(NotImplementedError, match="serving_devices"):
-        _run(workdir, tmp_path, "--serving_devices", "2")
+def test_cli_refuses_what_is_not_ported(workdir, tmp_path, monkeypatch):
+    """A serving mesh of more GPUs than the machine has raises before the
+    model is built (the card asked for, one card present); without a GPU
+    the default device raises.  ``--serving_devices`` on the CPU:
+    tests/test_torch_serving_mesh.py."""
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="serving_devices=2"):
+            _run(workdir, tmp_path, "--serving_devices", "2", "-d", "cuda")
     if not torch.cuda.is_available():  # the default device is the GPU
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([str(workdir / "tiny.yaml"), "--img_dir",

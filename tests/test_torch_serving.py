@@ -26,8 +26,8 @@ package's, the HTTP server, the serve CLIs, in-memory PNG, and the refusals.
   good one in a dispatch: garbage decoded, or a 400 that the dispatch's
   requests share, and the good stream served after.
 * ``cli/serve.py::build_model`` from a config file (``--wire device -d
-  cpu``), ``cli/serve_smoke.py`` at ``-d cpu``; ``serving_devices: 2``,
-  ``serving_partition: spatial`` and ``--aot_package`` raise.
+  cpu``), ``cli/serve_smoke.py`` at ``-d cpu``; ``--aot_package``
+  raises, and so does a serving mesh of more GPUs than the machine has.
 * ``encode_png`` / ``decode_png``: round trip, and cv2's (and PIL's) reads.
 """
 
@@ -41,6 +41,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 import cv2
@@ -475,13 +476,26 @@ def test_serve_build_model_from_config(tmp_path):
 
 @pytest.mark.parametrize("extra,flags,match", [
     ({"serving_devices": 2}, [], "serving_devices"),
-    ({"serving_partition": "spatial"}, [], "serving_partition: spatial"),
+    ({"serving_devices": 2, "serving_partition": "spatial"}, [],
+     "serving_partition: spatial"),
     ({}, ["--aot_package", "pkg"], "aot_package"),
 ])
-def test_serve_refuses_what_is_not_ported(tmp_path, extra, flags, match):
-    args = serve_cli.parse_args([_config_file(tmp_path, **extra), "-d",
-                                 "cpu", *flags])
-    with pytest.raises(NotImplementedError, match=match):
+def test_serve_refuses_what_is_not_ported(tmp_path, monkeypatch, extra,
+                                          flags, match):
+    """``--aot_package`` is not ported; a serving mesh of more GPUs than the
+    machine has raises before the model is built (the card asked for, one
+    card present).  The working meshes: tests/test_torch_serving_mesh.py."""
+    if flags:
+        args = serve_cli.parse_args([_config_file(tmp_path, **extra), "-d",
+                                     "cpu", *flags])
+        with pytest.raises(NotImplementedError, match=match):
+            serve_cli.build_model(args)
+        return
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    args = serve_cli.parse_args([_config_file(tmp_path, **extra)])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match=match):
         serve_cli.build_model(args)
 
 
