@@ -155,7 +155,7 @@ Phases, each asserted (any failure exits non-zero):
    keeps the InterpCA / spatial-context ones at init; rate_ind spans its 5
    levels); balle18_mean_scale.yaml's model under the stage-1 recipe in
    f32, 25 steps, K3 6 launches a step and every GDN parameter a gradient
-   (GDNFunction), K3's six calls of a step timed (each config's step time
+   (the op's backward, crdr::gdn_backward), K3's six calls of a step timed (each config's step time
    over its last 20 steps); resume: saved at step 3, rebuilt from the
    checkpoint, run to 6 on the same batches, bit-equal to the
    uninterrupted run; the train CLI (python -m crdr_tpu_torch.cli.train
@@ -288,8 +288,31 @@ Phases, each asserted (any failure exits non-zero):
    peak memory and times of the split and the whole encode / decode; then
    cli/serve.py with serving_devices 2 and --mesh_devices cuda:0,cuda:0,
    two requests in one dispatch of 2.
-24. one JSON line of kernel figures (launches by path, every path above);
-25. the ok line.
+24. AOT serving packages (``runtime/aot.py``, the kernels as ``crdr::``
+   ops inside ``torch.export`` programs): the flagship recorded at
+   4x512x768 and 1x512x768 on both wires (E1 encoding the device wire),
+   the checkerboard (cb_stage2.yaml) and the GDN path at both on the
+   compressai wire, each exported for cuda (every program must export; the
+   GDN path's for cpu too), with the record and export seconds and the
+   package bytes; each package loaded into a freshly built model on the
+   same weights: a batch-4 and a batch-1 round trip byte-equal to the live
+   path's streams and pixel-equal decodes, K1 / K2 / K3 / E1 launches
+   equal to the live path's counts (section 2 of PERF.md), each op's calls
+   held against its twin, hits and misses by program printed and no miss
+   at the recorded buckets but in the data-shaped ``rans_round``; phase
+   23's batch mesh (two replicas, 4 images each) serving from the
+   flagship's package, streams equal to one device's; the GDN package's
+   cpu programs (recorded at 1x256x384 too) in a CPU process (4 threads)
+   against the CPU live path (printed, not asserted).  The GDN path's and
+   the checkerboard's packages are made in processes of their own, beside
+   the flagship's; the serve CLI starts in two fresh processes together,
+   without and with the flagship's package, meanwhile: seconds to
+   listening and to the first /compress.  Then, with nothing else running,
+   the flagship's round trips and the package's in turns, batch 4 and 1,
+   and warm one-image /compress and /decompress of the two servers in
+   turns, the .bin equal.
+25. one JSON line of kernel figures (launches by path, every path above);
+26. the ok line.
 Imports nothing of JAX or of the JAX package.
 """
 
@@ -2996,10 +3019,10 @@ def training_phase(card: str, profiling: bool = False) -> dict:
         check(len(gdns) == 6 and all(
             p.grad is not None and bool(torch.isfinite(p.grad).all())
             and bool(p.grad.any()) for m in gdns for p in (m.beta, m.gamma)),
-            "GDN training: a GDN parameter got no gradient (GDNFunction)")
+            "GDN training: a GDN parameter got no gradient (crdr::gdn)")
         print(f"train GDN: K3 {counts['train gdn']['gdn']} launches in "
               f"{SHORT_STEPS} steps; every GDN's beta and gamma has a "
-              f"finite, non-zero gradient (through GDNFunction)")
+              f"finite, non-zero gradient (through crdr::gdn's backward)")
         res["gdn"]["k3"] = k3_training_ms(card)
         del tr
         torch.cuda.empty_cache()
@@ -5384,6 +5407,587 @@ def mesh_serve_check(card: str) -> dict:
     return {"batch_hist": {str(k): v for k, v in hist.items()}}
 
 
+# ---------------- phase 24: AOT serving packages ---------------------------
+
+AOT_SHAPES = ((N_IMG, IMG_H, IMG_W), (1, IMG_H, IMG_W))
+AOT_TURNS = 3        # warm served requests a server, in turns
+# the GDN package's bucket for the CPU process (the CPU's passes at 512x768
+# would be most of the phase)
+AOT_CPU_H, AOT_CPU_W = 256, 384
+AOT_CPU_THREADS = 4  # the CPU process's threads, beside the card work
+# the programs whose shapes follow the data (the lane words' length): they
+# may miss at a recorded bucket and run live, as in JAX
+AOT_DATA_SHAPED = {"rans_round"}
+OP_NAMES = {"slice_transform": "slice_transform",
+            "lane_decode_round": "lane_decode_round",
+            "gdn": "gdn", "lane_encode_scan": "lane_encode_rounds"}
+
+
+@contextlib.contextmanager
+def sampled_op_calls():
+    """Within the block, keeps the first call of each kernel's op
+    (``crdr::*``, as the live path and a package's programs both call it)
+    at each input shape: {wrapper name: {shape: (arguments, output)}},
+    tensors cloned.  Every call runs, and counts, as it would."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    samples = {name: {} for name in OP_NAMES.values()}
+
+    def clone(v):
+        return v.detach().clone() if torch.is_tensor(v) else v
+
+    class Sampler(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = OP_NAMES.get(func._opname) \
+                if func.namespace == "crdr" else None
+            if name is not None:
+                key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                            for a in args if not isinstance(a, list))
+                if key not in samples[name]:
+                    samples[name][key] = (
+                        [clone(a) for a in args],
+                        tuple(map(clone, out)) if isinstance(out, tuple)
+                        else clone(out))
+            return out
+
+    with Sampler():
+        yield samples
+
+
+def hold_op_calls(samples, label: str, card: str) -> dict:
+    """Each sampled op call's output against the kernel's plain twin on the
+    same inputs: K1 within K1_ATOL, K2 and E1 exactly, K3 within
+    K3_RTOL |plain| + K3_ATOL.  Returns {kernel: {calls, max_abs_err}}."""
+    import torch
+
+    from crdr_tpu_torch.ops import device_rans
+    from crdr_tpu_torch.ops.gdn import gdn_plain
+    from crdr_tpu_torch.ops.slice_transform import slice_transform_plain
+
+    def k1(args, out):
+        x, *stacks, idx = args
+        plain = slice_transform_plain(x, *(t[idx] for t in stacks))
+        err = float((out - plain).abs().max())
+        return bool(torch.isfinite(out).all()) and err <= K1_ATOL, err
+
+    def k2(args, out):
+        st, pt, words, idx, cdf, ln, off, _buf, _bits, m = args
+        ref = device_rans.lane_decode_round_instep(st, pt, words, idx, cdf,
+                                                   ln, off, m)
+        return all(torch.equal(a, b) for a, b in zip(out, ref)), 0.0
+
+    def e1(args, out):
+        ref = device_rans.lane_encode_scan(*args)
+        return all(torch.equal(a, b) for a, b in zip(out, ref)), 0.0
+
+    def k3(args, out):
+        ref = gdn_plain(*args)
+        excess = float(((out - ref).abs() / (K3_RTOL * ref.abs() + K3_ATOL))
+                       .max())
+        return excess <= 1.0, float((out - ref).abs().max())
+
+    twins = {"slice_transform": k1, "lane_decode_round": k2,
+             "lane_encode_rounds": e1, "gdn": k3}
+    held = {}
+    for name, twin in twins.items():
+        for key, (args, out) in samples[name].items():
+            ok, err = twin(args, out)
+            check(ok, f"{label}: {name}'s op at {key} != its plain twin "
+                      f"(max |err| {err:.3e})")
+            row = held.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
+            row["calls"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    return held
+
+
+def aot_export(model, path: str, wires, label: str, card: str,
+               platforms=("cuda",), shapes=AOT_SHAPES) -> dict:
+    """Record the model's serving round trips at ``shapes`` on each wire
+    (E1 encoding the device wire), export them for ``platforms`` into
+    ``path``; every cuda entry must export.  Returns the figures."""
+    import torch
+
+    from crdr_tpu_torch.runtime.aot import (export_package,
+                                            record_serving_roundtrip)
+
+    t0 = time.perf_counter()
+    for wire in wires:
+        model.opt["wire_format"] = wire
+        model.opt["device_wire_encoder"] = "device"
+        model.codec_setup()
+        for b, h, w in shapes:
+            record_serving_roundtrip(model, b, h, w, rate_ind=RATE,
+                                     beta=BETA)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    man = export_package(model, path, platforms=platforms)
+    t2 = time.perf_counter()
+    model._aot.recorder = None
+    skipped = {p: [s for s in man["skipped"] if s["platform"] == p]
+               for p in ("cuda", "cpu")}
+    check(not skipped["cuda"], f"{label}: cuda programs did not export: "
+                               f"{skipped['cuda'][:2]}")
+    by = {p: [e for e in man["entries"] if e["platform"] == p]
+          for p in ("cuda", "cpu")}
+    res = {"record_s": t1 - t0, "export_s": t2 - t1,
+           "programs": len(by["cuda"]), "cpu_programs": len(by["cpu"]),
+           "cpu_skipped": len(skipped["cpu"]),
+           "cpu_errors": sorted({s["error"][:200] for s in skipped["cpu"]}),
+           "bytes": sum(e["bytes"] for e in by["cuda"]),
+           "cpu_bytes": sum(e["bytes"] for e in by["cpu"]),
+           "names": sorted({e["name"] for e in by["cuda"]})}
+    print(f"{label}: recorded {wires} at {shapes} in {res['record_s']:.1f}"
+          f" s, exported {res['programs']} cuda programs ({res['bytes']} B) "
+          f"and {res['cpu_programs']} cpu ({res['cpu_bytes']} B, "
+          f"{len(skipped['cpu'])} skipped) in {res['export_s']:.1f} s "
+          f"[{card}]")
+    return res
+
+
+def set_wire(models, wire: str) -> None:
+    for m in models:
+        m.opt["wire_format"] = wire
+        m.opt["device_wire_encoder"] = "device"
+        m.codec_setup()
+
+
+def aot_compare(live, fresh, imgs, wire: str, label: str, expected: dict,
+                card: str) -> tuple:
+    """``fresh`` (the package loaded) against ``live`` (the same weights, no
+    package) on ``wire``: a batch round trip with launches counted and the
+    ops' calls held against their twins, then a batch-1 round trip; streams
+    byte-equal, decodes pixel-equal, y_hat equal to the encoder's, launches
+    = ``expected`` on both, no miss but in AOT_DATA_SHAPED.  Returns
+    (figures, launches)."""
+    from crdr_tpu_torch.runtime.aot import aot_counts
+
+    set_wire((live, fresh), wire)
+    base = aot_counts(fresh)
+    encs_l, (f_l, _, y_l), _, _, got_l = counted_round_trip(live, imgs)
+    with sampled_op_calls() as samples:
+        encs_p, (f_p, _, y_p), _, _, got_p = counted_round_trip(fresh, imgs)
+    check(all(a["string_list"] == b["string_list"]
+              for a, b in zip(encs_l, encs_p)),
+          f"{label}: package streams != live streams")
+    check(np.array_equal(f_l, f_p) and np.array_equal(y_l, y_p),
+          f"{label}: package decode != live decode")
+    check_round_trip(label, encs_p, f_p, y_p)
+    check(got_l == expected and got_p == expected,
+          f"{label}: launches live {got_l}, package {got_p}, expected "
+          f"{expected}")
+    held = hold_op_calls(samples, label, card)
+    rate = {"rate_ind": RATE} if live.use_rate else {}
+    beta = {"beta": BETA} if live.use_beta else {}
+    one_l = live.compress_batch(imgs[:1], **rate)[0]["string_list"]
+    one_p = fresh.compress_batch(imgs[:1], **rate)[0]["string_list"]
+    check(one_l == one_p == encs_p[0]["string_list"],
+          f"{label}: batch-1 package stream != live / batch stream")
+    d1 = fresh.decompress_batch([one_p], **beta)
+    check(np.array_equal(d1[0][0], f_p[0]),
+          f"{label}: batch-1 package decode != the batch decode")
+    counts = {n: {k: c[k] - base.get(n, {}).get(k, 0) for k in c}
+              for n, c in aot_counts(fresh).items()}
+    missed = {n: c["misses"] for n, c in counts.items()
+              if c["misses"] and n not in AOT_DATA_SHAPED}
+    check(not missed, f"{label}: misses at the recorded buckets: {missed}")
+    check(sum(c["hits"] for c in counts.values()) > 0,
+          f"{label}: no dispatch ran from the package")
+    print(f"{label}: streams byte-equal to the live path (batch {N_IMG} and "
+          f"1), decodes equal, launches {got_p} = live's; hits / misses "
+          f"{counts}; ops held against their twins {held} [{card}]")
+    return {"counts": counts, "held": held, "launches": got_p}, got_p
+
+
+def aot_turns(live, fresh, imgs, wire: str, label: str, card: str) -> dict:
+    """Round trips of ``live`` and ``fresh`` (the package) on ``wire`` in
+    turns, batch 4 and 1: medians of TIMED_RUNS (encode / decode ms) and
+    the last batch-1 decode's parts."""
+    set_wire((live, fresh), wire)
+    times = {(k, n): [] for k in ("live", "package") for n in (N_IMG, 1)}
+    parts = {}
+    for r in range(2 * TIMED_RUNS):
+        m, k = ((live, "live"), (fresh, "package"))[(r + r // 2) % 2]
+        for n in (N_IMG, 1):
+            times[k, n].append([v * 1e3 for v in round_trip(m, imgs[:n])[2:]])
+        parts[k] = {name: v * 1e3 for name, v in m.last_decode_timing.items()}
+    med = {f"{k} batch {n}": [float(v) for v in np.median(t, axis=0)]
+           for (k, n), t in times.items()}
+    print(f"{label}: encode / decode ms, medians of {TIMED_RUNS} in turns: "
+          + ", ".join(f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in med.items())
+          + f"; the last batch-1 decode's parts, ms: {parts} [{card}]")
+    return {"ms": med, "decode_parts_ms": parts}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_server(pkg, log_path: str) -> dict:
+    """cli/serve.py on crdr_throughput.yaml (seeded init) in a fresh
+    process, with ``--aot_package pkg`` when given; returns its handle
+    (``first_answer`` waits for it)."""
+    port = free_port()
+    cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.serve",
+           os.path.join(ROOT, "config", "crdr_throughput.yaml"), "--port",
+           str(port)] + (["--aot_package", pkg] if pkg else [])
+    with open(log_path, "wb") as log:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT)
+    return {"proc": proc, "t0": t0, "log": log_path, "pkg": pkg,
+            "base": f"http://127.0.0.1:{port}"}
+
+
+def first_answer(srv: dict, body: bytes) -> None:
+    """Waits for the server's /healthz, then sends its first /compress;
+    sets the seconds (from its start) to listening and to that answer, and
+    the .bin."""
+    import urllib.request
+
+    listen = None
+    while time.perf_counter() - srv["t0"] < 300:
+        if srv["proc"].poll() is not None:
+            break
+        try:
+            with urllib.request.urlopen(f"{srv['base']}/healthz", timeout=5):
+                listen = time.perf_counter() - srv["t0"]
+                break
+        except OSError:
+            time.sleep(0.05)
+    if listen is None:
+        with open(srv["log"], "rb") as f:
+            tail = f.read()[-3000:].decode(errors="replace")
+        fail(f"serve {'with' if srv['pkg'] else 'without'} a package did "
+             f"not listen:\n{tail}")
+    srv["blob"] = http_post(f"{srv['base']}/compress?q={RATE}", body)[0]
+    srv["listen_s"] = listen
+    srv["first_compress_s"] = time.perf_counter() - srv["t0"]
+
+
+def cold_start_begin(pkg: str) -> dict:
+    """cli/serve.py in two fresh processes started together, without and
+    with the package (the kernel libraries built by phase 1 both times),
+    and a thread each that waits for its first /compress answer
+    (``first_answer``).  Returns the servers; ``cold_start_end`` finishes."""
+    import threading as th
+
+    from crdr_tpu_torch.utils.img_utils import encode_png
+
+    logs = os.path.join(ROOT, "build")
+    body = encode_png(smooth_images(7)[0])
+    srvs = {}
+    for tag, p in (("live", None), ("package", pkg)):
+        srvs[tag] = start_server(p, os.path.join(logs, f"aot_serve_{tag}.log"))
+        srvs[tag]["waiter"] = th.Thread(target=first_answer,
+                                        args=(srvs[tag], body))
+        srvs[tag]["waiter"].start()
+    srvs["body"] = body
+    return srvs
+
+
+def cold_start_end(srvs: dict, card: str) -> dict:
+    """The servers of ``cold_start_begin``: seconds to listening and to the
+    first /compress answer; then warm /compress and /decompress requests of
+    one 512x768 image, the two servers in turns; the package's .bin equal
+    to the live server's; both stopped."""
+    body = srvs.pop("body")
+    try:
+        for srv in srvs.values():
+            srv.pop("waiter").join()
+        check(all("blob" in srv for srv in srvs.values()),
+              "cold start: a server gave no first answer")
+        check(srvs["live"]["blob"] == srvs["package"]["blob"],
+              "cold start: the served .bin differs with the package")
+        for srv in srvs.values():
+            srv["compress_ms"], srv["decompress_ms"] = [], []
+        for r in range(2 * AOT_TURNS):
+            srv = srvs[("live", "package")[(r + r // 2) % 2]]
+            blob, _, dt = http_post(f"{srv['base']}/compress?q={RATE}", body)
+            srv["compress_ms"].append(dt * 1e3)
+            srv["decompress_ms"].append(http_post(
+                f"{srv['base']}/decompress?beta={BETA}", blob)[2] * 1e3)
+        srvs["package"]["aot"] = get_json(
+            f"{srvs['package']['base']}/healthz")["aot"]
+    finally:
+        for srv in srvs.values():
+            srv["proc"].terminate()
+        for srv in srvs.values():
+            try:
+                srv["proc"].wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                srv["proc"].kill()
+                srv["proc"].wait()
+    out = {}
+    for tag, srv in srvs.items():
+        out[tag] = {"listen_s": srv["listen_s"],
+                    "first_compress_s": srv["first_compress_s"],
+                    "compress_ms": float(np.median(srv["compress_ms"])),
+                    "decompress_ms": float(np.median(srv["decompress_ms"])),
+                    "compress_runs_ms": srv["compress_ms"],
+                    "decompress_runs_ms": srv["decompress_ms"],
+                    "aot": srv.get("aot")}
+        print(f"cold start, cli/serve.py {tag} (both started together, "
+              f"while the phase's other packages export): listening after "
+              f"{srv['listen_s']:.2f} s, first /compress answered after "
+              f"{srv['first_compress_s']:.2f} s; warm one-image /compress / "
+              f"/decompress ms, medians of {AOT_TURNS} in turns (nothing "
+              f"else running): {out[tag]['compress_ms']:.1f} / "
+              f"{out[tag]['decompress_ms']:.1f}"
+              + (f"; hits / misses {srv['aot']}" if srv.get("aot") else "")
+              + f" [{card}]")
+    return out
+
+
+def aot_cpu_child(pkg: str) -> None:
+    """The cross-platform check's process (on the CPU): the GDN path's model
+    (balle18_mean_scale.yaml, seeded init on the CPU), one AOT_CPU_H x
+    AOT_CPU_W image encoded and decoded live and through the package's cpu
+    programs (a second model, the same weights); prints one JSON line."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.runtime.aot import aot_counts, load_package
+    from crdr_tpu_torch.utils.config import Config
+
+    cfg = os.path.join(ROOT, "config", "balle18_mean_scale.yaml")
+    live, pkgd = (build_comp_model(Config.from_file(cfg), device="cpu")
+                  for _ in range(2))
+    pkgd.load_state_dict(live.state_dict())
+    for m in (live, pkgd):
+        m.codec_setup()
+    load_package(pkgd, pkg)
+    img = np.ascontiguousarray(smooth_images(7)[:1, :AOT_CPU_H, :AOT_CPU_W])
+    t0 = time.perf_counter()
+    a = live.compress_batch(img)[0]
+    t1 = time.perf_counter()
+    b = pkgd.compress_batch(img)[0]
+    t2 = time.perf_counter()
+    fa = live.decompress_batch([a["string_list"]])[0]
+    fb = pkgd.decompress_batch([b["string_list"]])[0]
+    print(json.dumps({"streams_equal": a["string_list"] == b["string_list"],
+                      "decodes_equal": bool(np.array_equal(fa, fb)),
+                      "live_encode_s": t1 - t0, "package_encode_s": t2 - t1,
+                      "counts": aot_counts(pkgd),
+                      "threads": torch.get_num_threads()}))
+
+
+def aot_cpu_start(pkg: str) -> tuple:
+    """Starts the cross-platform check's CPU process (``aot_cpu_child``, at
+    AOT_CPU_THREADS threads, beside the card work that follows); returns
+    (process, start time)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS=str(AOT_CPU_THREADS))
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.aot_cpu_child(sys.argv[1])", pkg], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def aot_cpu_result(started: tuple, card: str) -> dict:
+    """The CPU process's line: the package's cpu programs against the CPU
+    live path (measured, as phase 17: printed, not asserted)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    try:
+        res = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        res = {"error": (err or out)[-600:]}
+    res["process_s"] = time.perf_counter() - t0
+    print(f"cross-platform: the package's cpu programs in a CPU process "
+          f"({AOT_CPU_THREADS} threads, beside the phase's card work) vs "
+          f"the CPU live path: {json.dumps(res)} [{card}]")
+    return res
+
+
+def aot_child(kind: str, path: str) -> None:
+    """One package of phase 24 in its own process on the card, beside the
+    flagship's: ``gdn``, the GDN path (balle18_mean_scale.yaml) at
+    AOT_SHAPES and 1xAOT_CPU_HxAOT_CPU_W, exported for cuda and cpu, its
+    cpu programs then held in a CPU process (``aot_cpu_child``); or ``cb``,
+    the checkerboard (cb_stage2.yaml) at AOT_SHAPES.  Both on the compressai
+    wire; the package loaded into a fresh model on the same weights and
+    held against the live path (``aot_compare``).  Prints its lines, then
+    one line ``aot_child {json}``; a failed check exits non-zero."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from crdr_tpu_torch.runtime.aot import load_package
+
+    card = card_line()
+    imgs = smooth_images(7)
+    cpu_check = None
+    if kind == "gdn":
+        live = build_gdn_model(imgs, card)
+        export = aot_export(live, path, ("compressai",), "aot GDN path",
+                            card, ("cuda", "cpu"),
+                            AOT_SHAPES + ((1, AOT_CPU_H, AOT_CPU_W),))
+        cpu_check = aot_cpu_start(path)
+        fresh = build_gdn_model(imgs, card)
+        want = {"slice_transform": 0, "lane_decode_round": 0, "gdn": 6,
+                "lane_encode_rounds": 0}
+        label = "aot GDN path compressai"
+    else:
+        live = cb_model(card)
+        export = aot_export(live, path, ("compressai",), "aot checkerboard",
+                            card)
+        fresh = cb_model(card)
+        want = {"slice_transform": 6 * live.num_slices,
+                "lane_decode_round": 0, "gdn": 0, "lane_encode_rounds": 0}
+        label = "aot checkerboard compressai"
+    load_package(fresh, path)
+    compare, launches = aot_compare(live, fresh, imgs, "compressai", label,
+                                    want, card)
+    out = {"label": label, "export": export, "compare": compare,
+           "launches": launches}
+    del live, fresh
+    torch.cuda.empty_cache()
+    if cpu_check is not None:
+        out["cross_platform"] = aot_cpu_result(cpu_check, card)
+    print("aot_child " + json.dumps(out), flush=True)
+
+
+def aot_child_start(kind: str, path: str) -> dict:
+    """Starts ``aot_child(kind, path)``, its output to a file beside the
+    package."""
+    log = path + ".log"
+    with open(log, "wb") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.aot_child(sys.argv[1], sys.argv[2])", kind, path],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
+    return {"kind": kind, "proc": proc, "log": log,
+            "t0": time.perf_counter()}
+
+
+def aot_child_end(child: dict) -> dict:
+    """Waits for a child of ``aot_child_start``, prints its lines, and
+    returns its figures (its ``process_s`` added); fails if it failed."""
+    proc = child["proc"]
+    try:
+        proc.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(child["log"], errors="replace") as f:
+        lines = f.read().splitlines()
+    res = None
+    for line in lines:
+        if line.startswith("aot_child "):
+            res = json.loads(line[len("aot_child "):])
+        else:
+            print(line)
+    check(proc.returncode == 0 and res is not None,
+          f"phase 24's {child['kind']} process failed (exit "
+          f"{proc.returncode}): {lines[-5:]}")
+    res["process_s"] = time.perf_counter() - child["t0"]
+    return res
+
+
+def aot_phase(imgs, card: str) -> tuple:
+    """Phase 24: AOT serving packages (module doc).  The GDN path's and the
+    checkerboard's packages are made and held in processes of their own
+    (``aot_child``) while this one makes and holds the flagship's and the
+    two servers start; the timed turns (in process and served) run after
+    those processes end, with nothing else running."""
+    import tempfile
+
+    import torch
+
+    from crdr_tpu_torch.runtime.aot import aot_counts, load_package
+
+    t_phase = time.perf_counter()
+    res, counts = {}, {}
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        children = [aot_child_start(k, os.path.join(tmp, k))
+                    for k in ("gdn", "cb")]
+        servers = None
+        try:
+            flag = os.path.join(tmp, "flagship")
+            live = build_model(card)
+            res["flagship_export"] = aot_export(
+                live, flag, ("compressai", "device"), "aot flagship", card)
+            servers = cold_start_begin(flag)
+            fresh = build_model(card)
+            t0 = time.perf_counter()
+            load_package(fresh, flag)
+            res["flagship_load_s"] = time.perf_counter() - t0
+            for wire in ("compressai", "device"):
+                label = f"aot flagship {wire}"
+                want = device_wire_expected(live, "device") \
+                    if wire == "device" else {
+                        "slice_transform": 6 * live.num_slices,
+                        "lane_decode_round": 0, "gdn": 0,
+                        "lane_encode_rounds": 0}
+                res[label], counts[label] = aot_compare(
+                    live, fresh, imgs, wire, label, want, card)
+            # phase 23's batch mesh with the package: 8 images, a recorded
+            # bucket of 4 a replica
+            two = mesh_model(card, [card_device()] * 2, serving_devices=2)
+            load_package(two, flag)
+            set_wire((live, two), "compressai")
+            eight = np.concatenate([imgs, imgs[::-1]])
+            want = live.compress_batch(eight, rate_ind=RATE)
+            got = two.compress_batch(eight, rate_ind=RATE)
+            check([e["string_list"] for e in want] ==
+                  [e["string_list"] for e in got],
+                  "aot mesh: package streams != one device's live streams")
+            f2 = two.decompress_batch([e["string_list"] for e in got],
+                                      beta=BETA)
+            check_round_trip("aot mesh", got[:N_IMG], f2[0][:N_IMG],
+                             f2[2][:N_IMG])
+            res["mesh"] = {"counts": aot_counts(two)}
+            print(f"aot mesh: 2 replicas on {card_device()}, 8 images of "
+                  f"{IMG_W}x{IMG_H} (4 a replica): streams byte-equal to one "
+                  f"device's live streams; hits / misses "
+                  f"{res['mesh']['counts']} [{card}]")
+            del two
+            gc.collect()
+            torch.cuda.empty_cache()
+            for child in children:
+                out = aot_child_end(child)
+                label = out.pop("label")
+                key = "gdn" if child["kind"] == "gdn" else "cb"
+                res[f"{key}_export"] = out.pop("export")
+                res[label] = out.pop("compare")
+                counts[label] = out.pop("launches")
+                res[f"{key}_process_s"] = out.pop("process_s")
+                if "cross_platform" in out:
+                    res["cross_platform"] = out.pop("cross_platform")
+            children = []
+            for wire in ("compressai", "device"):
+                label = f"aot flagship {wire}"
+                res[label].update(aot_turns(live, fresh, imgs, wire, label,
+                                            card))
+            del live, fresh
+            torch.cuda.empty_cache()
+            res["cold_start"] = cold_start_end(servers, card)
+            servers = None
+        finally:
+            for child in children:
+                child["proc"].kill()
+                child["proc"].wait()
+            for srv in (servers or {}).values():
+                if isinstance(srv, dict):
+                    srv["proc"].kill()
+                    srv["proc"].wait()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"AOT phase: {res['phase_s']:.1f} s [{card}]")
+    return res, counts
+
+
 def main() -> None:
     try:
         import torch
@@ -5470,6 +6074,7 @@ def main() -> None:
     resize = resize_phase(card)
     data_parallel, counts_dp = dp_phase(card)
     serving_mesh, counts_mesh = mesh_phase(imgs, card)
+    aot, counts_aot = aot_phase(imgs, card)
 
     print("training " + json.dumps(train))
     print("serving " + json.dumps(serving))
@@ -5477,6 +6082,7 @@ def main() -> None:
     print("resize_range " + json.dumps(resize))
     print("data_parallel " + json.dumps(data_parallel))
     print("serving_mesh " + json.dumps(serving_mesh))
+    print("aot " + json.dumps(aot))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
@@ -5484,7 +6090,7 @@ def main() -> None:
                 **counts_m, **counts_t, **counts_e,
                 "flagship device encoder": counts_f, **counts_cb,
                 **counts_gw, **counts_tr, **counts_sv, **counts_ev,
-                **counts_fam, **counts_dp, **counts_mesh}
+                **counts_fam, **counts_dp, **counts_mesh, **counts_aot}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",

@@ -20,7 +20,16 @@ Several devices: the config's ``serving_devices`` / ``serving_partition``
 (``models/codec.py``) serve each dispatch over a mesh, one model replica a
 device: ``cuda:0 .. N-1`` (fewer cards raise before the model is built),
 or the devices ``--mesh_devices`` lists (``cuda:0,cuda:0``: two replicas
-on one card).  ``--aot_package`` is not ported and raises.
+on one card).
+
+``--aot_package`` attaches an AOT serving package
+(``cli/export_serving.py``, ``runtime/aot.py``) after ``codec_setup``: a
+dispatch whose signature the package holds runs its exported program,
+any other runs live.  On a serving mesh each replica's share dispatches
+through it, keyed by its own shapes and device.  A package is no speed-up
+in eager PyTorch: on an H100 (``chip_smoke.py`` phase 24) a fresh serve
+process answered /decompress about 3x slower with one than without, cause
+not established; the CLI warns when one is given.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import logging
 
 from ..models import build_comp_model
 from ..models.codec import serving_mesh
+from ..runtime.aot import load_package
 from ..runtime.cache import warm_kernel_cache
 from ..utils.config import Config
 
@@ -53,7 +63,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--wire", choices=["compressai", "device"], default=None,
                     help="override the bitstream wire format")
     ap.add_argument("--aot_package", default=None,
-                    help="AOT serving package (not ported yet: refused)")
+                    help="AOT serving package (cli/export_serving.py): "
+                         "matching requests run its exported programs")
     ap.add_argument("-d", "--device", type=str, default="cuda",
                     help="torch device (default cuda; cpu on request)")
     ap.add_argument("--mesh_devices", type=str, default=None,
@@ -65,12 +76,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_model(args: argparse.Namespace):
     """The served model: the config's model on ``args.device``, the
     checkpoint loaded (or the seeded init, with a warning), the codec set
-    up, the wire overridden, and every kernel library of its path built."""
-    if getattr(args, "aot_package", None):
-        raise NotImplementedError(
-            "--aot_package: AOT export (torch.export with the kernels as "
-            "custom ops, or CUDA graphs per shape bucket) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 9)")
+    up, the wire overridden, every kernel library of its path built, and
+    the AOT package attached when one is given."""
     cfg = Config.from_file(args.config)
     cfg["is_train"] = False
     mesh = args.mesh_devices.split(",") if args.mesh_devices else None
@@ -86,6 +93,13 @@ def build_model(args: argparse.Namespace):
     model.codec_setup(mesh)
     built = warm_kernel_cache(model)
     logger.info(f"kernel libraries ready: {sorted(built)}")
+    if getattr(args, "aot_package", None):
+        pkg = load_package(model, args.aot_package, logger=logger)
+        logger.info(f"aot package: {len(pkg.manifest['entries'])} programs "
+                    f"({args.aot_package})")
+        logger.warning("aot package: no speed-up in eager PyTorch; on an "
+                       "H100 /decompress from a package measured about 3x "
+                       "slower than live (PERF.md)")
     return model
 
 

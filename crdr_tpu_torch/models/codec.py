@@ -56,6 +56,15 @@ images, and the synthesis takes ``rate_ind`` / ``beta`` as one row per
 image: every call has one shape, so cuDNN and cuBLAS make one algorithm
 choice, and no convolution or matmul mixes images.
 
+Device programs.  Each program above is a method decorated
+``@program(name)`` (``runtime/aot.py``), named after JAX's: a plain call,
+unless an AOT recorder or package is attached (``record_serving_roundtrip``,
+``load_package``).  The TF32 flags are read when a convolution runs, not
+traced into an exported graph, so a program runs inside one precision
+section: the transforms are programs of their own (``encode_latents``,
+``decode_image``, one fixed-batch call each), and JAX's ``encode_head`` /
+``decode_final`` / ``cb_final`` are the chain's part here.
+
 Wires: ``wire_format: compressai`` (host C++ rANS, decoded between the
 slice steps, or, for the generic family, each image's stream in one call)
 and ``wire_format: device`` (lane rans32, decoded on the GPU by K2 with no
@@ -105,6 +114,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import itertools
 import math
 import os
 import threading
@@ -124,6 +134,7 @@ from ..ops.charm_uniform import (kernel_stacks, pack_charm_weights,
                                  uniform_decode_step, uniform_reconstruct_last)
 from ..parallel.mesh import make_mesh, shard_rows
 from ..parallel.spatial import grid_margin, join_rows, split_rows, tile_plan
+from ..runtime.aot import program
 from ..subnet.context_model.checkerboard import anchor_mask
 from ..utils.codec_utils import HeaderHandler, MultiRateHeaderHandler
 from ..utils.img_utils import pad_image, uint8_to_tensor
@@ -394,6 +405,7 @@ class CodecMixin:
 
     def _setup_tables(self) -> None:
         """The codec state of the model's own device (``codec_setup``)."""
+        self.__dict__.pop("_aot_tensor_cache", None)  # runtime/aot.py
         self.wire_format = self.opt.get("wire_format", "compressai")
         if self.wire_format not in ("compressai", "device"):
             raise ValueError(f"wire_format {self.wire_format!r}: compressai "
@@ -489,7 +501,12 @@ class CodecMixin:
             x = x.to(tdt)
             if rate_ind is not None:
                 rate_ind = rate_ind.to(tdt)
-        y, z = self._analysis(x, rate_ind)
+        return self._z_head(*self._analysis(x, rate_ind))
+
+    @program("encode_head")
+    def _z_head(self, y: Tensor, z: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+        """``encode_head`` after the transforms, at the chain's precision:
+        z rounded around the medians, z bits, NHWC."""
         y, z = y.float(), z.float()
         med = self.net.entropy_model_z.medians()[None, :, None, None]
         z_sym = torch.round(z - med)
@@ -497,6 +514,13 @@ class CodecMixin:
         pred_z_bits = -torch.sum(torch.log2(torch.clamp(z_lik, min=1e-12)),
                                  dim=(1, 2, 3))
         return _nhwc(y), _nhwc(z_sym), pred_z_bits
+
+    @program("encode_latents")
+    def _encode_latents(self, x: Tensor, rate_ind) -> Tuple[Tensor, Tensor]:
+        """Analysis + hyper-analysis of one fixed-batch call, at the
+        transforms' precision."""
+        return self.net.encode_latents(x, rate_ind, self._enc_t,
+                                       self._henc_t)
 
     def _analysis(self, x: Tensor, rate_ind) -> Tuple[Tensor, Tensor]:
         """Analysis + hyper-analysis of NCHW ``x`` at the fixed batch
@@ -509,9 +533,8 @@ class CodecMixin:
             per_image = rate_ind is not None and rate_ind.numel() > 1
 
             def call(xi, ri):
-                return self.net.encode_latents(
-                    xi, rate_ind if ri is None else ri, self._enc_t,
-                    self._henc_t)
+                return self._encode_latents(xi,
+                                            rate_ind if ri is None else ri)
 
             with _tf32(self._transform_tf32):
                 return _fixed_batches(call, x, rate_ind if per_image else None)
@@ -589,6 +612,7 @@ class CodecMixin:
         hyper = torch.cat([self.net.hyper_decode(zi) for zi in zc.split(1)])
         return tuple(_nhwc(t) for t in torch.chunk(hyper, 2, dim=1)), z_hat
 
+    @program("generic_params")
     def generic_params(self, z_sym: Tensor):
         """The generic family's entropy parameters, the ONE function both the
         encoder's replay and the decoder call: z dequantize, hyper-decode,
@@ -598,6 +622,7 @@ class CodecMixin:
         return z_hat, mean, scale, build_indexes(scale, self._table,
                                                  self.scale_bound)
 
+    @program("decode_begin")
     def decode_begin(self, z_sym: Tensor):
         """z dequantize + hyper-decode + the slice-0 entropy params.
         Returns (hm, hs, support, mu0, sigma0, idx0, z_hat), NHWC."""
@@ -610,10 +635,12 @@ class CodecMixin:
             self._packed, 0, hm, hs, support, zeros, zeros, *self._step_args())
         return hm, hs, support, mu, sigma, idx, z_hat
 
+    @program("quantize_slice")
     def quantize_slice(self, y: Tensor, i: int, mu: Tensor) -> Tensor:
         sc = self.slice_ch
         return torch.round(y[..., i * sc:(i + 1) * sc] - mu)
 
+    @program("charm_uniform")
     def charm_step(self, i: int, hm: Tensor, hs: Tensor, support: Tensor,
                    sym: Tensor, mu: Tensor):
         """Reconstruct slice i-1, params for slice i: the one step both the
@@ -642,10 +669,17 @@ class CodecMixin:
                 y_prev, support, mu, sigma, idx = self.charm_step(
                     i + 1, hm, hs, support, sym, mu)
                 y_slices.append(y_prev)
+        return self._replay_pack(hm, support, syms, idxs, sigmas, y_slices,
+                                 mu) + (z_hat,)
+
+    @program("replay_pack")
+    def _replay_pack(self, hm, support, syms, idxs, sigmas, y_slices, mu):
+        """The Charm replay's tail: the last slice finished, the per-slice
+        symbols, CDF rows, scales and y_hat joined."""
         y_last = self._reconstruct_last(hm, support, syms[-1], mu)
         return (torch.cat(syms, dim=-1), torch.cat(idxs, dim=-1),
-                torch.cat(sigmas, dim=-1), torch.cat(y_slices + [y_last], -1),
-                z_hat)
+                torch.cat(sigmas, dim=-1),
+                torch.cat(list(y_slices) + [y_last], -1))
 
     def _generic_replay(self, y: Tensor, z_sym: Tensor):
         """Generic encode: the decoder's ``generic_params``, then the
@@ -678,6 +712,7 @@ class CodecMixin:
         n, h, w, sc = grid.shape
         return grid.reshape(n, h * w, sc).index_select(1, ids).reshape(n, -1)
 
+    @program("cb_begin")
     def cb_begin(self, z_sym: Tensor):
         """z dequantize + hyper-decode and the zero loop carries.  Returns
         (hm, hs, support, sym_na (zeros, [N, non-anchor cells * sc]), y_a,
@@ -691,6 +726,7 @@ class CodecMixin:
         sym_na = torch.zeros((n, (h * w // 2) * sc), device=self.device)
         return hm, hs, support, sym_na, zeros, zeros, z_hat
 
+    @program("cb_a_dev")
     def cb_a_dev(self, i: int, hm: Tensor, hs: Tensor, support: Tensor,
                  sym_na: Tensor, y_a: Tensor, mu_c: Tensor, a_ids: Tensor,
                  na_ids: Tensor):
@@ -705,6 +741,7 @@ class CodecMixin:
             self.max_support_slices, self.fused_slice_kernel)
         return y_prev, support, mu, sigma, self._cb_gather(idx, a_ids)
 
+    @program("cb_b_dev")
     def cb_b_dev(self, i: int, sym_a: Tensor, mu: Tensor, sigma: Tensor,
                  a_ids: Tensor, na_ids: Tensor):
         """Phase B of slice i: the anchor symbols scattered, the spatial
@@ -716,6 +753,7 @@ class CodecMixin:
             self._table, self.scale_bound)
         return y_a, mu_c, sigma_c, self._cb_gather(idx, na_ids)
 
+    @program("cb_quant")
     def cb_quant(self, y: Tensor, i: int, mu: Tensor, ids: Tensor) -> Tensor:
         """Slice i of y rounded (half to even, as ``jnp.round``) around the
         mu a phase just gave, in gather order, int16 (the symbols' type
@@ -728,12 +766,20 @@ class CodecMixin:
                  rate_ind, beta):
         """The last round's non-anchors scattered, the last slice finished,
         synthesis.  Returns (image NHWC, y_hat NHWC)."""
+        y_hat = self._cb_final_y(hm, support, sym_na, y_a, mu_c, y_slices,
+                                 na_ids)
+        return self._synthesis(y_hat, rate_ind, beta), y_hat
+
+    @program("cb_final")
+    def _cb_final_y(self, hm, support, sym_na, y_a, mu_c, y_slices, na_ids):
+        """``cb_final`` before the synthesis, at the chain's precision:
+        y_hat NHWC."""
         y_last = cb_reconstruct_last(
             self._packed, hm, support, self._cb_scatter(sym_na, na_ids, hm),
             y_a, mu_c, self.num_slices, self.fused_slice_kernel)
-        y_hat = torch.cat(list(y_slices) + [y_last], dim=-1)
-        return self._synthesis(y_hat, rate_ind, beta), y_hat
+        return torch.cat(list(y_slices) + [y_last], dim=-1)
 
+    @program("cb_replay_pack")
     def cb_replay_pack(self, hm, support, sym_na, y_a, mu_c, y_slices,
                        syms_a, syms_na, idxs_a, idxs_na, sigmas, sigmas_c,
                        a_ids, na_ids):
@@ -764,9 +810,15 @@ class CodecMixin:
     def decode_final(self, hm, support, sym, mu, y_slices, rate_ind, beta):
         """Last-slice reconstruction + synthesis.  Returns (image NHWC, see
         ``_synthesis``; y_hat NHWC)."""
-        y_last = self._reconstruct_last(hm, support, sym, mu)
-        y_hat = torch.cat(list(y_slices) + [y_last], dim=-1)
+        y_hat = self._final_y(hm, support, sym, mu, y_slices)
         return self._synthesis(y_hat, rate_ind, beta), y_hat
+
+    @program("decode_final")
+    def _final_y(self, hm, support, sym, mu, y_slices) -> Tensor:
+        """``decode_final`` before the synthesis, at the chain's
+        precision: y_hat NHWC."""
+        y_last = self._reconstruct_last(hm, support, sym, mu)
+        return torch.cat(list(y_slices) + [y_last], dim=-1)
 
     def _synthesis(self, y_hat: Tensor, rate_ind, beta) -> Tensor:
         """Synthesis of NHWC ``y_hat`` at the fixed batch
@@ -809,11 +861,74 @@ class CodecMixin:
             conds = [None if t is None else t.to(tdt) for t in conds]
 
         def call(yi, ri, bi):
-            return (self.net.decode(yi, ri, bi, self._dec_t),)
+            return (self._decode_image(yi, ri, bi),)
 
         with _tf32(self._transform_tf32):
             img, = _fixed_batches(call, yc, *conds)
         return img
+
+    @program("decode_image")
+    def _decode_image(self, y: Tensor, rate_ind, beta) -> Tensor:
+        """The decoder on one fixed-batch call, at the transforms'
+        precision."""
+        return self.net.decode(y, rate_ind, beta, self._dec_t)
+
+    # ---------------- AOT packages (runtime/aot.py) --------------------------
+
+    def _aot_modules(self) -> List[Tuple[str, torch.nn.Module]]:
+        """(prefix, module) of the modules whose tensors programs read: the
+        net, and the bf16 transform copies when there are any."""
+        inside = {id(m) for m in self.net.modules()}
+        return [("net", self.net)] + [
+            (p, m) for p, m in (("enc_t", self._enc_t),
+                                ("henc_t", self._henc_t),
+                                ("dec_t", self._dec_t)) if id(m) not in inside]
+
+    def _aot_tensors(self) -> Dict[str, Tensor]:
+        """Every model tensor a program may read, by name: the modules'
+        parameters and buffers, the packed stacks, the scale table, K2's
+        lane tables.  Inputs of an exported program, fed from here."""
+        out = {f"{p}.{n}": t for p, mod in self._aot_modules()
+               for n, t in itertools.chain(mod.named_parameters(),
+                                           mod.named_buffers())}
+        out.update({f"packed.{k}": t
+                    for k, t in getattr(self, "_packed", {}).items()})
+        out["table"] = self._table
+        for tab in ("ytab", "ztab"):
+            lt = getattr(self, "_" + tab)
+            out.update({f"{tab}.{f}": getattr(lt, f)
+                        for f in ("cdf", "cdf_len", "cdf_off", "buf")})
+        return out
+
+    @contextlib.contextmanager
+    def _aot_swapped(self, tensors: Dict[str, Tensor]):
+        """Inside the block the model reads ``tensors`` (names of
+        ``_aot_tensors``) in place of its own (an export's inputs)."""
+        from torch.nn.utils.stateless import _reparametrize_module
+
+        def part(prefix):
+            return {n[len(prefix) + 1:]: t for n, t in tensors.items()
+                    if n.startswith(prefix + ".")}
+
+        saved = {a: self.__dict__[a] for a in ("_packed", "_table", "_ytab",
+                                               "_ztab") if a in self.__dict__}
+        try:
+            with contextlib.ExitStack() as stack:
+                for prefix, mod in self._aot_modules():
+                    if part(prefix):
+                        stack.enter_context(
+                            _reparametrize_module(mod, part(prefix)))
+                if part("packed"):
+                    self._packed = {**self._packed, **part("packed")}
+                if "table" in tensors:
+                    self._table = tensors["table"]
+                for tab in ("ytab", "ztab"):
+                    if part(tab):
+                        setattr(self, "_" + tab,
+                                getattr(self, "_" + tab)._replace(**part(tab)))
+                yield
+        finally:
+            self.__dict__.update(saved)
 
     # ---------------- compress ---------------------------------------------------
 

@@ -55,6 +55,7 @@ from ..ops.device_rans import apply_fixups, encode_grid, init_lane_state
 from ..ops.lane_decode import (LaneTable, lane_decode_round,
                                prepare_lane_table)
 from ..ops.lane_encode import lane_encode_rounds
+from ..runtime.aot import program
 from ..runtime.lane_rans import (LANE_MAGIC, lane_encode, pack_lane_container,
                                  unpack_lane_container)
 from ..subnet.context_model.checkerboard import split_checkerboard
@@ -180,17 +181,9 @@ class DeviceWireCodecMixin:
         kept): only the lane lengths and escape counts, then the coded words
         and fixups, come home.  Returns (y strings, z strings, meta)."""
         n = symbols.shape[0]
-        yt, zt = self._ytab, self._ztab
-        sym_l = symbols.reshape(n, -1).index_select(1, st.perm) \
-            .to(torch.int32)
-        idx_l = indexes.reshape(n, -1).index_select(1, st.perm)
-        y = lane_encode_rounds(sym_l, idx_l, st.grid_y, yt.cdf, yt.cdf_len,
-                               yt.cdf_off, None)
-        z = lane_encode_rounds(z_sym.reshape(n, -1).to(torch.int32),
-                               st.zidx.expand(n, -1), st.grid_z, zt.cdf,
-                               zt.cdf_len, zt.cdf_off, None)
-        head = torch.cat([y[1], y[4][:, None], z[1], z[4][:, None],
-                          meta.view(torch.int32)], 1).cpu().numpy()
+        y, z, head = self._lane_encode(symbols, indexes, z_sym, meta,
+                                       st.perm, st.grid_y, st.grid_z, st.zidx)
+        head = head.cpu().numpy()
         ky, kz = y[1].shape[1], z[1].shape[1]
         y_lens, y_esc = head[:, :ky], head[:, ky]
         z_lens, z_esc = head[:, ky + 1:ky + 1 + kz], head[:, ky + 1 + kz]
@@ -215,6 +208,27 @@ class DeviceWireCodecMixin:
         z_str = containers(zw, kz, z_lens, zfp, zfv, z_esc)
         timing["host_rans_s"] = time.perf_counter() - t0
         return y_str, z_str, meta
+
+    @program("lane_wire")
+    def _lane_encode(self, symbols: Tensor, indexes: Tensor, z_sym: Tensor,
+                     meta: Tensor, perm: Tensor, grid_y: Tensor,
+                     grid_z: Tensor, zidx: Tensor):
+        """The device part of ``_lane_wire_dev``: y and z in lane order
+        through E1, and the head (lane lengths, escape counts, meta as
+        int32) that comes home first.  Returns (y's and z's
+        ``lane_encode_rounds``, head)."""
+        n = symbols.shape[0]
+        yt, zt = self._ytab, self._ztab
+        sym_l = symbols.reshape(n, -1).index_select(1, perm).to(torch.int32)
+        idx_l = indexes.reshape(n, -1).index_select(1, perm)
+        y = lane_encode_rounds(sym_l, idx_l, grid_y, yt.cdf, yt.cdf_len,
+                               yt.cdf_off, None)
+        z = lane_encode_rounds(z_sym.reshape(n, -1).to(torch.int32),
+                               zidx.expand(n, -1), grid_z, zt.cdf,
+                               zt.cdf_len, zt.cdf_off, None)
+        head = torch.cat([y[1], y[4][:, None], z[1], z[4][:, None],
+                          meta.view(torch.int32)], 1)
+        return y, z, head
 
     def _encode_cb_replay(self, y: Tensor, z_sym: Tensor):
         """Checkerboard encode by replay of the decoder's phases:
@@ -320,14 +334,15 @@ class DeviceWireCodecMixin:
         return torch.arange(self.codec_z.channels, dtype=torch.int32,
                             device=self.device).repeat(n, zh * zw)
 
-    @staticmethod
-    def _rans_round(lanes: Lanes, state, idx: Tensor, lo: int,
-                    table: LaneTable
-                    ) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
+    @program("rans_round")
+    def rans_round(self, lanes: Lanes, state, idx: Tensor, lo: int,
+                   which: str) -> Tuple[Tensor, Tuple[Tensor, Tensor]]:
         """One K2 round over ``idx`` [N, ...] (CDF rows in decode order) with
-        the fixups of [lo, lo + m) overlaid.  ``state`` (states, ptrs) carries
-        from the previous round (None: seed from the words).  Returns the
-        symbols as f32 shaped like ``idx`` and the new state."""
+        the fixups of [lo, lo + m) overlaid, on the ``which`` ("y" / "z")
+        table.  ``state`` (states, ptrs) carries from the previous round
+        (None: seed from the words).  Returns the symbols as f32 shaped like
+        ``idx`` and the new state."""
+        table = self._ytab if which == "y" else self._ztab
         words, fix_pos, fix_val, fix_act = lanes
         if state is None:
             state = init_lane_state(words)
@@ -362,8 +377,7 @@ class DeviceWireCodecMixin:
         state = None
         y_slices: List[Tensor] = []
         for i in range(self.num_slices):
-            sym, state = self._rans_round(y_lanes, state, idx, i * m,
-                                          self._ytab)
+            sym, state = self.rans_round(y_lanes, state, idx, i * m, "y")
             if i < self.num_slices - 1:
                 y_prev, support, mu, _sigma, idx = self.charm_step(
                     i + 1, hm, hs, support, sym, mu)
@@ -377,9 +391,8 @@ class DeviceWireCodecMixin:
         streams, else the host-decoded legacy symbols as they are."""
         if not isinstance(z, tuple):
             return z
-        return self._rans_round(
-            z, None, self._zidx(n, zh, zw).reshape(n, zh, zw, -1), 0,
-            self._ztab)[0]
+        return self.rans_round(
+            z, None, self._zidx(n, zh, zw).reshape(n, zh, zw, -1), 0, "z")[0]
 
     def _cb_device_chain(self, z, y_lanes: Lanes, zh: int, zw: int,
                          rate_ind: Tensor, beta: Tensor):
@@ -398,13 +411,12 @@ class DeviceWireCodecMixin:
                 i, hm, hs, support, sym_na, y_a, mu_c, a_ids, na_ids)
             if i > 0:
                 y_slices.append(y_prev)
-            sym_a, state = self._rans_round(y_lanes, state, idx_a, lo,
-                                            self._ytab)
+            sym_a, state = self.rans_round(y_lanes, state, idx_a, lo, "y")
             lo += idx_a.shape[1]
             y_a, mu_c, _sigma_c, idx_na = self.cb_b_dev(i, sym_a, mu, sigma,
                                                         a_ids, na_ids)
-            sym_na, state = self._rans_round(y_lanes, state, idx_na, lo,
-                                             self._ytab)
+            sym_na, state = self.rans_round(y_lanes, state, idx_na, lo,
+                                            "y")
             lo += idx_na.shape[1]
         fake, y_hat = self.cb_final(hm, support, sym_na, y_a, mu_c,
                                     y_slices, na_ids, rate_ind, beta)
@@ -420,7 +432,7 @@ class DeviceWireCodecMixin:
         n = y_lanes[0].shape[0]
         z_hat, mean, _scale, idx = self.generic_params(
             self._lane_z(z, n, zh, zw))
-        sym, _ = self._rans_round(y_lanes, None, idx, 0, self._ytab)
+        sym, _ = self.rans_round(y_lanes, None, idx, 0, "y")
         y_hat = sym + mean
         return self._synthesis(y_hat, rate_ind, beta), z_hat, y_hat
 

@@ -46,6 +46,7 @@ import torch
 
 from ..entropy import EntropyBottleneck, UniformNoise
 from ..nn import GDN, Conv2d, ConvTranspose2d, Dense, InterpChAtt
+from ..runtime.aot import AotSlot
 from ..utils.config import ConfigDict
 from ..utils.device import resolve_device
 from ..utils.img_utils import (calc_ms_ssim, calc_psnr, crop_image, imwrite,
@@ -120,6 +121,7 @@ class BaseModel(CodecMixin, DeviceWireCodecMixin):
             self.max_support_slices = cm.get("max_support_slices", 5)
         self.codec_z = None
         self.codec_y = None
+        self._aot = AotSlot()  # AOT package / recorder (runtime/aot.py)
 
     # ---------------- parameters ---------------------------------------------
 

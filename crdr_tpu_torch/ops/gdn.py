@@ -5,22 +5,24 @@ Replaces the Pallas TPU kernel ``crdr_tpu/ops/pallas_gdn.py::pallas_gdn``:
 inverse, with ``gamma`` stored ``[C_out, C_in]`` (the torch conv1x1 layout)
 and the product accumulated in f32.  Tensors here are NCHW.
 
-* ``gdn`` is the wrapper ``nn.norm.GDN`` calls.  On a CUDA tensor it
-  launches ``csrc/gdn.cu`` (built with nvcc for sm_90a into
+* ``gdn`` is the wrapper ``nn.norm.GDN`` calls, the registered op
+  ``crdr::gdn`` (one node of an exported program).  On a CUDA tensor its
+  CUDA implementation launches ``csrc/gdn.cu`` (built with nvcc for sm_90a into
   ``build/crdr_tpu_torch/`` at first use, loaded with ctypes), handing it
   ``gamma^T``, or raises: for a dtype other than float32, a non-contiguous
   ``x``, or a channel count the kernel's tile plan does not take.  It never
-  falls back to the twin.  On a CPU tensor it runs ``gdn_plain``.
+  falls back to the twin.  On a CPU tensor its CPU implementation runs
+  ``gdn_plain``.
   ``gdn.launches`` counts kernel launches.
 * ``gdn_plain`` is the plain PyTorch version: ``gamma`` as a 1x1
   convolution of ``x * x`` plus ``beta`` (TF32 off), then ``rsqrt`` /
   ``sqrt`` times ``x``.
 
-``gdn`` runs through ``GDNFunction``, so its output has a ``grad_fn``
-whenever an input needs a gradient: the forward is the kernel (the twin on
-the CPU), the backward the twin's math
-in plain PyTorch, recomputed through ``gdn_plain`` (the JAX package has no
-backward kernel for GDN either: ``pallas_gdn`` has no custom VJP).  The
+The op has a gradient (``register_autograd``), so its output has a
+``grad_fn`` whenever an input needs one: the forward is the kernel (the
+twin on the CPU), the backward the op ``crdr::gdn_backward``: autograd of
+``gdn_plain`` with TF32 off (the JAX package has no backward kernel for GDN
+either: ``pallas_gdn`` has no custom VJP).  The
 source note in the .cu file states the bound and the design.
 """
 
@@ -28,11 +30,10 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from ..utils.device import (build_library, count_launch, nvcc_command,
                             package_path)
@@ -74,8 +75,8 @@ def gdn_plain(x: Tensor, beta: Tensor, gamma: Tensor,
 
     TF32 is off for the forward's convolution only: autograd runs the
     backward's convolutions later, outside these flags, so on the card they
-    use TF32 (PyTorch's cuDNN default) unless the caller turns it off, as
-    ``GDNFunction.backward`` does."""
+    use TF32 (PyTorch's cuDNN default) unless the caller turns it off (the
+    op's backward, ``crdr::gdn_backward``, runs with TF32 off)."""
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                      deterministic=True, allow_tf32=False):
         norm = F.conv2d(x * x, gamma[:, :, None, None], beta)
@@ -93,12 +94,9 @@ def occupancy(c: int) -> dict:
             "smem_bytes": res[2]}
 
 
-def _forward(x: Tensor, beta: Tensor, gamma: Tensor, inverse: bool) -> Tensor:
-    """The kernel on a CUDA tensor (or a raise), the twin on a CPU one."""
-    if x.device.type == "cpu":
-        return gdn_plain(x, beta, gamma, inverse)
-    if x.device.type != "cuda":
-        raise ValueError(f"gdn: unsupported device {x.device}")
+@torch.library.custom_op("crdr::gdn", mutates_args=(), device_types="cuda")
+def _gdn_op(x: Tensor, beta: Tensor, gamma: Tensor, inverse: bool) -> Tensor:
+    """The kernel: the checks, one counted launch (or a raise)."""
     if x.dim() != 4:
         raise ValueError(f"gdn: x must be NCHW, got shape {tuple(x.shape)}")
     n, c, h, w = x.shape
@@ -134,37 +132,61 @@ def _forward(x: Tensor, beta: Tensor, gamma: Tensor, inverse: bool) -> Tensor:
     return out
 
 
-class GDNFunction(torch.autograd.Function):
-    """GDN with a gradient: the kernel (or the twin) forward, the twin's
-    math backward, recomputed through ``gdn_plain`` with TF32 off."""
+@_gdn_op.register_kernel("cpu")
+def _gdn_cpu(x, beta, gamma, inverse):
+    return gdn_plain(x, beta, gamma, inverse)
 
-    @staticmethod
-    def forward(ctx, x, beta, gamma, inverse):
-        ctx.save_for_backward(x, beta, gamma)
-        ctx.inverse = inverse
-        return _forward(x, beta, gamma, inverse)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        need = ctx.needs_input_grad[:3]
-        leaves = [t.detach().requires_grad_(r)
-                  for t, r in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad(), torch.backends.cudnn.flags(
-                enabled=True, benchmark=False, deterministic=True,
-                allow_tf32=False):
-            out = gdn_plain(*leaves, ctx.inverse)
-            got = iter(torch.autograd.grad(
-                out, [t for t, r in zip(leaves, need) if r], grad))
-        return tuple(next(got) if r else None for r in need) + (None,)
+@_gdn_op.register_fake
+def _gdn_fake(x, beta, gamma, inverse):
+    return torch.empty_like(x)
+
+
+def _gdn_setup_context(ctx, inputs, output):
+    x, beta, gamma, inverse = inputs
+    ctx.save_for_backward(x, beta, gamma)
+    ctx.inverse = inverse
+
+
+@torch.library.custom_op("crdr::gdn_backward", mutates_args=())
+def _gdn_backward_op(grad: Tensor, x: Tensor, beta: Tensor, gamma: Tensor,
+                     inverse: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    """The gradients of x, beta and gamma: autograd of ``gdn_plain`` with
+    TF32 off (the JAX package has no backward kernel either).  An op of its
+    own, so that a traced graph (``torch.compile``) keeps it whole: the TF32
+    setting is read when the convolutions run, not traced."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                     deterministic=True, allow_tf32=False):
+        _, vjp = torch.func.vjp(
+            lambda a, b, c: gdn_plain(a, b, c, inverse), x, beta, gamma)
+        return vjp(grad)
+
+
+@_gdn_backward_op.register_fake
+def _gdn_backward_fake(grad, x, beta, gamma, inverse):
+    return (torch.empty_like(x), torch.empty_like(beta),
+            torch.empty_like(gamma))
+
+
+def _gdn_backward(ctx, grad):
+    grads = torch.ops.crdr.gdn_backward(grad, *ctx.saved_tensors,
+                                        ctx.inverse)
+    return tuple(g if r else None for g, r in
+                 zip(grads, ctx.needs_input_grad[:3])) + (None,)
+
+
+_gdn_op.register_autograd(_gdn_backward, setup_context=_gdn_setup_context)
 
 
 def gdn(x: Tensor, beta: Tensor, gamma: Tensor,
         inverse: bool = False) -> Tensor:
     """GDN of NCHW ``x`` with the reparameterized ``beta`` [C] and ``gamma``
-    [C_out, C_in]; the kernel on the card, the plain twin on the CPU, and a
-    ``grad_fn`` whenever an input needs a gradient."""
-    return GDNFunction.apply(x, beta, gamma, inverse)
+    [C_out, C_in]: the op ``crdr::gdn``, the kernel on the card, the plain
+    twin on the CPU, and a ``grad_fn`` whenever an input needs a
+    gradient."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gdn: unsupported device {x.device}")
+    return torch.ops.crdr.gdn(x, beta, gamma, bool(inverse))
 
 
 gdn.launches = 0

@@ -16,12 +16,14 @@ one round to the next.
 * ``lane_plan`` picks, from the shapes and the card's shared-memory limit
   alone, whether the table goes to shared memory or stays in global
   memory.
-* On a CUDA tensor ``lane_decode_round`` launches ``csrc/lane_decode.cu``
-  (built with nvcc for sm_90a into ``build/crdr_tpu_torch/`` at first use,
-  loaded with ctypes) or raises, on a shape the kernel does not take or a
-  failed launch; it never falls back to the twin, and no size or setting
-  gates it.
-* On a CPU tensor it runs the twin on the dense tables.
+* ``lane_decode_round`` runs the registered op ``crdr::lane_decode_round``
+  (one node of an exported program).  On a CUDA tensor its CUDA
+  implementation launches ``csrc/lane_decode.cu`` (built with nvcc for
+  sm_90a into ``build/crdr_tpu_torch/`` at first use, loaded with ctypes)
+  or raises, on a shape the kernel does not take or a failed launch; it
+  never falls back to the twin, and no size or setting gates it.
+* On a CPU tensor the op's CPU implementation runs the twin on the dense
+  tables.
 * ``lane_decode_round.launches`` counts kernel launches.
 
 The source note in the .cu file states the bound and the design.
@@ -259,16 +261,46 @@ def lane_decode_round(states: Tensor, ptrs: Tensor, words: Tensor,
     ``table`` the ``prepare_lane_table`` of the codec's CDF table, on the
     same device.  The twin reads its dense tensors, the kernel only its
     buffer.  Nothing is built or copied per call, and nothing syncs with the
-    host."""
-    if states.device.type == "cpu":
-        return lane_decode_round_instep(states, ptrs, words, idx, table.cdf,
-                                        table.cdf_len, table.cdf_off, m)
-    out = launch_round(states, ptrs, words, idx, table, m)
+    host.  Runs the op ``crdr::lane_decode_round``, the table passed as its
+    tensors and lookup width."""
+    return torch.ops.crdr.lane_decode_round(
+        states, ptrs, words, idx, table.cdf, table.cdf_len, table.cdf_off,
+        table.buf, table.bits, m)
+
+
+lane_decode_round.launches = 0
+
+
+@torch.library.custom_op("crdr::lane_decode_round", mutates_args=(),
+                         device_types="cuda")
+def _lane_decode_round_op(states: Tensor, ptrs: Tensor, words: Tensor,
+                          idx: Tensor, cdf: Tensor, cdf_len: Tensor,
+                          cdf_off: Tensor, buf: Tensor, bits: int,
+                          m: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """The kernel: one counted launch (``launch_round``); it writes fresh
+    outputs and mutates none of its arguments."""
+    out = launch_round(states, ptrs, words, idx,
+                       LaneTable(cdf, cdf_len, cdf_off, buf, bits), m)
     count_launch(lane_decode_round)
     return out
 
 
-lane_decode_round.launches = 0
+@_lane_decode_round_op.register_kernel("cpu")
+def _lane_decode_round_cpu(states, ptrs, words, idx, cdf, cdf_len, cdf_off,
+                           buf, bits, m):
+    vals, st, pt = lane_decode_round_instep(states, ptrs, words, idx, cdf,
+                                            cdf_len, cdf_off, m)
+    # with no step (m = 0) the twin hands its inputs back: an op's outputs
+    # may not alias them
+    return (vals, st.clone() if st is states else st,
+            pt.clone() if pt is ptrs else pt)
+
+
+@_lane_decode_round_op.register_fake
+def _lane_decode_round_fake(states, ptrs, words, idx, cdf, cdf_len, cdf_off,
+                            buf, bits, m):
+    return (idx.new_empty((states.shape[0], m), dtype=torch.int32),
+            torch.empty_like(states), torch.empty_like(ptrs))
 
 
 def launch_round(states: Tensor, ptrs: Tensor, words: Tensor, idx: Tensor,

@@ -12,10 +12,12 @@ int32 holding 16-bit values:
   grid of ``encode_grid``) and the escape fixups are torch gathers and
   cumsums on the tensors' device (``lane_encode_operands``,
   ``lane_fixups``), shared with the twin;
-* the serial walk of every lane: on a CUDA tensor ``csrc/lane_encode.cu``
-  (built with nvcc for sm_90a into ``build/crdr_tpu_torch/`` at first use,
-  loaded with ctypes), which raises on a shape it does not take or a failed
-  launch and never falls back; on a CPU tensor the twin's
+* the serial walk of every lane, the registered op
+  ``crdr::lane_encode_scan`` (one node of an exported program): on a CUDA
+  tensor its CUDA implementation launches ``csrc/lane_encode.cu`` (built
+  with nvcc for sm_90a into ``build/crdr_tpu_torch/`` at first use, loaded
+  with ctypes), which raises on a shape it does not take or a failed launch
+  and never falls back; on a CPU tensor its CPU implementation, the twin's
   ``lane_encode_scan``;
 * ``lane_encode_rounds.launches`` counts kernel launches.
 
@@ -103,12 +105,30 @@ def lane_encode_rounds(sym: Tensor, idx: Tensor, grid: Tensor, cdf: Tensor,
     the host."""
     low_g, freq_g, esc = lane_encode_operands(sym, idx, grid, cdf, cdf_len,
                                               offset)
-    if sym.device.type == "cpu":
-        words, lens = lane_encode_scan(low_g, freq_g)
-    else:
-        words, lens = launch_scan(low_g, freq_g)
-        count_launch(lane_encode_rounds)
+    words, lens = torch.ops.crdr.lane_encode_scan(low_g, freq_g)
     return (words, lens) + lane_fixups(sym, esc, fix_cap)
 
 
 lane_encode_rounds.launches = 0
+
+
+@torch.library.custom_op("crdr::lane_encode_scan", mutates_args=(),
+                         device_types="cuda")
+def _lane_encode_scan_op(low_g: Tensor,
+                         freq_g: Tensor) -> Tuple[Tensor, Tensor]:
+    """The kernel: one counted launch (``launch_scan``)."""
+    out = launch_scan(low_g, freq_g)
+    count_launch(lane_encode_rounds)
+    return out
+
+
+@_lane_encode_scan_op.register_kernel("cpu")
+def _lane_encode_scan_cpu(low_g, freq_g):
+    return lane_encode_scan(low_g, freq_g)
+
+
+@_lane_encode_scan_op.register_fake
+def _lane_encode_scan_fake(low_g, freq_g):
+    n, t_steps, k = low_g.shape
+    return (low_g.new_empty((n, k, t_steps + 2)),
+            low_g.new_empty((n, k)))

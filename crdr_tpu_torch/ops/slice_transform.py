@@ -6,11 +6,14 @@ relu -> conv3x3 on the [N, H/16, W/16, Cin] latent, with bf16 operands, f32
 accumulation, the intermediates rounded to bf16 after the ReLU, and an f32
 output (the contract of ``_fused_kernel`` / ``slice_transform_reference``).
 
-* ``slice_transform`` is the wrapper the codec path calls.  On a CUDA tensor
-  it launches ``csrc/slice_transform.cu`` (built with nvcc for sm_90a into
+* ``slice_transform`` is the wrapper the codec path calls.  It runs the
+  registered op ``crdr::slice_transform`` (so an exported program holds the
+  kernel as one node): on a CUDA tensor its CUDA implementation launches
+  ``csrc/slice_transform.cu`` (built with nvcc for sm_90a into
   ``build/crdr_tpu_torch/`` at first use, loaded with ctypes) or raises; it
-  never falls back.  On a CPU tensor it runs ``slice_transform_plain``.
-  ``slice_transform.launches`` counts kernel launches.
+  never falls back.  On a CPU tensor the op's CPU implementation runs
+  ``slice_transform_plain``.  ``slice_transform.launches`` counts kernel
+  launches (in ``_launch``, whoever calls the op).
 * ``conv_plan`` / ``slice_transform_plan`` are the kernel's tiling plan, a
   pure function of (H, W, Cin, Cout, ksize) that takes no batch size: the
   tile shape, the k-steps and their split over a thread-block cluster.  The
@@ -245,12 +248,19 @@ def slice_transform(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
 
     x [N, H, W, Cin] f32; w0 [S, 5, 5, Cin, C0], w2 [S, 5, 5, C0, C1],
     w4 [S, 3, 3, C1, Cout] (bf16 for the kernel); b* [S, C] f32.
-    Returns [N, H, W, Cout] f32."""
-    if x.device.type == "cpu":
-        return slice_transform_plain(x, w0[idx], b0[idx], w2[idx], b2[idx],
-                                     w4[idx], b4[idx])
-    if x.device.type != "cuda":
+    Returns [N, H, W, Cout] f32.  Runs the op ``crdr::slice_transform``."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"slice_transform: unsupported device {x.device}")
+    return torch.ops.crdr.slice_transform(x, w0, b0, w2, b2, w4, b4, int(idx))
+
+
+@torch.library.custom_op("crdr::slice_transform", mutates_args=(),
+                         device_types="cuda")
+def _slice_transform_op(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                        w2: torch.Tensor, b2: torch.Tensor, w4: torch.Tensor,
+                        b4: torch.Tensor, idx: int) -> torch.Tensor:
+    """The kernel: the checks, one counted launch with the default plan of
+    these shapes."""
     n, h, w, cin = x.shape
     S, c0, c1, cout = w0.shape[0], w0.shape[-1], w2.shape[-1], w4.shape[-1]
     shapes = [(w0, (S, 5, 5, cin, c0)), (w2, (S, 5, 5, c0, c1)),
@@ -274,6 +284,18 @@ def slice_transform(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
         raise IndexError(f"slice_transform: slice {idx} of {S}")
     return _launch(x, w0, b0, w2, b2, w4, b4, idx,
                    _default_plan(h, w, cin, c0, c1, cout))
+
+
+@_slice_transform_op.register_kernel("cpu")
+def _slice_transform_cpu(x, w0, b0, w2, b2, w4, b4, idx):
+    return slice_transform_plain(x, w0[idx], b0[idx], w2[idx], b2[idx],
+                                 w4[idx], b4[idx])
+
+
+@_slice_transform_op.register_fake
+def _slice_transform_fake(x, w0, b0, w2, b2, w4, b4, idx):
+    return x.new_empty(tuple(x.shape[:3]) + (w4.shape[-1],),
+                       dtype=torch.float32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -123,6 +123,7 @@ _ROW_LOCAL = frozenset({
     "float", "double", "half", "bfloat16", "long", "int", "type_as",
     "contiguous", "clone", "detach", "mean", "var", "std", "sum", "amax",
     "amin", "cat",
+    "gdn",  # K3's op (ops/gdn.py): GDN mixes the channels of one pixel
 })
 
 

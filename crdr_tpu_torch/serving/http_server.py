@@ -11,7 +11,7 @@ status codes and keep-alive handling.
       -> ``image/png`` reconstruction.
 - ``GET /healthz`` (or ``/stats``)  -> JSON: model, wire, devices, card and
       batcher stats (the batch-size histogram shows whether micro-batching
-      is winning).
+      is winning); with an AOT package, its hits and misses by program.
 
 Where it departs from the JAX server: PNG is read and written by the port's
 own zlib codec (``utils/img_utils.py``), whose bytes are not PIL's (the
@@ -34,6 +34,7 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
+from ..runtime.aot import aot_counts
 from ..utils.codec_utils import pack_byte_strings, unpack_byte_strings
 from ..utils.img_utils import decode_png, encode_png
 from .batcher import MicroBatcher
@@ -121,6 +122,8 @@ class _Handler(BaseHTTPRequestHandler):
                 **_device_info(srv.model),
                 "batcher": srv.batcher.stats(),
             }
+            if srv.model._aot.package is not None:
+                info["aot"] = aot_counts(srv.model)
             self._send(200, json.dumps(info).encode(), "application/json")
         else:
             self._err(404, f"no route {path}")

@@ -9,8 +9,8 @@
   entries while the norm stays away from 0.
 * ``export_state_dict`` keeps a non-symmetric ``gamma`` as it is (only Dense
   weights are transposed).
-* The gradient: ``gdn``'s backward (``GDNFunction``) against ``jax.grad`` of
-  ``gdn_reference`` for x, beta and gamma, both directions, C = 64 and 192,
+* The gradient: ``gdn``'s backward (the op's ``register_autograd``)
+  against ``jax.grad`` of ``gdn_reference`` for x, beta and gamma, both directions, C = 64 and 192,
   rtol 1e-4 / atol 1e-5 (the gradients of beta and gamma sum over every
   pixel, x's over C channels, in another order than XLA's; measured <= 4e-6
   absolute at gradients up to ~23); ``gradcheck`` in float64; the ``GDN``
@@ -36,7 +36,7 @@ from crdr_tpu.ops.pallas_gdn import gdn_reference, pallas_gdn
 from crdr_tpu_torch.entropy.ops import lower_bound
 from crdr_tpu_torch.importers.jax_params import export_state_dict
 from crdr_tpu_torch.nn import GDN, Dense
-from crdr_tpu_torch.ops.gdn import GDNFunction, gdn, gdn_plain
+from crdr_tpu_torch.ops.gdn import gdn, gdn_plain
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -162,7 +162,7 @@ def test_gdn_function_gradcheck(inverse):
     beta = torch.from_numpy(rng.uniform(0.5, 2.0, 6)).requires_grad_()
     gamma = torch.from_numpy(rng.uniform(0.0, 0.2, (6, 6))).requires_grad_()
     assert torch.autograd.gradcheck(
-        lambda *a: GDNFunction.apply(*a, inverse), (x, beta, gamma))
+        lambda *a: gdn(*a, inverse), (x, beta, gamma))
 
 
 def test_gdn_builds_a_graph_only_when_a_gradient_is_needed():

@@ -26,8 +26,9 @@ package's, the HTTP server, the serve CLIs, in-memory PNG, and the refusals.
   good one in a dispatch: garbage decoded, or a 400 that the dispatch's
   requests share, and the good stream served after.
 * ``cli/serve.py::build_model`` from a config file (``--wire device -d
-  cpu``), ``cli/serve_smoke.py`` at ``-d cpu``; ``--aot_package``
-  raises, and so does a serving mesh of more GPUs than the machine has.
+  cpu``), ``cli/serve_smoke.py`` at ``-d cpu``; ``cli/export_serving.py``
+  at ``-d cpu``, then ``build_model`` with ``--aot_package`` serving from
+  the package; a serving mesh of more GPUs than the machine has raises.
 * ``encode_png`` / ``decode_png``: round trip, and cv2's (and PIL's) reads.
 """
 
@@ -48,8 +49,10 @@ import cv2
 from PIL import Image
 
 from crdr_tpu.serving.batcher import MicroBatcher as JaxBatcher
+from crdr_tpu_torch.cli import export_serving
 from crdr_tpu_torch.cli import serve as serve_cli
 from crdr_tpu_torch.cli import serve_smoke
+from crdr_tpu_torch.runtime.aot import aot_counts
 from crdr_tpu_torch.serving import MicroBatcher as PortBatcher
 from crdr_tpu_torch.serving.http_server import make_server
 from crdr_tpu_torch.utils.codec_utils import (pack_byte_strings,
@@ -478,25 +481,45 @@ def test_serve_build_model_from_config(tmp_path):
     ({"serving_devices": 2}, [], "serving_devices"),
     ({"serving_devices": 2, "serving_partition": "spatial"}, [],
      "serving_partition: spatial"),
-    ({}, ["--aot_package", "pkg"], "aot_package"),
 ])
 def test_serve_refuses_what_is_not_ported(tmp_path, monkeypatch, extra,
                                           flags, match):
-    """``--aot_package`` is not ported; a serving mesh of more GPUs than the
-    machine has raises before the model is built (the card asked for, one
-    card present).  The working meshes: tests/test_torch_serving_mesh.py."""
-    if flags:
-        args = serve_cli.parse_args([_config_file(tmp_path, **extra), "-d",
-                                     "cpu", *flags])
-        with pytest.raises(NotImplementedError, match=match):
-            serve_cli.build_model(args)
-        return
+    """A serving mesh of more GPUs than the machine has raises before the
+    model is built (the card asked for, one card present).  The working
+    meshes: tests/test_torch_serving_mesh.py."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     args = serve_cli.parse_args([_config_file(tmp_path, **extra)])
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match=match):
         serve_cli.build_model(args)
+
+
+def test_serve_builds_with_an_aot_package(tmp_path, capsys):
+    """``cli/export_serving.py`` at ``-d cpu`` prints its JSON line; then
+    ``build_model(... --aot_package pkg)`` serves from the package: a
+    request of the recorded bucket hits, and its stream equals the live
+    model's."""
+    cfg, pkg = _config_file(tmp_path), str(tmp_path / "pkg")
+    res = export_serving.main([cfg, "--out", pkg, "--shapes", "1x64x64",
+                               "--platforms", "cpu", "-q", "1.0", "-b",
+                               str(BETA), "-d", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == res and res["programs"] > 0 and res["skipped"] == 0
+    assert res["platforms"] == ["cpu"] and res["bytes"] > 0
+    live = serve_cli.build_model(serve_cli.parse_args([cfg, "-d", "cpu"]))
+    model = serve_cli.build_model(serve_cli.parse_args(
+        [cfg, "-d", "cpu", "--aot_package", pkg]))
+    assert model._aot.package is not None
+    img = images(1, 64, 64, seed=4)
+    enc = model.compress(img, rate_ind=1.0)
+    assert enc["string_list"] == live.compress(img, rate_ind=1.0)[
+        "string_list"]
+    _, _, y_hat = model.decompress(enc["string_list"], beta=BETA)
+    np.testing.assert_array_equal(y_hat, enc["y_hat"])
+    counts = aot_counts(model)
+    assert counts["encode_head"]["hits"] == 1
+    assert counts["decode_begin"]["hits"] == 2  # the encoder's replay too
 
 
 def test_serve_smoke_cli_on_cpu(tmp_path, capsys):
