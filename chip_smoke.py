@@ -81,7 +81,9 @@ Phases, each asserted (any failure exits non-zero):
    scale heads raised: the checks of phase 3 with K1 60 launches a round
    trip on the two Charm classes and none on the three hyperprior ones;
    interp_ca_elic_charm also on the device wire (the checks of phase 4,
-   K2 11).  Each model is freed before the next.
+   K2 11).  Each model is freed before the next.  Phases 8, 9, 13 and 14
+   time one round trip a path (SIDE_RUNS) and skip the padding
+   measurement; the flagship and the GDN path keep both.
 9. TF32 chain: config/crdr_fastchain.yaml (codec_precision: default) on the
    flagship with K1 on, then off, each on both wires (the checks of phases
    3 and 4); TF32 really ran: the hyper-decoder's output on one z under
@@ -94,7 +96,8 @@ Phases, each asserted (any failure exits non-zero):
    validation (beta = max_beta / 2) per image, its bpp within 1e-3 of
    run_model's; then the CLI (python -m crdr_tpu_torch.cli.compress
    config/crdr_throughput.yaml --decompress --batch 4) as a subprocess on
-   each wire: each .bin equals compress_batch's streams (of the PNGs read
+   each wire, the two at once: each .bin equals compress_batch's streams
+   (of the PNGs read
    back; equal to those of the uint8 images), each .png decompress_batch's
    image, _avg_bitrate.json their mean real bpp.
 11. the device encoder on the flagship's device wire (crdr_throughput.yaml
@@ -159,8 +162,10 @@ Phases, each asserted (any failure exits non-zero):
    over its last 20 steps); resume: saved at step 3, rebuilt from the
    checkpoint, run to 6 on the same batches, bit-equal to the
    uninterrupted run; the train CLI (python -m crdr_tpu_torch.cli.train
-   endurance_stage1.yaml -ti 3) as a subprocess: checkpoints, loss CSV and
-   config dump written.  One line of training figures.
+   endurance_stage1.yaml -ti 3) as a subprocess, started with phase 16's
+   once stage 1's checkpoint is written, the two beside the card-vs-CPU
+   step: checkpoints, loss CSV and config dump written.  One line of training
+   figures.
 16. stage 3, the multi-rate GAN fine-tune, in phase 15's temporary
    directory: config/endurance_stage3.yaml
    (MultirateBetaCondHrrGanRateDistortionTrainer, the flagship at full
@@ -183,14 +188,16 @@ Phases, each asserted (any failure exits non-zero):
    gradient of G and of D within a relative L2 error of 1e-3, as phase 15
    holds them); resume: saved at step 3, rebuilt, run to 6, bit-equal (G,
    D and its state, the three optimizers, the generators); the train CLI
-   on endurance_stage3.yaml (-ti 3) as a subprocess, its warm start the
+   on endurance_stage3.yaml (-ti 3) as a subprocess (started in phase 15),
+   its warm start the
    stage-1 checkpoint placed at the recipe's path: checkpoints, D's
    included, and the loss CSV written.
 17. streams across devices: config/crdr.yaml (f32, K1 off),
    balle18_mean_scale.yaml (K3 / gdn_plain), crdr_throughput.yaml (K1 / its
    bf16 twin) and crdr_fastchain.yaml (TF32 on the card), each built once
    from its seed on the card and, from the card's state_dict, on the CPU;
-   one 512x768 image encoded on each, each device's own round trip exact
+   one 256x384 crop of an image encoded on each (the CPU's passes at
+   512x768 were most of the phase), each device's own round trip exact
    (asserted); printed, not asserted (the port does not promise it): whether
    the streams are byte-equal and the first y byte apart, whether the
    encoders' y_hat are equal and the first element and symbol apart (slice,
@@ -214,10 +221,10 @@ Phases, each asserted (any failure exits non-zero):
    before it) equal the dispatches (counted by wrapping the model's batch
    entry points) times their counts (K1 30 a dispatch, E1 2 an encode and
    K2 11 a decode on the device wire, K3 3 a transform call of 4 images);
-   /healthz names the card; a JPEG body gets a 400 and the next request
-   on its connection is served; each decode gives its encoder's symbols;
-   each kernel's first served call at every shape (batch 2 of the small
-   images' 16x24 latent among them) equals its plain twin on the same
+   /healthz names the card; a malformed JPEG body gets a 400 and the next
+   request on its connection is served; each decode gives its encoder's
+   symbols; each kernel's first served call at every shape (batch 2 of the
+   small images' 16x24 latent among them) equals its plain twin on the same
    inputs (K1 within 2e-3, K2 and E1 exactly, K3 within its tolerance); a
    .bin with its y string cut or flipped gets a 200 or a 400, and the
    next request is served; the server shuts down drained.  Printed:
@@ -239,7 +246,9 @@ Phases, each asserted (any failure exits non-zero):
    Inception / DISTS weight files in pytorch-fid's and DISTS' layouts (a
    temporary directory) and a random LPIPS: JAX's _metrics.json keys,
    every value finite; the FID of the reals against themselves within
-   1e-3 of 2 tr(sigma); Inception features on the card within 1e-3 of the
+   1e-3 of 2 tr(sigma) (the CLI and this FID each in a process of its own,
+   waited for after phase 20: their sqrtm on the host took 12-27 s each);
+   Inception features on the card within 1e-3 of the
    largest of the CPU's, DISTS within 1e-4; (c) python -m
    crdr_tpu_torch.cli.bd_rate with the compressai sweep as anchor and the
    device sweep as test, at each beta: PSNR equal on the two wires, the
@@ -249,13 +258,14 @@ Phases, each asserted (any failure exits non-zero):
    60-960, the Balle18 hyper pair 220 -> 192 / 440), configs built in
    memory, seeded init with the GDN edits of phase 7: the checks of phases
    3 and 4 (generic device wire, E1) with K3 6 a round trip on the Cheng20
-   families, every K3 call held against gdn_plain, 0 on HiFiC; one timed
-   round trip a wire (no padding measurement).
-21. resize_range: endurance_r4_stage1.yaml on 16 synthetic 512x768 PNG
-   sources in a temporary directory; the recipe as it is (bicubic) must
-   raise, then with interpolation: bilinear laid over it 5 steps through
-   train_loop (losses finite, uint8 crops); the resampler's ms a sample at
-   768x512 and 1024x768, the loader's wait a step against the step.
+   families, every K3 call held against gdn_plain, 0 on HiFiC; no warm-up
+   or timed round trips (a Cheng20 direction takes 1-2 s): each wire's
+   times are its counted round trip's, cold.
+21. resize_range: endurance_r4_stage1.yaml as written (bicubic, uint8)
+   on 16 synthetic 512x768 PNG sources in a temporary directory: 5 steps
+   through train_loop (losses finite, uint8 crops); the resampler's ms a
+   sample at 768x512 and 1024x768, bicubic beside bilinear, the loader's
+   wait a step against the step.
 22. data parallel: two ranks spawned on the one card over gloo
    (crdr_tpu_torch.parallel.spawn; NCCL refuses two ranks on one GPU),
    4 images each, against one process at batch 8 from the same seed, on
@@ -287,15 +297,22 @@ Phases, each asserted (any failure exits non-zero):
    symbols apart from one device's printed, cross-decode exact both ways,
    peak memory and times of the split and the whole encode / decode; then
    cli/serve.py with serving_devices 2 and --mesh_devices cuda:0,cuda:0,
-   two requests in one dispatch of 2.
+   two requests in one dispatch of 2; then the hyper pair against the
+   card's free memory: the flagship (crdr.yaml, decode_begin) and the
+   Balle18 mean-scale model (generic_params) on one seeded z at 512x768
+   and 2048x3072, with the memory free and then with all but 512 MiB
+   taken by a held tensor (around the entry: its peak plus 512 MiB),
+   every output bit-equal.
 24. AOT serving packages (``runtime/aot.py``, the kernels as ``crdr::``
    ops inside ``torch.export`` programs): the flagship recorded at
    4x512x768 and 1x512x768 on both wires (E1 encoding the device wire),
-   the checkerboard (cb_stage2.yaml) and the GDN path at both on the
-   compressai wire, each exported for cuda (every program must export; the
+   the GDN path at both and the checkerboard (cb_stage2.yaml) at 4x512x768
+   on the compressai wire, each exported for cuda (every program must
+   export; the
    GDN path's for cpu too), with the record and export seconds and the
    package bytes; each package loaded into a freshly built model on the
-   same weights: a batch-4 and a batch-1 round trip byte-equal to the live
+   same weights: a batch-4 and (but the checkerboard's) a batch-1 round
+   trip byte-equal to the live
    path's streams and pixel-equal decodes, K1 / K2 / K3 / E1 launches
    equal to the live path's counts (section 2 of PERF.md), each op's calls
    held against its twin, hits and misses by program printed and no miss
@@ -311,11 +328,23 @@ Phases, each asserted (any failure exits non-zero):
    the flagship's round trips and the package's in turns, batch 4 and 1,
    and warm one-image /compress and /decompress of the two servers in
    turns, the .bin equal.
-25. one JSON line of kernel figures (launches by path, every path above);
-26. the ok line.
+25. JPEG input: every fixture of tests/data/jpeg decoded by the port's
+   host decoder (built with the others in phase 1) on the file path and
+   the body path, the pixels' sha256 equal to the digests cv2 and PIL
+   gave, the refused ones raising their reason; the decoder's ms at
+   768x512 (a Mpix); the 768x512 fixture as a JPEG body to cli/serve.py's
+   server (crdr_throughput.yaml, device wire, E1): its .bin byte-equal to
+   the PNG of the same pixels', the round trip's launches those of phase 4
+   (K1 60, K2 11, E1 2), each kernel's calls held against its twin; 3
+   steps of crdr_stage_1.yaml (OpenImageImageDataset, LPIPS allow_random)
+   on a train_0/ of the fixtures' JPEGs at batch 8: losses finite, the
+   sample's ms, the loader's wait a step against the step, os.cpu_count().
+26. one JSON line of kernel figures (launches by path, every path above);
+27. the ok line.
 Imports nothing of JAX or of the JAX package.
 """
 
+import atexit
 import contextlib
 import gc
 import importlib
@@ -338,6 +367,8 @@ N_IMG, IMG_H, IMG_W = 4, 512, 768
 K1_ATOL = 2e-3
 BPP_REL = 0.05       # real vs predicted bpp
 TIMED_RUNS = 3       # timed batch round trips per wire (medians printed)
+SIDE_RUNS = 1        # the same for the other configs' paths (phases 9-14),
+#                      which skip the padding measurement too
 H100_BF16_FLOPS = 989e12   # dense, 700 W part (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64   # Hopper: 4 partitions x 16 INT32 units (NVIDIA
 #                           H100 architecture white paper); times the SM count
@@ -365,6 +396,60 @@ def fail(msg: str) -> None:
 def check(cond, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+PHASE_S = {}  # main's phases: wall seconds, in the order they ran
+
+
+def timed(label: str, fn, *args):
+    """``fn(*args)``, its wall time kept in PHASE_S and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[label] = time.perf_counter() - t0
+    print(f"[{label}: {PHASE_S[label]:.1f} s]", flush=True)
+    return out
+
+
+STARTED = []  # start_proc's processes: any still running are killed at exit
+
+
+def start_proc(cmd, cwd: str, log: str, env=None) -> dict:
+    """Starts ``cmd`` in the background, both its streams to the file
+    ``log``; a thread notes when it exits.  ``end_proc`` waits for it."""
+    with open(log, "wb") as f:
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    STARTED.append(proc)
+    p = {"proc": proc, "cmd": cmd, "log": log, "t0": time.perf_counter()}
+
+    def note_exit():
+        proc.wait()
+        p["t1"] = time.perf_counter()
+
+    p["waiter"] = threading.Thread(target=note_exit, daemon=True)
+    p["waiter"].start()
+    return p
+
+
+def end_proc(p: dict, timeout: float = 600) -> tuple:
+    """Waits for a process of ``start_proc`` (killed past ``timeout`` s
+    from its start); returns (exit code, its output, seconds from its start
+    to its exit)."""
+    p["waiter"].join(max(0.0, timeout - (time.perf_counter() - p["t0"])))
+    if p["waiter"].is_alive():
+        p["proc"].kill()
+        p["waiter"].join()
+    with open(p["log"], errors="replace") as f:
+        out = f.read()
+    return p["proc"].returncode, out, p["t1"] - p["t0"]
+
+
+@atexit.register
+def stop_started() -> None:
+    for proc in STARTED:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def card_line() -> str:
@@ -407,6 +492,7 @@ def build_kernels() -> dict:
     from crdr_tpu_torch.ops import lane_decode as k2
     from crdr_tpu_torch.ops import lane_encode as e1
     from crdr_tpu_torch.ops import slice_transform as k1
+    from crdr_tpu_torch.utils import jpeg
 
     results, threads = {}, []
 
@@ -421,7 +507,8 @@ def build_kernels() -> dict:
                      ("lane_decode (nvcc sm_90a)", k2.build),
                      ("gdn (nvcc sm_90a)", k3.build),
                      ("lane_encode (nvcc sm_90a)", e1.build),
-                     ("host rANS (g++)", runtime.build)):
+                     ("host rANS (g++)", runtime.build),
+                     ("host JPEG decoder (g++)", jpeg.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
     for t in threads:
@@ -977,12 +1064,15 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str,
     """A model on the compressai wire: kernel counts (``expected``, by
     kernel, per batch round trip), checks, batch-1 equality, times (the
     median of ``runs`` round trips; with ``padding``, what the fixed-batch
-    synthesis costs a batch-1 decode).  A model without rates or beta
-    ignores RATE and BETA."""
+    synthesis costs a batch-1 decode).  ``runs`` 0: no warm-up round trips
+    and no timed ones, the times those of the counted round trip, the
+    model's first (cold).  A model without rates or beta ignores RATE and
+    BETA."""
     import torch
 
     expected = {"lane_encode_rounds": 0, **expected}
-    round_trip(model, imgs)  # warm-up: cuDNN / library initialization
+    if runs:
+        round_trip(model, imgs)  # warm-up: cuDNN / library initialization
     encs, (fake, _, y_hat), enc_s, dec_s, counts = \
         counted_round_trip(model, imgs)
     check(counts == expected, f"{label}: kernel launches in one batch round "
@@ -991,8 +1081,9 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str,
     dec_timing = model.last_decode_timing  # of the batch decode
 
     # batch 1 is a new shape for the decode's cuDNN calls: warm it up first
-    model.decompress(model.compress(imgs[:1], rate_ind=RATE)["string_list"],
-                     beta=BETA)
+    if runs:
+        model.decompress(model.compress(imgs[:1], rate_ind=RATE)[
+            "string_list"], beta=BETA)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     enc1 = model.compress(imgs[:1], rate_ind=RATE)
@@ -1011,13 +1102,15 @@ def host_wire_path(model, imgs, label: str, expected: dict, card: str,
           f"{float(np.abs(enc1['y_hat'] - encs[0]['y_hat']).max()):.3e})")
     print(f"{label}: batch-1 encode of image 0 equals its batch-{N_IMG} "
           "stream")
-    print(f"{label} batch-1: encode {(t1 - t0) * 1e3:.1f} ms, decode "
-          f"{(t2 - t1) * 1e3:.1f} ms; one batch round trip: encode "
+    print(f"{label} batch-1{'' if runs else ' (cold)'}: encode "
+          f"{(t1 - t0) * 1e3:.1f} ms, decode {(t2 - t1) * 1e3:.1f} ms; one "
+          f"batch round trip{'' if runs else ' (cold)'}: encode "
           f"{enc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms; launches "
           f"{counts} [{card}]")
     print(f"timing of the batch round trip: encode "
           f"{json.dumps(encs[0]['timing'])} decode {json.dumps(dec_timing)}")
-    times = timed_runs(model, imgs, label, card, runs)
+    times = timed_runs(model, imgs, label, card, runs) if runs else {
+        "encode_ms": enc_s * 1e3, "decode_ms": dec_s * 1e3, "cold": True}
     if padding:
         times["batch1_decode_ms"] = padding_cost(
             model, encs[0]["string_list"], label, card)
@@ -1089,7 +1182,9 @@ def device_wire_path(model, imgs, y_compressai, card: str,
     """The device wire on the same model, lane-encoded by ``encoder``:
     counts, checks, a sync-free decode chain, a batch-1 stream equal to its
     batch-4 stream, times.  Returns (the K2 inputs the warm-up decode
-    recorded, counts, times, the batch's encodings)."""
+    recorded, counts, times, the batch's encodings).  ``runs`` 0: no
+    warm-up (nothing recorded) and no timed round trips, the times those
+    of the counted round trip (cold)."""
     import torch
 
     from crdr_tpu_torch.models import codec_devicewire
@@ -1107,7 +1202,8 @@ def device_wire_path(model, imgs, y_compressai, card: str,
 
     codec_devicewire.lane_decode_round = recorder
     try:
-        round_trip(model, imgs)  # warm-up, and K2's inputs for its phase
+        if runs:
+            round_trip(model, imgs)  # warm-up, and K2's inputs for its phase
     finally:
         codec_devicewire.lane_decode_round = real
     encs, (fake, _, y_hat), enc_s, dec_s, counts = \
@@ -1144,11 +1240,13 @@ def device_wire_path(model, imgs, y_compressai, card: str,
     print(f"{label}: decode chain ({chain_name(model)}) enqueued with no "
           "host sync (sync debug mode 'error'); batch-1 encode of image 0 "
           f"equals its batch-{N_IMG} stream")
-    print(f"{label} one batch round trip: encode {enc_s * 1e3:.1f} ms, "
-          f"decode {dec_s * 1e3:.1f} ms; launches {counts} [{card}]")
+    print(f"{label} one batch round trip{'' if runs else ' (cold)'}: "
+          f"encode {enc_s * 1e3:.1f} ms, decode {dec_s * 1e3:.1f} ms; "
+          f"launches {counts} [{card}]")
     print(f"timing encode {json.dumps(encs[0]['timing'])} decode "
           f"{json.dumps(model.last_decode_timing)}")
-    times = timed_runs(model, imgs, label, card, runs)
+    times = timed_runs(model, imgs, label, card, runs) if runs else {
+        "encode_ms": enc_s * 1e3, "decode_ms": dec_s * 1e3, "cold": True}
     return recorded, counts, times, encs
 
 
@@ -1459,23 +1557,6 @@ def k3_phase(card: str, ptxas: dict) -> dict:
             **occ}
 
 
-def subpixel_weights(wt):
-    """A 5x5 stride-2 ConvTranspose2d's weight [Cin, Cout, 5, 5] (padding
-    2, output padding 1) as one stride-1 3x3 conv's [4 Cout, Cin, 3, 3]:
-    the four output phases (a, b) stacked in pixel_shuffle's channel order,
-    phase (a, b) at tap (ty, tx) taking w[4 - 2 ty + a, 4 - 2 tx + b]."""
-    cin, cout = wt.shape[:2]
-    w4 = wt.new_zeros(cout, 2, 2, cin, 3, 3)
-    for a in (0, 1):
-        for b in (0, 1):
-            for ty in range(3):
-                for tx in range(3):
-                    ky, kx = 4 - 2 * ty + a, 4 - 2 * tx + b
-                    if ky <= 4 and kx <= 4:
-                        w4[:, a, b, :, ty, tx] = wt[:, :, ky, kx].t()
-    return w4.reshape(4 * cout, cin, 3, 3).contiguous()
-
-
 def deconv_phase(model, card: str) -> list:
     """A yardstick only (the port's synthesis is unchanged): one
     ConvTranspose2d of the Balle18 decoder at two path shapes, as the port
@@ -1486,6 +1567,7 @@ def deconv_phase(model, card: str) -> list:
     import torch.nn.functional as F
 
     from crdr_tpu_torch.models.codec import codec_numerics
+    from crdr_tpu_torch.nn.conv import subpixel_weight
 
     g = torch.Generator(device=model.device).manual_seed(17)
     rows = []
@@ -1496,7 +1578,7 @@ def deconv_phase(model, card: str) -> list:
         x = torch.randn((N_IMG, conv.weight.shape[0], h, w),
                         device=model.device, generator=g)
         with codec_numerics():
-            w4 = subpixel_weights(conv.weight)
+            w4 = subpixel_weight(conv.weight, 2, 2)
             b4 = conv.bias.repeat_interleave(4)
             ref = conv(x)
             sub = F.pixel_shuffle(F.conv2d(x, w4, b4, padding=1), 2)
@@ -1690,12 +1772,13 @@ def model_class_phase(imgs, card: str):
         k1 = 6 * model.num_slices if model.use_charm else 0
         encs, counts[name], times[name] = host_wire_path(
             model, imgs, name,
-            {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card)
+            {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card,
+            runs=SIDE_RUNS, padding=False)
         if name == "interp_ca_elic_charm":
             y_c = np.concatenate([e["y_hat"] for e in encs])
             label = f"{name} device wire"
             _, counts[label], times[label], _ = device_wire_path(
-                model, imgs, y_c, card, label)
+                model, imgs, y_c, card, label, runs=SIDE_RUNS)
         del model, encs
         torch.cuda.empty_cache()
     return counts, times
@@ -1728,7 +1811,8 @@ def tf32_chain_phase(imgs, card: str):
         k1 = 6 * model.num_slices if fused else 0
         encs, counts[tag], _ = host_wire_path(
             model, imgs, tag,
-            {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card)
+            {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card,
+            runs=SIDE_RUNS, padding=False)
 
         # TF32 really ran: the hyper-decoder on one z_sym, f32 vs TF32
         with codec_numerics(False):
@@ -1750,7 +1834,7 @@ def tf32_chain_phase(imgs, card: str):
         y_c = np.concatenate([e["y_hat"] for e in encs])
         label = f"{tag} device wire"
         _, counts[label], _, _ = device_wire_path(model, imgs, y_c, card,
-                                                  label)
+                                                  label, runs=SIDE_RUNS)
         models[tag] = model
         del encs
 
@@ -1885,30 +1969,12 @@ def entry_point_phase(imgs, card: str) -> dict:
         names = [f"img{i}" for i in range(N_IMG)]
         for name, img in zip(names, imgs):
             write_png(os.path.join(img_dir, f"{name}.png"), img)
+        refs = {}  # this process's streams and images of the PNGs
         for wire in ("compressai", "device"):
             if wire == "device":
                 model.opt.update(wire_format="device",
                                  device_wire_encoder="host")
                 model.codec_setup()
-            out = os.path.join(tmp, wire)
-            cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.compress",
-                   "config/crdr_throughput.yaml", "--img_dir", img_dir,
-                   "--save_dir", out, "-q", str(RATE), "-b", str(BETA),
-                   "--decompress", "--batch", str(N_IMG)]
-            if wire == "device":
-                cmd += ["--wire", "device"]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
-                                  text=True, timeout=600)
-            dt = time.perf_counter() - t0
-            check(proc.returncode == 0, f"the CLI ({wire}) exited "
-                  f"{proc.returncode}:\n{proc.stdout[-3000:]}"
-                  f"{proc.stderr[-3000:]}")
-            print(f"CLI {wire} wire: {' '.join(cmd[1:])} ran in {dt:.1f} s "
-                  f"(process start, model build and codec setup included) "
-                  f"[{card}]")
-            with open(os.path.join(out, "_bitrates.csv")) as f:
-                print(f.read().strip())
             floats = np.stack([imread(os.path.join(img_dir, f"{n}.png"))
                                for n in names])
             for k in kernels.values():
@@ -1921,6 +1987,27 @@ def entry_point_phase(imgs, card: str) -> dict:
             check(all(e["string_list"] == u["string_list"] for e, u in
                       zip(encs, model.compress_batch(imgs, rate_ind=RATE))),
                   f"{wire}: the float and the uint8 input give other streams")
+            refs[wire] = encs, fake
+        procs = {}  # both wires' CLI processes at once
+        for wire in ("compressai", "device"):
+            cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.compress",
+                   "config/crdr_throughput.yaml", "--img_dir", img_dir,
+                   "--save_dir", os.path.join(tmp, wire), "-q", str(RATE),
+                   "-b", str(BETA), "--decompress", "--batch", str(N_IMG)]
+            if wire == "device":
+                cmd += ["--wire", "device"]
+            procs[wire] = start_proc(cmd, ROOT,
+                                     os.path.join(tmp, f"{wire}.log"))
+        for wire in ("compressai", "device"):
+            (encs, fake), cmd = refs[wire], procs[wire]["cmd"]
+            out = os.path.join(tmp, wire)
+            rc, log, dt = end_proc(procs[wire])
+            check(rc == 0, f"the CLI ({wire}) exited {rc}:\n{log[-6000:]}")
+            print(f"CLI {wire} wire: {' '.join(cmd[1:])} ran in {dt:.1f} s "
+                  f"(process start, model build and codec setup included; "
+                  f"both wires' CLIs at once) [{card}]")
+            with open(os.path.join(out, "_bitrates.csv")) as f:
+                print(f.read().strip())
             real = []
             for name, enc, img in zip(names, encs, fake):
                 got = codec_utils.load_byte_strings(
@@ -2271,13 +2358,14 @@ def checkerboard_phase(imgs, card: str, profiling: bool = False):
     k1 = 6 * model.num_slices
     encs, counts["checkerboard"], times["checkerboard"] = host_wire_path(
         model, imgs, "checkerboard",
-        {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card)
+        {"slice_transform": k1, "lane_decode_round": 0, "gdn": 0}, card,
+        runs=SIDE_RUNS, padding=False)
     y_c = np.concatenate([e["y_hat"] for e in encs])
     streams = {}
     for enc in ("host", "device"):
         label = f"checkerboard device wire, {enc} encoder"
         _, counts[label], times[label], e = device_wire_path(
-            model, imgs, y_c, card, label, encoder=enc)
+            model, imgs, y_c, card, label, encoder=enc, runs=SIDE_RUNS)
         streams[enc] = [x["string_list"] for x in e]
     check(streams["host"] == streams["device"],
           "checkerboard: the device encoder's streams != the host encoder's")
@@ -2293,7 +2381,8 @@ def checkerboard_phase(imgs, card: str, profiling: bool = False):
     label = "checkerboard K1 off"
     _, counts[label], times[label] = host_wire_path(
         model, imgs, label,
-        {"slice_transform": 0, "lane_decode_round": 0, "gdn": 0}, card)
+        {"slice_transform": 0, "lane_decode_round": 0, "gdn": 0}, card,
+        runs=SIDE_RUNS, padding=False)
     del model
     torch.cuda.empty_cache()
     return counts, times
@@ -2340,13 +2429,15 @@ def generic_device_phase(imgs, card: str):
         label = f"{name} compressai"
         encs, counts[label], times[label] = host_wire_path(
             model, imgs, label,
-            {"slice_transform": 0, "lane_decode_round": 0, "gdn": gdn}, card)
+            {"slice_transform": 0, "lane_decode_round": 0, "gdn": gdn}, card,
+            runs=SIDE_RUNS, padding=False)
         y_c = np.concatenate([e["y_hat"] for e in encs])
         streams = {}
         for enc in ("host", "device"):
             label = f"{name} device wire, {enc} encoder"
             recorded, counts[label], times[label], e = device_wire_path(
-                model, imgs, y_c, card, label, encoder=enc, gdn=gdn)
+                model, imgs, y_c, card, label, encoder=enc, gdn=gdn,
+                runs=SIDE_RUNS)
             streams[enc] = [x["string_list"] for x in e]
         check(streams["host"] == streams["device"],
               f"{name}: the device encoder's streams != the host encoder's")
@@ -2365,6 +2456,7 @@ SHORT_STEPS = 25      # stage 2, the checkerboard, the GDN model
 WARM_STEPS = 5        # steps left out of the step-time statistics
 RESUME_K = 3          # resume: save at step k, rebuild, run to 2k
 CMP_BATCH = 2         # the card-vs-CPU f32 step (the CPU runs it too)
+CLI_STEPS = 3         # each train CLI run's steps
 TRAIN_RTOL, GRAD_REL = 1e-4, 1e-3
 # NVIDIA's data sheet, H100 SXM, dense, at 700 W: bf16 / TF32 / f32 TFLOP/s
 PEAK_TFLOPS = {"bf16": 989.0, "tf32": 495.0, "f32": 67.0}
@@ -2878,23 +2970,42 @@ def resume_check(tmp: str, card: str) -> dict:
     return {"tensors": len(pairs), "differing": len(diff)}
 
 
-def cli_train_check(tmp: str, card: str) -> float:
-    """python -m crdr_tpu_torch.cli.train config/endurance_stage1.yaml as a
-    subprocess (the card by default), 3 steps, in ``tmp``: it writes its
-    checkpoints, its loss CSV and its config dump."""
-    steps = 3
-    cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.train",
-           os.path.join(ROOT, "config", "endurance_stage1.yaml"),
-           "-ti", str(steps), "-s", str(steps), "-l", "1", "-e", "1000000"]
+def train_cli_start(tmp: str, ckpt1: str) -> dict:
+    """Starts python -m crdr_tpu_torch.cli.train on config/endurance_stage1
+    .yaml and on config/endurance_stage3.yaml (the card by default), 3 steps
+    each, in directories of their own under ``tmp``, both in the background
+    beside phase 15's card-vs-CPU step; stage 3 finds phase 15's stage-1
+    checkpoint ``ckpt1`` at the recipe's warm-start path.
+    ``cli_train_check`` and ``gan_cli_check`` check them."""
+    from crdr_tpu_torch.utils.config import Config
+
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
-                          text=True, timeout=600)
-    dt = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the train CLI exited {proc.returncode}:\n"
-          f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-    job = os.path.join(tmp, "checkpoint", "endurance_stage1")
+    procs = {}
+    for stage in (1, 3):
+        recipe = os.path.join(ROOT, "config", f"endurance_stage{stage}.yaml")
+        cwd = os.path.join(tmp, f"cli{stage}")
+        os.makedirs(cwd)
+        if stage == 3:
+            warm = os.path.join(cwd, Config.from_file(
+                recipe).pretrained_weight_path)
+            os.makedirs(os.path.dirname(warm), exist_ok=True)
+            shutil.copyfile(ckpt1, warm)
+        cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.train", recipe,
+               "-ti", str(CLI_STEPS), "-s", str(CLI_STEPS), "-l", "1",
+               "-e", "1000000"]
+        procs[stage] = start_proc(cmd, cwd, cwd + ".log", env)
+        procs[stage]["cwd"] = cwd
+    return procs
+
+
+def cli_train_check(p: dict, card: str) -> float:
+    """The stage-1 run of ``train_cli_start``: it writes its checkpoints, its
+    loss CSV and its config dump."""
+    steps, cmd = CLI_STEPS, p["cmd"]
+    rc, log, dt = end_proc(p)
+    check(rc == 0, f"the train CLI exited {rc}:\n{log[-6000:]}")
+    job = os.path.join(p["cwd"], "checkpoint", "endurance_stage1")
     for name in (f"comp_model_iter{steps}.ckpt",
                  f"training_state_iter{steps}.ckpt"):
         check(os.path.exists(os.path.join(job, "model", name)),
@@ -2905,9 +3016,9 @@ def cli_train_check(tmp: str, card: str) -> float:
     check(os.path.exists(os.path.join(job, "endurance_stage1_dump.yaml")),
           "the train CLI wrote no config dump")
     print(f"train CLI: {' '.join(cmd[1:3])} endurance_stage1.yaml -ti "
-          f"{steps}: {dt:.1f} s (process start and model build included), "
-          f"checkpoints, {steps} loss rows and the config dump written "
-          f"[{card}]")
+          f"{steps}: {dt:.1f} s (process start and model build included; "
+          f"beside the card-vs-CPU step and the stage-3 CLI), checkpoints, "
+          f"{steps} loss rows and the config dump written [{card}]")
     return dt
 
 
@@ -2972,10 +3083,13 @@ def training_phase(card: str, profiling: bool = False) -> dict:
         tr.save(tr.step)
         ckpt1 = tr.path_handler.get_ckpt_path("comp_model", tr.step)
         n_stage1 = len(tr.comp_model.state_dict())
+        clis = train_cli_start(tmp, ckpt1)  # checked at 7 and in phase 16
 
         # 2. the card against the CPU, f32
         res["card_vs_cpu"] = card_vs_cpu_phase(
             tr, init1, tmp, fixed["real_images"][:CMP_BATCH], card)
+        for p in clis.values():  # the timed runs below run alone
+            p["waiter"].join(600)
         del tr, init1
         torch.cuda.empty_cache()
 
@@ -3030,13 +3144,13 @@ def training_phase(card: str, profiling: bool = False) -> dict:
         # 6. resume; 7. the CLI
         res["resume"] = resume_check(tmp, card)
         torch.cuda.empty_cache()
-        res["cli_s"] = cli_train_check(tmp, card)
+        res["cli_s"] = cli_train_check(clis[1], card)
         res["phase_s"] = time.perf_counter() - t_phase
         print(f"training phase: {res['phase_s']:.1f} s [{card}]")
 
         # phase 16: stage 3 from stage 1's checkpoint, in this directory
         res["stage3"], counts["train stage3"] = gan_phase(
-            card, tmp, ckpt1, kernels, profiling)
+            card, tmp, ckpt1, kernels, clis[3], profiling)
     return res, counts
 
 
@@ -3458,31 +3572,16 @@ def gan_resume_check(tmp: str, ckpt1: str, card: str) -> dict:
     return {"tensors": len(pairs), "differing": len(diff)}
 
 
-def gan_cli_check(tmp: str, ckpt1: str, card: str) -> float:
-    """python -m crdr_tpu_torch.cli.train config/endurance_stage3.yaml as a
-    subprocess (the card by default), 3 steps, in ``tmp``, with phase 15's
-    stage-1 checkpoint at the recipe's warm-start path: it writes its
-    checkpoints (D's included) and its loss CSV."""
-    from crdr_tpu_torch.utils.config import Config
-
-    steps = 3
-    recipe = os.path.join(ROOT, "config", "endurance_stage3.yaml")
-    warm = os.path.join(tmp, Config.from_file(recipe).pretrained_weight_path)
-    os.makedirs(os.path.dirname(warm), exist_ok=True)
-    shutil.copyfile(ckpt1, warm)
-    cmd = [sys.executable, "-m", "crdr_tpu_torch.cli.train", recipe,
-           "-ti", str(steps), "-s", str(steps), "-l", "1", "-e", "1000000"]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True,
-                          text=True, timeout=600)
-    dt = time.perf_counter() - t0
-    check(proc.returncode == 0, f"the stage-3 train CLI exited "
-          f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
-    check("partial load" in proc.stdout + proc.stderr,
+def gan_cli_check(p: dict, card: str) -> float:
+    """The stage-3 run of ``train_cli_start``, warm-started from phase 15's
+    stage-1 checkpoint: it writes its checkpoints (D's included) and its
+    loss CSV."""
+    steps, cmd = CLI_STEPS, p["cmd"]
+    rc, log, dt = end_proc(p)
+    check(rc == 0, f"the stage-3 train CLI exited {rc}:\n{log[-6000:]}")
+    check("partial load" in log,
           "the stage-3 train CLI did not warm-start from stage 1")
-    job = os.path.join(tmp, "checkpoint", "endurance_stage3")
+    job = os.path.join(p["cwd"], "checkpoint", "endurance_stage3")
     for name in (f"comp_model_iter{steps}.ckpt",
                  f"training_state_iter{steps}.ckpt",
                  f"discriminator_iter{steps}.ckpt"):
@@ -3493,16 +3592,19 @@ def gan_cli_check(tmp: str, ckpt1: str, card: str) -> float:
     check(len(rows) == steps + 1 and "out_d_real" in rows[0],
           f"the stage-3 train CLI's log_loss.csv: {rows}")
     print(f"train CLI: {' '.join(cmd[1:3])} endurance_stage3.yaml -ti "
-          f"{steps}: {dt:.1f} s (process start and model build included), "
-          f"warm-started from stage 1, checkpoints (D's included) and "
-          f"{steps} loss rows written [{card}]")
+          f"{steps}: {dt:.1f} s (process start and model build included; "
+          f"beside phase 15's card-vs-CPU step and the stage-1 CLI), "
+          f"warm-started from stage 1, "
+          f"checkpoints (D's included) and {steps} loss rows written "
+          f"[{card}]")
     return dt
 
 
-def gan_phase(card: str, tmp: str, ckpt1: str, kernels: dict,
+def gan_phase(card: str, tmp: str, ckpt1: str, kernels: dict, cli: dict,
               profiling: bool = False):
     """Phase 16: stage 3 on the card at full width, in phase 15's temporary
-    directory, from its stage-1 checkpoint ``ckpt1``."""
+    directory, from its stage-1 checkpoint ``ckpt1``; ``cli`` is the
+    stage-3 CLI run of ``train_cli_start``."""
     import torch
 
     t_phase = time.perf_counter()
@@ -3521,7 +3623,7 @@ def gan_phase(card: str, tmp: str, ckpt1: str, kernels: dict,
     torch.cuda.empty_cache()
     res["resume"] = gan_resume_check(tmp, ckpt1, card)
     torch.cuda.empty_cache()
-    res["cli_s"] = gan_cli_check(tmp, ckpt1, card)
+    res["cli_s"] = gan_cli_check(cli, card)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"stage 3 phase: {res['phase_s']:.1f} s [{card}]")
     return res, counts
@@ -3530,6 +3632,9 @@ def gan_phase(card: str, tmp: str, ckpt1: str, kernels: dict,
 # ---------------- phase 17: streams across devices ---------------------------
 
 # config, what differs between the card and the CPU (printed beside it)
+# phase 17's image: a 256x384 crop of the phases' first image (the CPU's
+# full-width passes at 512x768 took most of the phase's minute)
+CROSS_H, CROSS_W = 256, 384
 CROSS_CONFIGS = (
     ("crdr.yaml", "f32 flagship, K1 off, f32 chain on both"),
     ("balle18_mean_scale.yaml", "GDN path: K3 on the card, gdn_plain on the "
@@ -3988,12 +4093,12 @@ def serve_leg(model, args, label: str, bodies, imgs, sizes, clients: int,
         conn = http.client.HTTPConnection(*srv.server_address, timeout=120)
         conn.request("POST", "/compress" + q, body=b"\xff\xd8\xff\xe0JFIF")
         r = conn.getresponse()
-        check(r.status == 400 and b"JPEG" in r.read(),
-              f"{label}: a JPEG body got {r.status}, not a 400")
+        check(r.status == 400 and b"truncated data" in r.read(),
+              f"{label}: a malformed JPEG body got {r.status}, not a 400")
         conn.request("POST", "/compress" + q, body=bodies[0])
         r = conn.getresponse()
         check(r.status == 200 and len(r.read()) > 0,
-              f"{label}: the request after a JPEG on the same connection "
+              f"{label}: the request after a bad JPEG on the same connection "
               f"got {r.status}")
         conn.close()
         stats0 = srv.batcher.stats()
@@ -4323,24 +4428,26 @@ def sweep_phase(card: str, tmp: str):
     return csvs, counts
 
 
-def metrics_phase(card: str, tmp: str) -> dict:
-    """Phase 19 (b): ``python -m crdr_tpu_torch.cli.calc_metrics`` (its
-    ``main``, in process) on METRIC_IMAGES synthetic 512x768 images and the
-    flagship's decodes of them, on seeded Inception / DISTS weight files in
-    pytorch-fid's and DISTS' layouts and a random LPIPS; the FID of the
-    reals against themselves; the card's Inception features and DISTS
-    values against the same modules on the CPU."""
+def metrics_phase(card: str) -> tuple:
+    """Phase 19 (b): ``python -m crdr_tpu_torch.cli.calc_metrics`` on
+    METRIC_IMAGES synthetic 512x768 images and the flagship's decodes of
+    them, on seeded Inception / DISTS weight files in pytorch-fid's and
+    DISTS' layouts and a random LPIPS; the FID of the reals against
+    themselves; the card's Inception features and DISTS values against the
+    same modules on the CPU.  The CLI and the self-FID (``self_fid_child``)
+    run in processes of their own, their FID statistics and sqrtm on the
+    host (12-27 s each in one process), beside this phase's rest and phase
+    20; main waits for them with ``metrics_end``.  Returns (figures, the
+    pending processes)."""
     import pickle
+    import tempfile
 
     import torch
 
-    from crdr_tpu_torch.cli import calc_metrics
     from crdr_tpu_torch.cli.serve_smoke import synthetic_images
     from crdr_tpu_torch.metrics.dists import (DISTS, load_dists_params,
                                               seeded_dists_state)
-    from crdr_tpu_torch.metrics.fid import (activation_statistics,
-                                            compute_fid,
-                                            crop_hific_fid_patches,
+    from crdr_tpu_torch.metrics.fid import (crop_hific_fid_patches,
                                             patch_features)
     from crdr_tpu_torch.metrics.inception import (f32_numerics,
                                                   load_inception,
@@ -4349,6 +4456,9 @@ def metrics_phase(card: str, tmp: str) -> dict:
     from crdr_tpu_torch.utils.img_utils import (read_png, tensor_to_uint8,
                                                 write_png)
 
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)  # removed by metrics_end
     real_dir, fake_dir = (os.path.join(tmp, d) for d in ("reals", "fakes"))
     os.makedirs(real_dir)
     os.makedirs(fake_dir)
@@ -4379,41 +4489,14 @@ def metrics_phase(card: str, tmp: str) -> dict:
     for path, state in ((inc_path, inc_state), (dists_path, dists_state)):
         with open(path, "wb") as f:
             pickle.dump(state, f)
-    env = {"CRDR_INCEPTION_WEIGHTS": inc_path,
-           "CRDR_DISTS_WEIGHTS": dists_path, "CRDR_ALLOW_RANDOM_LPIPS": "1",
-           "CRDR_LPIPS_WEIGHTS": None}
-    saved = {k: os.environ.get(k) for k in env}
-    try:
-        for k, v in env.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-        t0 = time.perf_counter()
-        res = calc_metrics.main(["--real_dir", real_dir, "--fake_dir",
-                                 fake_dir, "-d", CARD, "--metrics", "psnr",
-                                 "ms_ssim", "lpips", "fid", "dists"])
-        metrics_s = time.perf_counter() - t0
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    keys = {"PSNR", "MS-SSIM", "LPIPS", "LPIPS_weights", "FID", "DISTS",
-            "bpp"}
-    check(set(res) == keys, f"calc_metrics keys {sorted(res)} (expected the "
-          f"JAX script's {sorted(keys)})")
-    check(res["LPIPS_weights"] == "random", "LPIPS on a random init must be "
-          f"tagged 'random', got {res['LPIPS_weights']!r}")
-    check(all(np.isfinite(res[k]) for k in keys - {"LPIPS_weights"}),
-          f"calc_metrics: a non-finite value {res}")
-    with open(os.path.join(fake_dir, "_metrics.json")) as f:
-        check(json.load(f) == res, "_metrics.json != the returned metrics")
-    print(f"calc_metrics on {METRIC_IMAGES} pairs (seeded Inception / DISTS "
-          f"weights, random LPIPS: not the metrics' values): {res}; "
-          f"{metrics_s:.1f} s (encode / decode / PNG writing before it "
-          f"{prep_s:.1f} s) [{card}]")
+    env = dict(os.environ, CRDR_INCEPTION_WEIGHTS=inc_path,
+               CRDR_DISTS_WEIGHTS=dists_path, CRDR_ALLOW_RANDOM_LPIPS="1")
+    env.pop("CRDR_LPIPS_WEIGHTS", None)
+    cli = start_proc([sys.executable, "-m", "crdr_tpu_torch.cli.calc_metrics",
+                      "--real_dir", real_dir, "--fake_dir", fake_dir, "-d",
+                      CARD, "--metrics", "psnr", "ms_ssim", "lpips", "fid",
+                      "dists"], ROOT, os.path.join(tmp, "calc_metrics.log"),
+                     env)
 
     # the FID of the reals against themselves; the card against the CPU
     reals = [read_png(os.path.join(real_dir, f"img{i:02d}.png"))
@@ -4422,13 +4505,11 @@ def metrics_phase(card: str, tmp: str) -> dict:
     t0 = time.perf_counter()
     feats = patch_features(reals, extract)
     feat_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    self_fid = compute_fid(feats, feats)
-    fid_s = time.perf_counter() - t0
-    terms = 2 * float(np.trace(activation_statistics(feats)[1]))
-    check(abs(self_fid) <= SELF_FID_REL * terms, f"FID of the reals "
-          f"against themselves {self_fid} (|.| <= {SELF_FID_REL} x "
-          f"2 tr(sigma) = {SELF_FID_REL * terms:.3e} expected)")
+    fpath = os.path.join(tmp, "feats.npy")
+    np.save(fpath, feats)
+    self_fid = start_proc([sys.executable, "-c", "import sys, chip_smoke; "
+                           "chip_smoke.self_fid_child(sys.argv[1])", fpath],
+                          ROOT, fpath + ".log")
     patches = crop_hific_fid_patches(reals[0])[:4]
     cpu_inc = load_inception(inc_state, "cpu")
     with torch.no_grad():
@@ -4452,16 +4533,70 @@ def metrics_phase(card: str, tmp: str) -> dict:
     dists_err = abs(vals[CARD] - vals["cpu"])
     check(dists_err <= DISTS_ATOL, f"DISTS card {vals[CARD]} vs CPU "
           f"{vals['cpu']} (|diff| <= {DISTS_ATOL})")
-    print(f"FID of the reals against themselves {self_fid:.3e}, "
-          f"{abs(self_fid) / terms:.2e} of 2 tr(sigma) ({len(feats)} "
-          f"patches; features {feat_s:.2f} s on the card, statistics and "
-          f"sqrtm {fid_s:.1f} s on the host); Inception pool3 card vs CPU "
-          f"on {len(patches)} patches: max |diff| {inc_err:.3e} of the "
-          f"largest feature; DISTS on a 256x256 pair card {vals[CARD]:.6f} "
-          f"vs CPU {vals['cpu']:.6f} (|diff| {dists_err:.2e}) [{card}]")
-    return {**res, "self_fid": self_fid, "self_fid_terms": terms,
-            "inception_rel_err": inc_err,
-            "dists_abs_err": dists_err, "seconds": metrics_s}
+    print(f"Inception pool3 card vs CPU on {len(patches)} patches: max "
+          f"|diff| {inc_err:.3e} of the largest feature; DISTS on a 256x256 "
+          f"pair card {vals[CARD]:.6f} vs CPU {vals['cpu']:.6f} (|diff| "
+          f"{dists_err:.2e}) [{card}]")
+    return ({"inception_rel_err": inc_err, "dists_abs_err": dists_err,
+             "prep_s": prep_s},
+            {"tmp": tmp, "fake_dir": fake_dir, "cli": cli,
+             "self_fid": self_fid, "feats": fpath, "n": len(feats),
+             "feat_s": feat_s})
+
+
+def self_fid_child(path: str) -> None:
+    """The FID of the features in ``path`` (.npy) against themselves and
+    2 tr(sigma), written as JSON beside them (``metrics_phase``)."""
+    sys.path.insert(0, ROOT)
+    from crdr_tpu_torch.metrics.fid import activation_statistics, compute_fid
+
+    feats = np.load(path)
+    t0 = time.perf_counter()
+    fid = compute_fid(feats, feats)
+    fid_s = time.perf_counter() - t0
+    terms = 2 * float(np.trace(activation_statistics(feats)[1]))
+    with open(path + ".json", "w") as f:
+        json.dump({"self_fid": fid, "self_fid_terms": terms,
+                   "self_fid_s": fid_s}, f)
+
+
+def metrics_end(pending: dict, card: str) -> dict:
+    """Waits for ``metrics_phase``'s processes: the CLI's ``_metrics.json``
+    has the JAX script's keys, finite values and LPIPS tagged random; the
+    FID of the reals against themselves is within SELF_FID_REL of
+    2 tr(sigma).  Returns the figures."""
+    cli = pending["cli"]
+    rc, log, cli_s = end_proc(cli)
+    check(rc == 0, f"calc_metrics exited {rc}:\n{log[-6000:]}")
+    with open(os.path.join(pending["fake_dir"], "_metrics.json")) as f:
+        res = json.load(f)
+    keys = {"PSNR", "MS-SSIM", "LPIPS", "LPIPS_weights", "FID", "DISTS",
+            "bpp"}
+    check(set(res) == keys, f"calc_metrics keys {sorted(res)} (expected the "
+          f"JAX script's {sorted(keys)})")
+    check(res["LPIPS_weights"] == "random", "LPIPS on a random init must be "
+          f"tagged 'random', got {res['LPIPS_weights']!r}")
+    check(all(np.isfinite(res[k]) for k in keys - {"LPIPS_weights"}),
+          f"calc_metrics: a non-finite value {res}")
+    print(f"calc_metrics on {METRIC_IMAGES} pairs (seeded Inception / DISTS "
+          f"weights, random LPIPS: not the metrics' values): {res}; "
+          f"{cli_s:.1f} s from its process's start to its exit (beside the "
+          f"rest of phase 19 and phase 20) [{card}]")
+    rc, log, _ = end_proc(pending["self_fid"])
+    check(rc == 0, f"the self-FID process exited {rc}:\n{log[-3000:]}")
+    with open(pending["feats"] + ".json") as f:
+        fid = json.load(f)
+    shutil.rmtree(pending["tmp"], ignore_errors=True)
+    terms = fid["self_fid_terms"]
+    check(abs(fid["self_fid"]) <= SELF_FID_REL * terms, f"FID of the reals "
+          f"against themselves {fid['self_fid']} (|.| <= {SELF_FID_REL} x "
+          f"2 tr(sigma) = {SELF_FID_REL * terms:.3e} expected)")
+    print(f"FID of the reals against themselves {fid['self_fid']:.3e}, "
+          f"{abs(fid['self_fid']) / terms:.2e} of 2 tr(sigma) "
+          f"({pending['n']} patches; features {pending['feat_s']:.2f} s on "
+          f"the card, statistics and sqrtm {fid['self_fid_s']:.1f} s on the "
+          f"host, in a process of its own) [{card}]")
+    return {**res, **fid, "seconds": cli_s}
 
 
 def bd_phase(csvs: dict, card: str) -> dict:
@@ -4496,27 +4631,29 @@ def bd_phase(csvs: dict, card: str) -> dict:
 
 
 def eval_phase(card: str):
-    """Phase 19: the sweep, the metrics, BD-rate."""
+    """Phase 19: the sweep, the metrics, BD-rate.  Returns (figures,
+    {path: launches}, the processes ``metrics_end`` waits for)."""
     import tempfile
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         csvs, counts = sweep_phase(card, tmp)
-        metrics = metrics_phase(card, tmp)
+        metrics, pending = metrics_phase(card)
         bd = bd_phase(csvs, card)
     res = {"metrics": metrics, "bd": bd,
            "phase_s": time.perf_counter() - t0}
-    print(f"evaluation phase: {res['phase_s']:.1f} s [{card}]")
-    return res, counts
+    print(f"evaluation phase: {res['phase_s']:.1f} s, calc_metrics and the "
+          f"self-FID running on [{card}]")
+    return res, counts, pending
 
 
 # ---------------- phase 20: Cheng20 and HiFiC on the card --------------------
 
 FAMILIES = ("cheng20", "cheng20_interp_ca", "hific")
-# one timed round trip a wire and no padding measurement: a Cheng20 batch
-# direction takes 1-2 s (PERF.md §5: ~124k launches of cuDNN's FFT-tiling
-# GEMM)
-FAMILY_RUNS = 1
+# no warm-up, timed or padding round trips: a Cheng20 batch direction
+# takes 1-2 s (PERF.md §5: ~124k launches of cuDNN's FFT-tiling GEMM), so
+# each wire's times are its counted round trip's, cold
+FAMILY_RUNS = 0
 
 
 def family_config(family: str, tiny: bool = False) -> dict:
@@ -4679,20 +4816,18 @@ class TimedLoader:
 
 
 def resize_phase(card: str) -> dict:
-    """Phase 21: endurance_r4_stage1.yaml's recipe (resize_range [0.5,
-    1.0], uint8 samples) on synthetic 512x768 PNG sources in a temporary
-    directory.  The recipe's own interpolation is bicubic, which the port
-    refuses (cv2's IPP bicubic is not reproduced byte for byte); the run
-    lays interpolation: bilinear over it.  5 steps through train_loop; the
-    resampler's ms per sample at 768x512 and 1024x768; the loader's wait
-    per step."""
+    """Phase 21: endurance_r4_stage1.yaml's recipe as written (resize_range
+    [0.5, 1.0], bicubic, uint8 samples) on synthetic 512x768 PNG sources in
+    a temporary directory.  5 steps through train_loop; the resampler's ms
+    per sample at 768x512 and 1024x768, bicubic (the recipe's) beside
+    bilinear; the loader's wait per step."""
     import tempfile
 
     import torch
 
     from crdr_tpu_torch.cli.serve_smoke import synthetic_images
     from crdr_tpu_torch.data import build_dataset
-    from crdr_tpu_torch.data.resize import resize_linear_u8
+    from crdr_tpu_torch.data.resize import resize
     from crdr_tpu_torch.trainer import build_trainer
     from crdr_tpu_torch.utils.img_utils import write_png
 
@@ -4704,26 +4839,24 @@ def resize_phase(card: str) -> dict:
             write_png(os.path.join(src, f"src{i:02d}.png"), img)
         cfg = train_config("endurance_r4_stage1.yaml", tmp, "r4",
                            total_iter=RESIZE_STEPS, log_step=RESIZE_STEPS)
-        try:
-            build_dataset(cfg.dataset.train_dataset, is_train=True)
-            check(False, "the recipe's bicubic resize_range did not raise")
-        except NotImplementedError as e:
-            print(f"endurance_r4_stage1.yaml as it is: {e}")
-        cfg.dataset.train_dataset.update(root_dir=src,
-                                         interpolation="bilinear")
+        check(cfg.dataset.train_dataset.get("interpolation",
+                                            "bicubic") == "bicubic",
+              "endurance_r4_stage1.yaml is no longer bicubic")
+        cfg.dataset.train_dataset.update(root_dir=src)
         cfg.dataset.eval_dataset.update(root_dir=src)
 
         # the resampler alone, at the scales the transform draws
-        rng = np.random.default_rng(0)
-        for h, w in ((512, 768), (768, 1024)):
-            img = synthetic_images(1, h, w, 31)[0]
-            runs = []
-            for _ in range(12):
-                s = rng.uniform(0.5, 1.0)
-                t0 = time.perf_counter()
-                resize_linear_u8(img, (int(w * s), int(h * s)))
-                runs.append((time.perf_counter() - t0) * 1e3)
-            res[f"resize_ms_{w}x{h}"] = float(np.median(runs[2:]))
+        for interp in ("bicubic", "bilinear"):
+            rng = np.random.default_rng(0)
+            for h, w in ((512, 768), (768, 1024)):
+                img = synthetic_images(1, h, w, 31)[0]
+                runs = []
+                for _ in range(12):
+                    s = rng.uniform(0.5, 1.0)
+                    t0 = time.perf_counter()
+                    resize(img, (int(w * s), int(h * s)), interp)
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                res[f"{interp}_ms_{w}x{h}"] = float(np.median(runs[2:]))
         ds = build_dataset(cfg.dataset.train_dataset, is_train=True)
         runs = []
         for i in range(12):
@@ -4756,9 +4889,11 @@ def resize_phase(card: str) -> dict:
                    loss_last=last["total"])
         del tr
         torch.cuda.empty_cache()
-    print(f"resize_range (bilinear, uint8): resampler "
-          f"{res['resize_ms_768x512']:.2f} ms a sample at 768x512, "
-          f"{res['resize_ms_1024x768']:.2f} ms at 1024x768; a whole train "
+    print(f"resize_range (the recipe's bicubic, uint8): resampler "
+          f"{res['bicubic_ms_768x512']:.2f} ms a sample at 768x512, "
+          f"{res['bicubic_ms_1024x768']:.2f} ms at 1024x768 (bilinear "
+          f"{res['bilinear_ms_768x512']:.2f} / "
+          f"{res['bilinear_ms_1024x768']:.2f} ms); a whole train "
           f"transform {res['sample_ms_768x512']:.2f} ms at 768x512 (PNG read "
           f"included); {res['steps']} steps of endurance_r4_stage1.yaml, "
           f"median step {res['step_ms']:.1f} ms, the loader's wait "
@@ -5215,7 +5350,9 @@ def mesh_phase(imgs, card: str) -> tuple:
                                                                 card)
     res["serve"] = mesh_serve_check(card)
     del one
+    gc.collect()
     torch.cuda.empty_cache()
+    res["hyper_plans"] = hyper_plans_check(card)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"serving-mesh phase: {res['phase_s']:.1f} s [{card}]")
     return res, counts
@@ -5324,6 +5461,91 @@ def spatial_mesh_check(one, mesh, card: str) -> tuple:
     del sp
     torch.cuda.empty_cache()
     return out, sl["launches"]
+
+
+HYPER_LEFT = 512 * 2 ** 20  # bytes left free around the hyper pair
+
+
+def hyper_outputs(model, fn: str, z_sym) -> list:
+    """``fn``'s outputs on ``z_sym`` under the codec's numerics, as host
+    arrays, nested tuples flattened."""
+    import torch
+
+    from crdr_tpu_torch.models.codec import codec_numerics
+
+    with torch.no_grad(), codec_numerics(model._chain_tf32):
+        out = getattr(model, fn)(z_sym)
+    torch.cuda.synchronize()
+    flat, todo = [], [out]
+    while todo:
+        t = todo.pop(0)
+        if isinstance(t, (tuple, list)):
+            todo[:0] = list(t)
+        else:
+            flat.append(t.cpu().numpy())
+    return flat
+
+
+def hyper_plans_check(card: str) -> dict:
+    """The hyper pair against the card's free memory (the step of phase 23
+    that tests/test_torch_hyper_plans_gpu.py also runs): the flagship
+    (crdr.yaml, decode_begin) and the Balle18 mean-scale model
+    (generic_params) on one seeded z at 512x768 and 2048x3072, first with
+    the memory free, then with a held tensor taking all of it but 512 MiB
+    around _hyper_decode, and but the entry's own peak plus 512 MiB around
+    the entry; every output bit-equal to the free run's."""
+    import torch
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.utils.config import Config
+
+    t0 = time.perf_counter()
+    res = {}
+    for config, entry in (("crdr.yaml", "decode_begin"),
+                          ("balle18_mean_scale.yaml", "generic_params")):
+        model = build_comp_model(Config.from_file(
+            os.path.join(ROOT, "config", config)))
+        model.codec_setup()
+        cz = model.net.entropy_model_z.medians().numel()
+        for h, w in ((IMG_H, IMG_W), (SPATIAL_H, SPATIAL_W)):
+            rng = np.random.default_rng(16)
+            z = torch.from_numpy(rng.integers(
+                -4, 5, (1, h // 64, w // 64, cz)).astype(np.float32)).to(
+                model.device)
+            for fn in ("_hyper_decode", entry):
+                free = hyper_outputs(model, fn, z)
+                left = HYPER_LEFT
+                if fn == entry:
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    hyper_outputs(model, fn, z)
+                    left += torch.cuda.max_memory_allocated() - base
+                gc.collect()
+                torch.cuda.empty_cache()
+                hog = torch.empty(max(torch.cuda.mem_get_info()[0] - left, 0),
+                                  dtype=torch.uint8, device=model.device)
+                try:
+                    held = hyper_outputs(model, fn, z)
+                    free_then = torch.cuda.mem_get_info()[0]
+                finally:
+                    del hog
+                    torch.cuda.empty_cache()
+                apart = sum(int(np.count_nonzero(a != b))
+                            for a, b in zip(free, held))
+                key = f"{config} {fn} {w}x{h}"
+                res[key] = {"values": sum(a.size for a in free),
+                            "apart": apart, "left_mib": left / 2 ** 20,
+                            "free_under_hog_mib": free_then / 2 ** 20}
+                check(len(free) == len(held) and apart == 0,
+                      f"hyper pair {key}: {apart} values differ with all but "
+                      f"{left / 2 ** 20:.0f} MiB of the card taken")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"hyper pair against free memory: every output bit-equal with the "
+          f"card's memory taken (im2col / sub-pixel convs on the card): "
+          f"{res}; {time.perf_counter() - t0:.1f} s [{card}]")
+    return res
 
 
 def spatial_mismatch(m, big, enc, dec, held_gib: float) -> None:
@@ -5554,13 +5776,13 @@ def set_wire(models, wire: str) -> None:
 
 
 def aot_compare(live, fresh, imgs, wire: str, label: str, expected: dict,
-                card: str) -> tuple:
+                card: str, batch1: bool = True) -> tuple:
     """``fresh`` (the package loaded) against ``live`` (the same weights, no
     package) on ``wire``: a batch round trip with launches counted and the
-    ops' calls held against their twins, then a batch-1 round trip; streams
-    byte-equal, decodes pixel-equal, y_hat equal to the encoder's, launches
-    = ``expected`` on both, no miss but in AOT_DATA_SHAPED.  Returns
-    (figures, launches)."""
+    ops' calls held against their twins, then (with ``batch1``) a batch-1
+    round trip; streams byte-equal, decodes pixel-equal, y_hat equal to the
+    encoder's, launches = ``expected`` on both, no miss but in
+    AOT_DATA_SHAPED.  Returns (figures, launches)."""
     from crdr_tpu_torch.runtime.aot import aot_counts
 
     set_wire((live, fresh), wire)
@@ -5580,13 +5802,14 @@ def aot_compare(live, fresh, imgs, wire: str, label: str, expected: dict,
     held = hold_op_calls(samples, label, card)
     rate = {"rate_ind": RATE} if live.use_rate else {}
     beta = {"beta": BETA} if live.use_beta else {}
-    one_l = live.compress_batch(imgs[:1], **rate)[0]["string_list"]
-    one_p = fresh.compress_batch(imgs[:1], **rate)[0]["string_list"]
-    check(one_l == one_p == encs_p[0]["string_list"],
-          f"{label}: batch-1 package stream != live / batch stream")
-    d1 = fresh.decompress_batch([one_p], **beta)
-    check(np.array_equal(d1[0][0], f_p[0]),
-          f"{label}: batch-1 package decode != the batch decode")
+    if batch1:
+        one_l = live.compress_batch(imgs[:1], **rate)[0]["string_list"]
+        one_p = fresh.compress_batch(imgs[:1], **rate)[0]["string_list"]
+        check(one_l == one_p == encs_p[0]["string_list"],
+              f"{label}: batch-1 package stream != live / batch stream")
+        d1 = fresh.decompress_batch([one_p], **beta)
+        check(np.array_equal(d1[0][0], f_p[0]),
+              f"{label}: batch-1 package decode != the batch decode")
     counts = {n: {k: c[k] - base.get(n, {}).get(k, 0) for k in c}
               for n, c in aot_counts(fresh).items()}
     missed = {n: c["misses"] for n, c in counts.items()
@@ -5594,8 +5817,9 @@ def aot_compare(live, fresh, imgs, wire: str, label: str, expected: dict,
     check(not missed, f"{label}: misses at the recorded buckets: {missed}")
     check(sum(c["hits"] for c in counts.values()) > 0,
           f"{label}: no dispatch ran from the package")
-    print(f"{label}: streams byte-equal to the live path (batch {N_IMG} and "
-          f"1), decodes equal, launches {got_p} = live's; hits / misses "
+    print(f"{label}: streams byte-equal to the live path (batch {N_IMG}"
+          f"{' and 1' if batch1 else ''}), decodes equal, launches {got_p} = "
+          f"live's; hits / misses "
           f"{counts}; ops held against their twins {held} [{card}]")
     return {"counts": counts, "held": held, "launches": got_p}, got_p
 
@@ -5815,10 +6039,12 @@ def aot_child(kind: str, path: str) -> None:
     flagship's: ``gdn``, the GDN path (balle18_mean_scale.yaml) at
     AOT_SHAPES and 1xAOT_CPU_HxAOT_CPU_W, exported for cuda and cpu, its
     cpu programs then held in a CPU process (``aot_cpu_child``); or ``cb``,
-    the checkerboard (cb_stage2.yaml) at AOT_SHAPES.  Both on the compressai
-    wire; the package loaded into a fresh model on the same weights and
-    held against the live path (``aot_compare``).  Prints its lines, then
-    one line ``aot_child {json}``; a failed check exits non-zero."""
+    the checkerboard (cb_stage2.yaml) at AOT_SHAPES' batch bucket only (its
+    export of 108 programs a bucket was the phase's longest leg).  Both on
+    the compressai wire; the package loaded into a fresh model on the same
+    weights and held against the live path (``aot_compare``; the GDN path
+    at batch 1 too).  Prints its lines, then one line ``aot_child {json}``;
+    a failed check exits non-zero."""
     sys.path.insert(0, ROOT)
     import torch
 
@@ -5840,14 +6066,14 @@ def aot_child(kind: str, path: str) -> None:
     else:
         live = cb_model(card)
         export = aot_export(live, path, ("compressai",), "aot checkerboard",
-                            card)
+                            card, shapes=AOT_SHAPES[:1])
         fresh = cb_model(card)
         want = {"slice_transform": 6 * live.num_slices,
                 "lane_decode_round": 0, "gdn": 0, "lane_encode_rounds": 0}
         label = "aot checkerboard compressai"
     load_package(fresh, path)
     compare, launches = aot_compare(live, fresh, imgs, "compressai", label,
-                                    want, card)
+                                    want, card, batch1=kind == "gdn")
     out = {"label": label, "export": export, "compare": compare,
            "launches": launches}
     del live, fresh
@@ -5860,37 +6086,27 @@ def aot_child(kind: str, path: str) -> None:
 def aot_child_start(kind: str, path: str) -> dict:
     """Starts ``aot_child(kind, path)``, its output to a file beside the
     package."""
-    log = path + ".log"
-    with open(log, "wb") as f:
-        proc = subprocess.Popen(
-            [sys.executable, "-c", "import sys, chip_smoke; "
-             "chip_smoke.aot_child(sys.argv[1], sys.argv[2])", kind, path],
-            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT)
-    return {"kind": kind, "proc": proc, "log": log,
-            "t0": time.perf_counter()}
+    child = start_proc([sys.executable, "-c", "import sys, chip_smoke; "
+                        "chip_smoke.aot_child(sys.argv[1], sys.argv[2])",
+                        kind, path], ROOT, path + ".log")
+    child["kind"] = kind
+    return child
 
 
 def aot_child_end(child: dict) -> dict:
     """Waits for a child of ``aot_child_start``, prints its lines, and
     returns its figures (its ``process_s`` added); fails if it failed."""
-    proc = child["proc"]
-    try:
-        proc.wait(timeout=900)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.wait()
-    with open(child["log"], errors="replace") as f:
-        lines = f.read().splitlines()
+    rc, out, process_s = end_proc(child, timeout=900)
+    lines = out.splitlines()
     res = None
     for line in lines:
         if line.startswith("aot_child "):
             res = json.loads(line[len("aot_child "):])
         else:
             print(line)
-    check(proc.returncode == 0 and res is not None,
-          f"phase 24's {child['kind']} process failed (exit "
-          f"{proc.returncode}): {lines[-5:]}")
-    res["process_s"] = time.perf_counter() - child["t0"]
+    check(rc == 0 and res is not None, f"phase 24's {child['kind']} "
+          f"process failed (exit {rc}): {lines[-5:]}")
+    res["process_s"] = process_s
     return res
 
 
@@ -5988,6 +6204,214 @@ def aot_phase(imgs, card: str) -> tuple:
     return res, counts
 
 
+# ---------------- phase 25: JPEG input --------------------------------------
+
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+JPEG_STEPS = 3
+
+
+def pixel_sha(img) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(img, np.uint8)
+                          .tobytes()).hexdigest()
+
+
+def jpeg_fixtures_check() -> dict:
+    """Every fixture of tests/data/jpeg decoded on both paths, its pixels'
+    sha256 against the digests cv2 (file) and PIL (body) gave; the refused
+    ones raise their reason."""
+    from crdr_tpu_torch.utils.img_utils import read_image
+    from crdr_tpu_torch.utils.jpeg import decode_jpeg
+
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    done = refused = 0
+    for name, want in sorted(digests.items()):
+        path = os.path.join(JPEG_DIR, name)
+        if "raises" in want:
+            try:
+                read_image(path)
+            except ValueError as e:
+                check(want["raises"] in str(e),
+                      f"{name}: raised {e!r}, not {want['raises']!r}")
+                refused += 1
+                continue
+            fail(f"{name}: decoded, but the port refuses it "
+                 f"({want['raises']})")
+        with open(path, "rb") as f:
+            data = f.read()
+        for path_kind, img in (("file", read_image(path)),
+                               ("body", decode_jpeg(data, name))):
+            check(list(img.shape) == want[f"{path_kind}_shape"] and
+                  pixel_sha(img) == want[path_kind],
+                  f"{name}: the {path_kind} path's pixels differ from "
+                  f"{'cv2' if path_kind == 'file' else 'PIL'}'s")
+        done += 1
+    return {"decoded": done, "refused": refused}
+
+
+def jpeg_served_check(card: str) -> dict:
+    """The 768x512 fixture as a request body to cli/serve.py's server
+    (crdr_throughput.yaml, the device wire, E1): its .bin byte-equal to
+    the .bin of a PNG of the same pixels; the JPEG body's round trip's
+    launches those of phase 4, each kernel's calls held against its
+    twin."""
+    import torch
+
+    from crdr_tpu_torch.serving.http_server import make_server
+    from crdr_tpu_torch.utils.img_utils import decode_png, encode_png
+    from crdr_tpu_torch.utils.jpeg import decode_jpeg
+
+    with open(os.path.join(JPEG_DIR, "photo_768x512.jpg"), "rb") as f:
+        body = f.read()
+    png = encode_png(decode_jpeg(body, "photo_768x512.jpg"))
+    model, args = serve_model(card, wire="device")
+    check(model.device_wire_encoder == "device",
+          "the device wire's default encoder is E1")
+    srv = make_server(model, port=0, max_batch=args.max_batch,
+                      max_wait_s=args.max_wait_ms / 1e3)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    kernels = kernel_wrappers()
+    try:
+        http_post(base + "/decompress", http_post(
+            base + "/compress?q=2.0", png)[0])  # warm: first calls
+        with sampled_kernel_calls() as samples:
+            for k in kernels.values():
+                k.launches = 0
+            blob, _, enc_s = http_post(base + "/compress?q=2.0", body)
+            out, _, dec_s = http_post(base + "/decompress?beta=2.56", blob)
+            got = {n: k.launches for n, k in kernels.items()}
+        held = hold_served_kernels(samples, "JPEG body", card)
+        blob_png = http_post(base + "/compress?q=2.0", png)[0]
+    finally:
+        srv.shutdown()
+        srv.batcher.close()
+        srv.server_close()
+    want = {"slice_transform": 6 * model.num_slices,
+            "lane_decode_round": 1 + model.num_slices,
+            "lane_encode_rounds": 2, "gdn": 0}
+    check(got == want, f"JPEG body round trip: launches {got}, expected "
+          f"{want} (phase 4's)")
+    check(blob == blob_png, "the JPEG body's .bin != its PNG's")
+    dec = decode_png(out)
+    check(dec.shape == (IMG_H, IMG_W, 3),
+          f"JPEG body: decoded {dec.shape}")
+    res = {"launches": got, "held": held, "bin_bytes": len(blob),
+           "compress_ms": enc_s * 1e3, "decompress_ms": dec_s * 1e3}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def jpeg_training_check(card: str, tmp: str) -> dict:
+    """3 steps of crdr_stage_1.yaml (OpenImageImageDataset, the recipe's
+    model and losses, LPIPS's allow_random laid over it) on a train_0/ of
+    the fixtures' JPEGs (repeat 2), on the card; the sample's and the
+    loader's times."""
+    import torch
+
+    from crdr_tpu_torch.data import build_dataset
+    from crdr_tpu_torch.trainer import build_trainer
+    from crdr_tpu_torch.utils.img_utils import write_png
+
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        names = [n for n, d in sorted(json.load(f).items())
+                 if "raises" not in d and min(d["file_shape"][:2]) >= 2]
+    train0 = os.path.join(tmp, "openimage", "train_0")
+    kodak = os.path.join(tmp, "kodak")
+    os.makedirs(train0)
+    os.makedirs(kodak)
+    for n in names:
+        shutil.copy(os.path.join(JPEG_DIR, n), train0)
+    write_png(os.path.join(kodak, "kodim01.png"),
+              np.full((64, 96, 3), 128, np.uint8))
+    cfg = train_config("crdr_stage_1.yaml", tmp, "jpeg",
+                       total_iter=JPEG_STEPS, log_step=JPEG_STEPS)
+    check(cfg.dataset.train_dataset.name == "openimage",
+          "crdr_stage_1.yaml's dataset is no longer OpenImage")
+    # repeat 2: an epoch of 5 batches, so the 3 steps' waits hold no
+    # epoch restart
+    cfg.dataset.train_dataset.update(root_dir=os.path.dirname(train0),
+                                     subset_list=[0], seed=0, repeat=2)
+    cfg.dataset.eval_dataset.update(root_dir=kodak)
+    cfg.loss.perceptual_loss.update(allow_random=True)
+    ds = build_dataset(cfg.dataset.train_dataset, is_train=True)
+    check(type(ds).__name__ == "OpenImageImageDataset" and
+          len(ds) == 2 * len(names), f"the JPEG tree: {type(ds).__name__} "
+          f"of {len(ds)}")
+    runs = []
+    for i in range(len(names)):
+        t0 = time.perf_counter()
+        ds[i]
+        runs.append((time.perf_counter() - t0) * 1e3)
+    tr = build_trainer(cfg, CARD)
+    loader = TimedLoader(tr.train_loader)
+    tr.train_loader = loader
+    logs, steps, _ = record_steps(tr)
+    t0 = time.perf_counter()
+    tr.train_loop()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(len(logs) == JPEG_STEPS, f"JPEG training: {len(logs)} steps "
+          f"({JPEG_STEPS} expected)")
+    last = check_logs(logs, "JPEG training")
+    batch = next(iter(tr.train_loader.loader))["real_images"]
+    check(batch.shape == (8, 256, 256, 3) and np.isfinite(batch).all(),
+          f"JPEG training batch {batch.dtype} {batch.shape}")
+    res = {"sources": len(names), "sample_ms": float(np.median(runs)),
+           "steps": len(logs), "step_ms": float(np.median(steps[1:])),
+           "wait_ms": float(np.mean(loader.waits[1:])),
+           "wait_max_ms": float(np.max(loader.waits[1:])),
+           "first_wait_ms": loader.waits[0], "run_s": secs,
+           "loss_last": last["total"]}
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def jpeg_phase(card: str) -> tuple:
+    """Phase 25: JPEG input (module doc); returns ({figures}, {path:
+    launches})."""
+    import tempfile
+
+    from crdr_tpu_torch.utils.jpeg import decode_jpeg
+
+    t_phase = time.perf_counter()
+    res = {"fixtures": jpeg_fixtures_check(), "cpu_count": os.cpu_count()}
+    with open(os.path.join(JPEG_DIR, "photo_768x512.jpg"), "rb") as f:
+        data = f.read()
+    runs = []
+    for _ in range(22):
+        t0 = time.perf_counter()
+        decode_jpeg(data)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(runs[2:]))
+    res.update(decode_ms_768x512=ms, decode_ms_per_mpix=ms / 0.393216)
+    res["served"] = jpeg_served_check(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["training"] = jpeg_training_check(card, tmp)
+    res["phase_s"] = time.perf_counter() - t_phase
+    fx, sv, tr = res["fixtures"], res["served"], res["training"]
+    print(f"JPEG input: {fx['decoded']} fixtures' pixels equal to cv2's and "
+          f"PIL's digests on both paths, {fx['refused']} refused with their "
+          f"reasons; the decoder {ms:.2f} ms at 768x512 "
+          f"({res['decode_ms_per_mpix']:.2f} ms a Mpix, one host thread; "
+          f"os.cpu_count() {res['cpu_count']}); a served JPEG body's .bin "
+          f"equal to its PNG's, launches {sv['launches']}; "
+          f"{tr['steps']} steps of crdr_stage_1.yaml on "
+          f"{tr['sources']} JPEGs (OpenImageImageDataset): a sample "
+          f"{tr['sample_ms']:.2f} ms, median step {tr['step_ms']:.1f} ms, "
+          f"the loader's wait {tr['wait_ms']:.2f} ms a step (max "
+          f"{tr['wait_max_ms']:.2f}, first {tr['first_wait_ms']:.1f}); last "
+          f"total loss {tr['loss_last']:.4f}; "
+          f"phase {res['phase_s']:.1f} s [{card}]")
+    return res, {"jpeg body": sv["launches"]}
+
+
 def main() -> None:
     try:
         import torch
@@ -6003,15 +6427,15 @@ def main() -> None:
 
     card = card_line()
     print(f"card: {card}")
-    ptxas = build_kernels()
-    k1 = k1_phase(card)
-    k1_split_phase(card)
-    model = build_model(card)
+    ptxas = timed("build", build_kernels)
+    k1 = timed("k1", k1_phase, card)
+    timed("k1 split", k1_split_phase, card)
+    model = timed("flagship build", build_model, card)
     imgs = smooth_images(7)
     if "--ab-encode" in sys.argv[1:]:
         encode_ab_phase(model, imgs, card)
-    encs_c, counts_c, times_c = host_wire_path(
-        model, imgs, "compressai wire",
+    encs_c, counts_c, times_c = timed(
+        "compressai wire", host_wire_path, model, imgs, "compressai wire",
         {"slice_transform": 6 * model.num_slices,  # 3 a slice, each way
          "lane_decode_round": 0, "gdn": 0}, card)
     if profiling:
@@ -6021,8 +6445,8 @@ def main() -> None:
             [e["string_list"] for e in encs_c], beta=BETA),
             f"compressai decode batch {N_IMG}", card, ("k1_",))
     y_c = np.concatenate([e["y_hat"] for e in encs_c])
-    recorded, counts_d, times_d, encs_d = device_wire_path(model, imgs, y_c,
-                                                           card)
+    recorded, counts_d, times_d, encs_d = timed(
+        "device wire", device_wire_path, model, imgs, y_c, card)
     host_streams = [e["string_list"] for e in encs_d]  # for phase 11
     if profiling:
         encs_d = model.compress_batch(imgs, rate_ind=RATE)
@@ -6030,8 +6454,8 @@ def main() -> None:
             [e["string_list"] for e in encs_d], beta=BETA),
             f"device-wire decode batch {N_IMG}", card,
             ("k1_", "lane_decode_round_kernel"))
-    k2 = k2_phase(recorded, 1 + model.num_slices, card,
-                  ptxas["lane_decode"])
+    k2 = timed("k2", k2_phase, recorded, 1 + model.num_slices, card,
+               ptxas["lane_decode"])
     print(f"both wires, batch {N_IMG}, medians: compressai encode "
           f"{times_c['encode_ms']:.1f} / decode {times_c['decode_ms']:.1f} ms; "
           f"device encode {times_d['encode_ms']:.1f} / decode "
@@ -6039,12 +6463,13 @@ def main() -> None:
     del model, recorded
     torch.cuda.empty_cache()
 
-    k3 = k3_phase(card, ptxas["gdn"])
-    gdn_model = build_gdn_model(imgs, card)
-    encs_g, counts_g, _ = host_wire_path(
-        gdn_model, imgs, "GDN path",  # 3 GDN in the analysis, 3 IGDN after
+    k3 = timed("k3", k3_phase, card, ptxas["gdn"])
+    gdn_model = timed("GDN build", build_gdn_model, imgs, card)
+    encs_g, counts_g, _ = timed(
+        "GDN path", host_wire_path, gdn_model, imgs,
+        "GDN path",  # 3 GDN in the analysis, 3 IGDN after
         {"slice_transform": 0, "lane_decode_round": 0, "gdn": 6}, card)
-    deconv = deconv_phase(gdn_model, card)
+    deconv = timed("deconv", deconv_phase, gdn_model, card)
     if profiling:
         profile_phase(lambda: gdn_model.compress_batch(imgs),
                       f"GDN path encode batch {N_IMG}", card,
@@ -6056,25 +6481,32 @@ def main() -> None:
     del gdn_model
     torch.cuda.empty_cache()
 
-    counts_m, _ = model_class_phase(imgs, card)
-    counts_t, _ = tf32_chain_phase(imgs, card)
-    counts_e = entry_point_phase(imgs, card)
-    rec_e1, esc_e1, cap_e1, st_e1, counts_f, med_f = \
-        flagship_device_encoder_phase(imgs, host_streams, card)
-    e1 = e1_phase(rec_e1, esc_e1, cap_e1, st_e1, card,
-                  ptxas["lane_encode"])
+    counts_m, _ = timed("model classes", model_class_phase, imgs, card)
+    counts_t, _ = timed("tf32 chain", tf32_chain_phase, imgs, card)
+    counts_e = timed("entry points", entry_point_phase, imgs, card)
+    rec_e1, esc_e1, cap_e1, st_e1, counts_f, med_f = timed(
+        "device encoder", flagship_device_encoder_phase, imgs,
+        host_streams, card)
+    e1 = timed("e1", e1_phase, rec_e1, esc_e1, cap_e1, st_e1, card,
+               ptxas["lane_encode"])
     del rec_e1, esc_e1
-    counts_cb, _ = checkerboard_phase(imgs, card, profiling)
-    counts_gw, _, long_k2 = generic_device_phase(imgs, card)
-    train, counts_tr = training_phase(card, profiling)
-    cross_device_phase(imgs[:1], card)
-    serving, counts_sv = serving_phase(card)
-    evaluation, counts_ev = eval_phase(card)
-    counts_fam, _ = family_phase(imgs, card, profiling)
-    resize = resize_phase(card)
-    data_parallel, counts_dp = dp_phase(card)
-    serving_mesh, counts_mesh = mesh_phase(imgs, card)
-    aot, counts_aot = aot_phase(imgs, card)
+    counts_cb, _ = timed("checkerboard", checkerboard_phase, imgs, card,
+                         profiling)
+    counts_gw, _, long_k2 = timed("generic device wire",
+                                  generic_device_phase, imgs, card)
+    train, counts_tr = timed("training", training_phase, card, profiling)
+    timed("cross-device", cross_device_phase,
+          np.ascontiguousarray(imgs[:1, :CROSS_H, :CROSS_W]), card)
+    serving, counts_sv = timed("serving", serving_phase, card)
+    evaluation, counts_ev, pending = timed("evaluation", eval_phase, card)
+    counts_fam, _ = timed("families", family_phase, imgs, card, profiling)
+    evaluation["metrics"].update(timed("metrics' processes", metrics_end,
+                                       pending, card))
+    resize = timed("resize_range", resize_phase, card)
+    data_parallel, counts_dp = timed("data parallel", dp_phase, card)
+    serving_mesh, counts_mesh = timed("serving mesh", mesh_phase, imgs, card)
+    aot, counts_aot = timed("aot", aot_phase, imgs, card)
+    jpeg_input, counts_jpeg = timed("jpeg", jpeg_phase, card)
 
     print("training " + json.dumps(train))
     print("serving " + json.dumps(serving))
@@ -6083,6 +6515,8 @@ def main() -> None:
     print("data_parallel " + json.dumps(data_parallel))
     print("serving_mesh " + json.dumps(serving_mesh))
     print("aot " + json.dumps(aot))
+    print("jpeg_input " + json.dumps(jpeg_input))
+    print("phase_seconds " + json.dumps(PHASE_S))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
     k3r = k3["rows"]
@@ -6090,7 +6524,8 @@ def main() -> None:
                 **counts_m, **counts_t, **counts_e,
                 "flagship device encoder": counts_f, **counts_cb,
                 **counts_gw, **counts_tr, **counts_sv, **counts_ev,
-                **counts_fam, **counts_dp, **counts_mesh, **counts_aot}
+                **counts_fam, **counts_dp, **counts_mesh, **counts_aot,
+                **counts_jpeg}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",

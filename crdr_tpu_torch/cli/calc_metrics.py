@@ -10,7 +10,8 @@ runs LPIPS on a random init, tagged ``random``; FID needs at least 50
 pairs.  Reads ``_avg_bitrate.json`` from the fake dir when present and
 writes ``_metrics.json`` there.  The networks run on ``-d`` (the GPU
 unless ``cpu``); the FID statistics run on the host in float64.  Images are
-PNG: a JPEG pair is refused before any metric runs.
+PNG or JPEG, read as ``cv2.imread`` reads them (``utils/img_utils.py::
+read_image``).
 
     python -m crdr_tpu_torch.cli.calc_metrics --real_dir kodak \\
         --fake_dir out --metrics psnr ms_ssim
@@ -63,11 +64,6 @@ def pairs_of(real_dir: str, fake_dir: str) -> List[Tuple[str, str]]:
             pairs.append((real_names[name], f))
     if not pairs:
         raise FileNotFoundError("no matching real/fake image pairs")
-    jpeg = [p for pair in pairs for p in pair
-            if os.path.splitext(p)[1].lower() != ".png"]
-    if jpeg:
-        raise ValueError(f"{jpeg[0]}: the port reads PNG only (no JPEG "
-                         "decoder); convert the images to PNG")
     return pairs
 
 
@@ -168,12 +164,12 @@ def _fid(pairs, dev):
         return None, "skipped: no pretrained weights"
     from ..metrics.fid import fid_from_image_lists
     from ..metrics.inception import make_inception_extractor
-    from ..utils.img_utils import read_png
+    from ..utils.img_utils import read_image
 
     extractor = make_inception_extractor(
         os.environ["CRDR_INCEPTION_WEIGHTS"], dev)
-    reals = (read_png(r) for r, _ in pairs)
-    fakes = (read_png(f) for _, f in pairs)
+    reals = (read_image(r) for r, _ in pairs)
+    fakes = (read_image(f) for _, f in pairs)
     return fid_from_image_lists(reals, fakes, extractor), "pretrained"
 
 

@@ -7,8 +7,8 @@ Per image: ``compress_batch`` -> a length-prefixed ``.bin`` -> its real size
 times; the JAX CLI's columns in its order) and ``_avg_bitrate.json``
 (``{"avg_bpp": mean}``).  Consecutive images of one size form a batch of up
 to ``--batch``; the encode of batch k+1 runs in a worker thread while batch
-k decodes, and the streams equal those of batch 1.  Images are PNG (the port
-reads no JPEG).
+k decodes, and the streams equal those of batch 1.  Images are PNG or JPEG,
+read as ``cv2.imread`` reads them (``utils/img_utils.py::read_image``).
 
 Usage, from the root of a checkout (on the GPU unless ``-d cpu``):
     python -m crdr_tpu_torch.cli.compress config/crdr.yaml \\

@@ -9,7 +9,8 @@ By default each image is swept as one mixed-rate batch: ONE
 conditions InterpCA), and one ``decompress_batch`` per (image, beta) of all
 its streams, so the Charm decode's serial round trips run once for the
 whole quality axis.  ``--no_rate_batch`` sweeps one (image, quality) at a
-time instead (the same streams).  Images are PNG (the port reads no JPEG).
+time instead (the same streams).  Images are PNG or JPEG (``*.png`` and
+``*.jpg``, the JAX script's globs), read as ``cv2.imread`` reads them.
 
 Usage, from the root of a checkout (on the GPU unless ``-d cpu``):
     python -m crdr_tpu_torch.cli.rd_sweep config/crdr.yaml \\

@@ -6,12 +6,13 @@ The numpy path is the JAX package's, so the same seed gives the same bytes:
 per-index generators seeded ``[seed, index, k]`` (k counts the index's
 draws), the random crop (reflect pad if needed) and horizontal flip of the
 train transform, ``SyntheticImageDataset``'s procedural images.  Images are
-read with the port's own PNG reader (``utils/img_utils.py``): the machines
-the port runs on have no cv2, so a JPEG raises.  The train transform's
-scale jitter (``resize_range``, a ``cv2.resize`` in the JAX package) runs
-``data/resize.py``'s numpy copy of cv2's uint8 bilinear path, byte for
-byte; with ``interpolation: bicubic`` or float samples (``uint8_io``
-off) it raises, since those cv2 paths are not reproduced exactly.
+read with the port's own readers (``utils/img_utils.py::read_image``: PNG,
+JPEG and BMP by their magic bytes, as ``cv2.imread`` reads them, EXIF
+orientation applied): the machines the port runs on have no cv2.  The
+train transform's scale jitter (``resize_range``, a ``cv2.resize`` in the
+JAX package) runs ``data/resize.py``'s numpy copies of cv2: the uint8
+bilinear path byte for byte, bicubic uint8 and float32 samples (``uint8_io``
+off) within that module's stated contract.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..utils.img_utils import read_png, uint8_to_tensor
-from .resize import resize_linear_u8
+from ..utils.img_utils import read_image, uint8_to_tensor
+from .resize import resize
 from ..utils.registry import DATASET_REGISTRY
 
 
@@ -34,17 +35,11 @@ class BaseImageDataset:
                  resize_range: Optional[Tuple[float, float]] = None,
                  interpolation: str = "bicubic", seed: Optional[int] = None,
                  uint8_io: bool = False, repeat: int = 1):
-        if resize_range is not None and (interpolation == "bicubic"
-                                         or not uint8_io):
-            raise NotImplementedError(
-                f"resize_range with interpolation {interpolation!r} on "
-                f"{'uint8' if uint8_io else 'float32'} samples: the port "
-                "reproduces only cv2's uint8 bilinear resize byte for byte "
-                "(data/resize.py); set interpolation: bilinear and uint8_io")
         self.img_path_list = img_path_list
         self.is_train = is_train
         self.image_size = image_size
         self.resize_range = resize_range
+        self.interpolation = interpolation
         # repeat: virtually oversample a small source set; each virtual
         # index draws its own generator, so crops and flips differ
         self.repeat = max(int(repeat), 1)
@@ -77,7 +72,7 @@ class BaseImageDataset:
         return len(self.img_path_list) * self.repeat
 
     def _load(self, index: int) -> np.ndarray:
-        u8 = read_png(self.img_path_list[index % len(self.img_path_list)])
+        u8 = read_image(self.img_path_list[index % len(self.img_path_list)])
         return u8 if self.uint8_io else uint8_to_tensor(u8)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
@@ -94,7 +89,8 @@ class BaseImageDataset:
             fmin, fmax = self.resize_range
             lo = max(size / min(h, w), fmin)
             scale = rng.uniform(lo, max(lo, fmax))
-            img = resize_linear_u8(img, (int(w * scale), int(h * scale)))
+            img = resize(img, (int(w * scale), int(h * scale)),
+                         self.interpolation)
             h, w = img.shape[:2]
         # reflect pad if needed, then a random crop and a random flip
         pad_h = max(size - h, 0)
@@ -115,8 +111,7 @@ class BaseImageDataset:
 @DATASET_REGISTRY.register()
 class OpenImageImageDataset(BaseImageDataset):
     """train: {root}/train_{i}/*.jpg over subset_list; eval:
-    validation/*.jpg (reference openimage_dataset.py:20-30).  The port
-    lists them, and raises when it reads one (no JPEG decoder)."""
+    validation/*.jpg (reference openimage_dataset.py:20-30)."""
 
     def __init__(self, root_dir: str, subset_list: List[int] = (),
                  is_train: bool = False, image_size: int = 256, **kwargs):
@@ -147,8 +142,7 @@ class KodakImageDataset(BaseImageDataset):
 
 @DATASET_REGISTRY.register()
 class FolderImageDataset(BaseImageDataset):
-    """A folder of images (png / jpg), train or eval; the port reads the
-    PNGs (a JPEG raises when it is read)."""
+    """A folder of images (png / jpg / jpeg / bmp), train or eval."""
 
     def __init__(self, root_dir: str, is_train: bool = False,
                  image_size: int = 256, **kwargs):

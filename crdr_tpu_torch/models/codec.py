@@ -42,6 +42,12 @@ path secures by:
   checkerboard's spatial convs one image at a time, so cuDNN picks the same
   algorithm for a batch as for one image (a stream encoded in a batch then
   decodes alone);
+* on the card, running the hyper-decoder's convs and transposed convs as
+  im2col and sub-pixel products (``nn/conv.py::fixed_conv_algorithms``), as
+  the plain Charm convs past K1's gate are (``ops/slice_transform.py::
+  _conv_nhwc``): cuDNN takes the first plan whose workspace it can get, and
+  with all but 512 MiB of the H100 taken it gave the flagship's 2048x3072
+  hyper-decode other sigmas;
 * the K1 kernel, bit-identical across calls and batch sizes by design (K3,
   the GDN kernel of the Balle18 transforms, is too, though it only runs in
   the side-local transforms).
@@ -128,6 +134,7 @@ import torch
 
 from ..entropy import (EntropyBottleneckCodec, GaussianConditionalCodec,
                        build_indexes, gaussian_likelihood, get_scale_table)
+from ..nn.conv import fixed_conv_algorithms
 from ..ops.cb_uniform import (cb_phase_a, cb_phase_b, cb_reconstruct_last,
                               pack_cb_weights)
 from ..ops.charm_uniform import (kernel_stacks, pack_charm_weights,
@@ -609,7 +616,12 @@ class CodecMixin:
         # send the convolutions to another algorithm (other bits) depending
         # on where z_sym came from (the encoder, host rANS or K2)
         zc = _nchw(z_hat).clone(memory_format=torch.contiguous_format)
-        hyper = torch.cat([self.net.hyper_decode(zi) for zi in zc.split(1)])
+        # on the card, im2col and sub-pixel products, not cuDNN: with the
+        # card's memory nearly all taken cuDNN chose another plan and gave
+        # other sigmas (nn/conv.py, tests/test_torch_hyper_plans_gpu.py)
+        with fixed_conv_algorithms():
+            hyper = torch.cat([self.net.hyper_decode(zi)
+                               for zi in zc.split(1)])
         return tuple(_nhwc(t) for t in torch.chunk(hyper, 2, dim=1)), z_hat
 
     @program("generic_params")

@@ -14,12 +14,24 @@ conditioning feature.
 Initialization: torch defaults (U(+-1/sqrt(fan_in))) or DCGAN N(0, 0.02)
 (``w_init="dcgan"``), drawn from an explicit ``torch.Generator`` by
 ``reset_parameters``.
+
+Inside ``fixed_conv_algorithms()`` the two conv layers, on a CUDA tensor,
+run as im2col products (``unfold``, then one matmul an image) and a
+transposed conv as its sub-pixel conv (one stride-1 conv over the input,
+whose ``stride**2`` output phases ``pixel_shuffle`` interleaves), instead of
+cuDNN.  cuDNN takes the first of its plans whose workspace it can get, so
+its bits can follow the memory free at the call: the codec's hyper-decoder
+gave other sigmas for a 2048x3072 still with all but 512 MiB of the H100
+taken (``tests/test_torch_hyper_plans_gpu.py``).  Elsewhere, and on the
+CPU, the layers call torch's convolutions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+import threading
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +50,106 @@ def _fill(t: torch.Tensor, kind: str, fan_in: int,
             t.zero_()
         else:
             raise ValueError(kind)
+
+
+# the devices on which fixed_conv_algorithms() takes effect
+_FIXED_DEVICES = ("cuda",)
+_fixed = threading.local()
+
+
+@contextlib.contextmanager
+def fixed_conv_algorithms():
+    """Within (this thread): Conv2d / ConvTranspose2d run through
+    ``conv2d_im2col`` / ``conv_transpose2d_subpixel`` on the devices of
+    ``_FIXED_DEVICES`` (module doc)."""
+    prev = getattr(_fixed, "on", False)
+    _fixed.on = True
+    try:
+        yield
+    finally:
+        _fixed.on = prev
+
+
+def _fixed_on(x: torch.Tensor) -> bool:
+    return getattr(_fixed, "on", False) and x.device.type in _FIXED_DEVICES
+
+
+def conv2d_im2col(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor], stride: int = 1,
+                  padding: int = 0) -> torch.Tensor:
+    """``F.conv2d`` (NCHW, OIHW, square kernel) as an im2col product, one
+    image at a time: a fixed algorithm whatever the memory free."""
+    _, _, h, wd = x.shape
+    k = w.shape[2]
+    ho = (h + 2 * padding - k) // stride + 1
+    wo = (wd + 2 * padding - k) // stride + 1
+    wm = w.reshape(w.shape[0], -1)  # unfold's (channel, kh, kw) order
+    outs = []
+    for xi in x.split(1):
+        cols = F.unfold(xi, k, padding=padding, stride=stride)[0]
+        y = wm @ cols if b is None else torch.addmm(b[:, None], wm, cols)
+        outs.append(y.view(1, -1, ho, wo))
+    return torch.cat(outs)
+
+
+def subpixel_taps(k: int, stride: int, padding: int) -> Tuple[int, int]:
+    """The input offsets (first, last) that a transposed conv's output
+    phases read: phase r at offset t takes kernel tap
+    ``r + padding - stride * t``."""
+    ts = [t for r in range(stride) for t in range(-k, k + 1)
+          if 0 <= r + padding - stride * t < k]
+    return min(ts), max(ts)
+
+
+def subpixel_weight(w: torch.Tensor, stride: int, padding: int
+                    ) -> torch.Tensor:
+    """A transposed conv's weight [Cin, Cout, k, k] as one stride-1 conv's
+    [stride**2 Cout, Cin, T, T]: the output phases (ry, rx) stacked in
+    ``pixel_shuffle``'s channel order, zero where a phase reads no tap."""
+    k = w.shape[2]
+    t0, t1 = subpixel_taps(k, stride, padding)
+    # made on w's device: a host-to-device copy would synchronize the
+    # device-wire decode's chain, which makes no host sync
+    dev = w.device
+    taps = (torch.arange(stride, device=dev)[:, None] + padding - stride
+            * torch.arange(t0, t1 + 1, device=dev)[None, :])  # [stride, T]
+    valid = (taps >= 0) & (taps < k)
+    taps = taps.clamp(0, k - 1)
+    g = w[:, :, taps[:, None, :, None], taps[None, :, None, :]]
+    mask = valid[:, None, :, None] & valid[None, :, None, :]
+    g = g * mask.to(w.dtype)  # [Cin, Cout, ry, rx, ty, tx]
+    cin, cout = w.shape[:2]
+    t = t1 - t0 + 1
+    return g.permute(1, 2, 3, 0, 4, 5).reshape(
+        cout * stride * stride, cin, t, t).contiguous()
+
+
+def conv_transpose2d_subpixel(x: torch.Tensor, w: torch.Tensor,
+                              b: Optional[torch.Tensor], stride: int,
+                              padding: int, output_padding: int
+                              ) -> torch.Tensor:
+    """``F.conv_transpose2d`` (NCHW, weight [Cin, Cout, k, k]) as its
+    sub-pixel conv through ``conv2d_im2col``, then ``pixel_shuffle``.  The
+    output side must be a multiple of the stride (every layer of the
+    codec's hyper-decoders: 5/2/2/1, 4/2/1/0 and 3/1/1/0)."""
+    _, _, h, wd = x.shape
+    k = w.shape[2]
+    t0, t1 = subpixel_taps(k, stride, padding)
+    pads = []
+    for n in (wd, h):
+        out = (n - 1) * stride - 2 * padding + k + output_padding
+        q = out // stride
+        if out % stride or t0 > 0 or q - 1 + t1 < n - 1:
+            raise ValueError(
+                f"conv_transpose2d_subpixel: k {k} stride {stride} padding "
+                f"{padding} output_padding {output_padding} on {n} pixels "
+                "is not a whole sub-pixel conv")
+        pads += [-t0, q - 1 + t1 - (n - 1)]
+    bias = None if b is None else \
+        b[:, None].expand(-1, stride * stride).reshape(-1)
+    y = conv2d_im2col(F.pad(x, pads), subpixel_weight(w, stride, padding),
+                      bias)
+    return F.pixel_shuffle(y, stride) if stride > 1 else y
 
 
 class Conv2d(nn.Module):
@@ -61,6 +173,9 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if _fixed_on(x):
+            return conv2d_im2col(x, self.weight.to(x.dtype), b, self.stride,
+                                 self.padding)
         return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
                         self.padding)
 
@@ -91,6 +206,10 @@ class ConvTranspose2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if _fixed_on(x):
+            return conv_transpose2d_subpixel(
+                x, self.weight.to(x.dtype), b, self.stride, self.padding,
+                self.output_padding)
         return F.conv_transpose2d(x, self.weight.to(x.dtype), b, self.stride,
                                   self.padding, self.output_padding)
 

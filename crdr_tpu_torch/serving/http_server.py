@@ -3,7 +3,7 @@
 Counterpart of ``crdr_tpu/serving/http_server.py``: the same routes, headers,
 status codes and keep-alive handling.
 
-- ``POST /compress?q=<rate_ind>``   body: PNG bytes
+- ``POST /compress?q=<rate_ind>``   body: PNG or JPEG bytes
       -> ``application/octet-stream``: the `.bin` container (the
       length-prefixed ``pack_byte_strings`` layout of the CLI's files).
       Response headers carry ``X-CRDR-BPP`` (real bpp) and ``X-CRDR-Wire``.
@@ -15,9 +15,10 @@ status codes and keep-alive handling.
 
 Where it departs from the JAX server: PNG is read and written by the port's
 own zlib codec (``utils/img_utils.py``), whose bytes are not PIL's (the
-pixels are); a JPEG body gets a 400 (the port has no JPEG decoder);
-``/healthz`` names the model's ``torch.device`` (or its serving mesh's
-devices) and the card.
+pixels are); a JPEG body is decoded by the port's own decoder
+(``utils/jpeg.py``), to PIL's pixels; bodies PIL reads that are neither
+PNG, JPEG nor BMP get a 400; ``/healthz`` names the model's
+``torch.device`` (or its serving mesh's devices) and the card.
 
 Concurrent requests are coalesced into batched dispatches by
 :class:`crdr_tpu_torch.serving.MicroBatcher`: the HTTP layer is a thin
@@ -36,21 +37,17 @@ import torch
 
 from ..runtime.aot import aot_counts
 from ..utils.codec_utils import pack_byte_strings, unpack_byte_strings
-from ..utils.img_utils import decode_png, encode_png
+from ..utils.img_utils import decode_image, encode_png
 from .batcher import MicroBatcher
 
 __all__ = ["make_server", "CodecHTTPServer"]
 
-_JPEG_MAGIC = b"\xff\xd8\xff"
-
-
 def _image_body(data: bytes):
-    """A request body -> uint8 [H, W, 3] RGB.  Raw uint8 is the codec's
-    input with ``codec_uint8_io``: the conversion runs on the device."""
-    if data.startswith(_JPEG_MAGIC):
-        raise ValueError("JPEG body: the port has no JPEG decoder; send a "
-                         "PNG")
-    return decode_png(data, "request body")
+    """A request body -> uint8 [H, W, 3] RGB, as PIL's ``convert("RGB")``
+    decodes it in the JAX server (a JPEG's EXIF orientation not applied).
+    Raw uint8 is the codec's input with ``codec_uint8_io``: the conversion
+    runs on the device."""
+    return decode_image(data, "request body", file_path=False)
 
 
 def _device_info(model) -> dict:

@@ -1,10 +1,13 @@
 """Image helpers: range conversion, reflect pad / crop (NHWC or HWC), PSNR
-(uint8-rounded) and MS-SSIM, and 8-bit PNG I/O, with the JAX package's exact
+(uint8-rounded) and MS-SSIM, and image I/O, with the JAX package's exact
 formulas (its own copy of ``crdr_tpu/utils/img_utils.py``).
 
 The JAX package reads and writes images through cv2, which the GPU machines
-the port runs on do not have (nor PIL): the port reads and writes 8-bit PNG
-itself, through the standard library's ``zlib``.  A JPEG raises.
+the port runs on do not have (nor PIL).  The port reads files as
+``cv2.imread`` does, by their magic bytes and not their suffix: 8-bit PNG
+(through the standard library's ``zlib``), JPEG (``utils/jpeg.py``, EXIF
+orientation applied) and 24- / 32-bit uncompressed BMP.  It writes PNG
+only: it has no JPEG encoder, so ``imwrite`` of a ``.jpg`` raises.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .device import resolve_device
+from .jpeg import JPEG_MAGIC, decode_jpeg
 
 # ---------------------------------------------------------------------------
 # range conversion
@@ -288,21 +292,66 @@ def write_png(path: str, img: np.ndarray) -> None:
         f.write(data)
 
 
-def _check_png(path: str) -> None:
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise ValueError(f"{path}: the port reads and writes PNG only (no "
-                         "JPEG codec is available to it)")
+def decode_bmp(data: bytes, name: str = "BMP data") -> np.ndarray:
+    """The bytes of a 24- or 32-bit uncompressed BMP (bottom-up or top-down;
+    BI_RGB, or BI_BITFIELDS with the usual BGRA masks) -> uint8 [H, W, 3]
+    RGB, as ``cv2.imread`` gives it (a 32-bit BMP's fourth byte dropped).
+    Other BMPs raise a ``ValueError`` that starts with ``name``."""
+    if len(data) < 54 or data[:2] != b"BM":
+        raise ValueError(f"{name}: not a BMP file")
+    offset = struct.unpack_from("<I", data, 10)[0]
+    hsize, w, h, _planes, bpp, comp = struct.unpack_from("<IiiHHI", data, 14)
+    masks_ok = comp == 3 and bpp == 32 and len(data) >= 66 and \
+        struct.unpack_from("<III", data, 54) == (0xFF0000, 0xFF00, 0xFF)
+    if hsize < 40 or bpp not in (24, 32) or not (comp == 0 or masks_ok) \
+            or w <= 0 or h == 0:
+        raise ValueError(f"{name}: only 24- / 32-bit uncompressed BMP is "
+                         f"read (header {hsize}, {bpp} bits, compression "
+                         f"{comp}, {w}x{h})")
+    ch = bpp // 8
+    stride = (w * ch + 3) & ~3
+    rows = abs(h)
+    if len(data) < offset + stride * rows:
+        raise ValueError(f"{name}: truncated BMP pixel data")
+    px = np.frombuffer(data, np.uint8, stride * rows, offset)
+    px = px.reshape(rows, stride)[:, :w * ch].reshape(rows, w, ch)
+    if h > 0:  # bottom-up
+        px = px[::-1]
+    return np.ascontiguousarray(px[..., 2::-1])
+
+
+def decode_image(data: bytes, name: str = "image data",
+                 file_path: bool = True) -> np.ndarray:
+    """PNG, JPEG or BMP bytes (told apart by their magic bytes) -> uint8
+    [H, W, 3] RGB.  A JPEG decodes as ``cv2.imread`` reads a file, EXIF
+    orientation applied, or with ``file_path`` False as PIL's
+    ``convert("RGB")`` reads a request body (``utils/jpeg.py``)."""
+    if data.startswith(_PNG_SIGNATURE):
+        return decode_png(data, name)
+    if data.startswith(JPEG_MAGIC):
+        return decode_jpeg(data, name, file_path=file_path)
+    if data.startswith(b"BM"):
+        return decode_bmp(data, name)
+    raise ValueError(f"{name}: not a PNG, JPEG or BMP file")
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file -> uint8 [H, W, 3] RGB, as ``cv2.imread`` reads it
+    (``decode_image``); errors name the path."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
 
 
 def imread(path: str) -> np.ndarray:
-    """Read a PNG to [-1,1] float32 HWC (RGB)."""
-    _check_png(path)
-    return uint8_to_tensor(read_png(path))
+    """Read a PNG, JPEG or BMP file to [-1,1] float32 HWC (RGB)."""
+    return uint8_to_tensor(read_image(path))
 
 
 def imwrite(path: str, img) -> None:
     """Write a [-1,1] float image (HWC or 1HWC) as an RGB PNG."""
-    _check_png(path)
+    if os.path.splitext(path)[1].lower() != ".png":
+        raise ValueError(f"{path}: the port writes PNG only (it has no JPEG "
+                         "encoder)")
     arr = np.asarray(img)
     if arr.ndim == 4:
         arr = arr[0]

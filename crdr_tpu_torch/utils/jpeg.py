@@ -1,0 +1,102 @@
+"""JPEG decoding on the host, byte-equal to libjpeg-turbo as cv2 and PIL run
+it (no JAX counterpart: the JAX package calls cv2 and PIL, which the
+machines the port runs on do not have).
+
+The decoder is ``runtime/csrc/jpeg.cpp``, plain C ABI, built with ``g++`` at
+first use into ``build/crdr_tpu_torch/`` and called through ctypes (which
+releases the GIL, so the data loader's threads decode in parallel).  It
+decodes baseline and progressive Huffman JPEG (restart intervals, any
+sampling factors libjpeg takes) with libjpeg-turbo's default
+decompression: the islow IDCT, fancy upsampling, jdcolor.c's fixed-point
+YCbCr -> RGB, and the colour space chosen as ``jdapimin.c`` chooses it.
+
+Two callers, two behaviours, after the JAX package's two readers:
+
+* ``decode_jpeg(data, name, file_path=True)`` (``cv2.imread``: the
+  datasets and the CLIs, through ``img_utils.read_image``): EXIF
+  orientation applied; CMYK / YCCK as cv2 converts libjpeg's CMYK;
+* ``decode_jpeg(data, name, file_path=False)`` (``PIL.Image.open(...)
+  .convert("RGB")``, the HTTP server's request bodies): no orientation;
+  CMYK as PIL converts its Adobe-inverted CMYK.
+
+What raises a ``ValueError`` naming the file and the reason: 12-bit
+samples, lossless (SOF3), hierarchical and arithmetic-coded (SOF9-11)
+JPEG, truncated or corrupt entropy data and a missing EOI (where cv2 would
+return libjpeg's partial image), and progressive files whose scans leave a
+low coefficient unrefined (libjpeg smooths those blocks).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional
+
+import numpy as np
+
+from .device import build_library, package_path
+
+JPEG_MAGIC = b"\xff\xd8\xff"
+
+_SRC = package_path("runtime", "csrc", "jpeg.cpp")
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build() -> str:
+    """Compile the decoder (no-op when the built library is up to date)."""
+    return build_library(
+        "crdr_jpeg", [_SRC],
+        ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", _SRC])
+
+
+def _get_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        with _lock:
+            if _lib is None:
+                lib = ctypes.CDLL(build())
+                ip = ctypes.POINTER(ctypes.c_int)
+                lib.crdr_jpeg_decode.restype = ctypes.c_void_p
+                lib.crdr_jpeg_decode.argtypes = [
+                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ip, ip,
+                    ip, ctypes.c_char_p, ctypes.c_int]
+                lib.crdr_jpeg_free.restype = None
+                lib.crdr_jpeg_free.argtypes = [ctypes.c_void_p]
+                _lib = lib
+    return _lib
+
+
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """cv2's ``ExifTransform``: EXIF orientation 2-8 -> the upright image."""
+    if orientation in (5, 6, 7, 8):
+        img = img.transpose(1, 0, 2)
+    if orientation in (2, 3, 6, 7):
+        img = img[:, ::-1]
+    if orientation in (3, 4, 7, 8):
+        img = img[::-1]
+    return np.ascontiguousarray(img)
+
+
+def decode_jpeg(data: bytes, name: str = "JPEG data",
+                file_path: bool = False) -> np.ndarray:
+    """JPEG bytes -> uint8 [H, W, 3] RGB: as ``cv2.imread`` gives a file
+    (``file_path``: EXIF orientation applied, cv2's CMYK) or as PIL's
+    ``convert("RGB")`` gives a body (neither).  Raises ``ValueError``
+    starting with ``name``."""
+    lib = _get_lib()
+    w, h, orientation = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    ptr = lib.crdr_jpeg_decode(data, len(data), 0 if file_path else 1,
+                               ctypes.byref(w), ctypes.byref(h),
+                               ctypes.byref(orientation), err, len(err))
+    if not ptr:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    try:
+        img = np.ctypeslib.as_array(
+            ctypes.cast(ptr, ctypes.POINTER(ctypes.c_uint8)),
+            (h.value, w.value, 3)).copy()
+    finally:
+        lib.crdr_jpeg_free(ptr)
+    return _orient(img, orientation.value) if file_path else img
+

@@ -115,10 +115,14 @@ def test_png_errors(tmp_path):
     open(bad, "wb").write(bytes(data))
     with pytest.raises(ValueError, match="CRC"):
         img_utils.read_png(bad)
+    # a JPEG reads as cv2.imread reads it (tests/test_torch_jpeg.py holds
+    # the decoder); the port writes PNG only
     jpg = str(tmp_path / "photo.jpg")
-    assert cv2.imwrite(jpg, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(ValueError, match="photo.jpg"):
-        img_utils.imread(jpg)
+    photo = np.random.default_rng(1).integers(0, 256, (8, 8, 3), np.uint8)
+    assert cv2.imwrite(jpg, photo)
+    np.testing.assert_array_equal(
+        img_utils.imread(jpg),
+        img_utils.uint8_to_tensor(cv2.imread(jpg)[..., ::-1]))
     with pytest.raises(ValueError, match="out.jpeg"):
         img_utils.imwrite(str(tmp_path / "out.jpeg"), np.zeros((4, 4, 3)))
 

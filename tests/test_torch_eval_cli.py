@@ -15,17 +15,17 @@ the encoder's last InterpCA gain rising with the level, saved as a reference ``.
 * calc_metrics: the same ``_metrics.json`` keys; PSNR and bpp equal,
   MS-SSIM within 1e-5, LPIPS and DISTS on one weight file each within rtol
   1e-5; the same refusals (no weights, random LPIPS tagged, FID under 50
-  pairs) and a JPEG pair refused.
+  pairs); JPEG fakes scored as JAX scores them.
 * bd_rate: the same JSON line on two sweeps' CSVs.
 """
 
 import json
 import os
 import pickle
-import shutil
 import subprocess
 import sys
 
+import cv2
 import numpy as np
 import pytest
 import torch
@@ -191,15 +191,21 @@ def test_calc_metrics_refusals_match_jax(setup, fake_dir, monkeypatch):
 
 
 def test_calc_metrics_refuses_jpeg(setup, tmp_path):
+    """A JPEG fake scores as in JAX (the port's decoder reads it as cv2
+    does); a directory without pairs is still refused."""
     _, img_dir, _, _ = setup
     fakes = tmp_path / "jpeg_fakes"
     fakes.mkdir()
-    name = sorted(os.listdir(img_dir))[0]
-    shutil.copy(os.path.join(img_dir, name),
-                fakes / (os.path.splitext(name)[0] + ".jpg"))
-    with pytest.raises(ValueError, match="PNG only"):
-        calc_metrics.main(["--real_dir", img_dir, "--fake_dir", str(fakes),
-                           "-d", "cpu", "--metrics", "psnr"])
+    for name in sorted(os.listdir(img_dir)):
+        if name.endswith(".png"):
+            img = cv2.imread(os.path.join(img_dir, name))
+            assert cv2.imwrite(str(fakes / (os.path.splitext(name)[0]
+                                            + ".jpg")), img,
+                               [cv2.IMWRITE_JPEG_QUALITY, 70])
+    mine, ref = _both(img_dir, str(fakes), ["psnr", "ms_ssim"])
+    assert sorted(mine) == sorted(ref) == ["MS-SSIM", "PSNR"]
+    assert mine["PSNR"] == ref["PSNR"] < 100
+    assert mine["MS-SSIM"] == pytest.approx(ref["MS-SSIM"], abs=1e-5)
     with pytest.raises(FileNotFoundError, match="no matching"):
         calc_metrics.main(["--real_dir", img_dir, "--fake_dir",
                            str(tmp_path), "-d", "cpu"])

@@ -1,6 +1,7 @@
 """The port stands alone: no file of crdr_tpu_torch/ nor chip_smoke.py imports
-JAX, flax, the JAX package or PIL (absent where the port runs), and importing
-the port leaves them unloaded."""
+JAX, flax, the JAX package, cv2 or PIL (absent where the port runs; the
+port reads PNG, JPEG and BMP itself), and importing the port leaves them
+unloaded."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "crdr_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "crdr_tpu", "PIL", "cv2")
 
 
 def _port_files():
@@ -35,6 +36,7 @@ def _imported(tree):
 
 @pytest.mark.parametrize("path", _port_files())
 def test_no_jax_imports(path):
+    """Nor cv2 / PIL (FORBIDDEN)."""
     with open(os.path.join(ROOT, path)) as f:
         tree = ast.parse(f.read(), path)
     for name in _imported(tree):
@@ -51,7 +53,9 @@ def test_importing_the_port_loads_no_jax():
         "import crdr_tpu_torch.trainer, crdr_tpu_torch.cli.train\n"
         "import crdr_tpu_torch.serving, crdr_tpu_torch.serving.http_server\n"
         "import crdr_tpu_torch.cli.serve, crdr_tpu_torch.cli.serve_smoke\n"
-        "import crdr_tpu_torch.runtime.cache\n"
+        "import crdr_tpu_torch.runtime.cache, crdr_tpu_torch.data\n"
+        "import crdr_tpu_torch.utils.jpeg, crdr_tpu_torch.utils.img_utils\n"
+        "import crdr_tpu_torch.cli.compress, crdr_tpu_torch.cli.calc_metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n")

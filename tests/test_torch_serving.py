@@ -20,8 +20,9 @@ package's, the HTTP server, the serve CLIs, in-memory PNG, and the refusals.
 * The port's HTTP server on the tiny port model at ``device='cpu'``:
   concurrent compresses coalesce, each ``.bin`` is ``compress_batch`` of the
   image alone, each served PNG decodes (``decode_png`` and PIL) to the
-  stream's own decode, a malformed ``.bin`` and a JPEG body get a 400 and
-  the connection keeps serving, keep-alive survives a 404 with a body,
+  stream's own decode, a JPEG body (EXIF orientation 6, which PIL does not
+  apply) is served as the stream of PIL's pixels, a malformed ``.bin`` and
+  a malformed JPEG get a 400 and the connection keeps serving, keep-alive survives a 404 with a body,
   ``/healthz`` answers JSON; on both wires a corrupt y string beside a
   good one in a dispatch: garbage decoded, or a 400 that the dispatch's
   requests share, and the good stream served after.
@@ -367,10 +368,29 @@ def test_http_end_to_end_tiny_model(tiny_model):
     assert srv.batcher.stats()["queued"] == 0
 
 
+def test_http_serves_a_jpeg_body(tiny_model):
+    img = images(1, 64, 48, seed=9)[0]
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "JPEG", quality=90, exif=exif.tobytes())
+    body = buf.getvalue()
+    pixels = np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+    assert pixels.shape == img.shape  # PIL leaves the orientation alone
+    srv, base = _start(tiny_model, max_wait_s=0.01)
+    try:
+        status, headers, blob = _post(base + "/compress?q=1", body)
+    finally:
+        srv.shutdown()
+    assert status == 200
+    alone = tiny_model.compress(pixels[None], rate_ind=1.0)
+    assert unpack_byte_strings(blob) == alone["string_list"]
+
+
 @pytest.mark.parametrize("first,status,msg", [
     (("POST", "/no_such_route", b"X" * 4096), 404, "no route"),
     (("POST", "/compress?q=1", b"\xff\xd8\xff\xe0" + b"J" * 512), 400,
-     "no JPEG decoder"),
+     "truncated data"),
     (("POST", "/compress?q=1", b"GIF89a" + b"G" * 64), 400, "not a PNG"),
 ])
 def test_http_keepalive_after_an_error(tiny_model, first, status, msg):
