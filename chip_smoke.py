@@ -64,7 +64,15 @@ Phases, each asserted (any failure exits non-zero):
    spills (none) from the ptxas report, blocks resident an SM; times of the
    kernel (CUDA-graph replay, gamma^T copy included, and eager), the twin,
    the cuBLAS f32 product gamma . x^2 at each shape (yardstick only) and
-   the bound.
+   the bound.  Then its bf16 mode (transform_dtype: bfloat16) at the same
+   shapes both ways, on the same inputs rounded to bf16: against the bf16
+   twin on the card, the elements and ulps apart counted, each element the
+   composite of a sum within 1 bf16 ulp of the twin's with every later step
+   exact (ops/gdn.py bf16_unexplained: 0, whatever order either sum took),
+   bit-stable, not blind to a transposed gamma; times (graph replay
+   and eager), the twin's, cuBLAS's bf16 product (yardstick only) and the
+   bound (bf16 bytes in and out; the products at the bf16 tensor-core
+   rate); the build's registers of the bf16 instances.
 7. GDN path: the Balle18 mean-scale hyperprior (HyperpriorModel) at full
    width from config/balle18_mean_scale.yaml on the same images, seeded
    init with every GDN's gamma re-drawn non-symmetric, the last analysis
@@ -74,6 +82,11 @@ Phases, each asserted (any failure exits non-zero):
    or K2, and the timings.  Then a yardstick of the synthesis: its
    transposed convs conv_2 and conv_4 as the port runs them and as
    sub-pixel convolutions plus pixel_shuffle (held within f32 tolerance).
+   Then the same model at transform_dtype: bfloat16 (set in its options):
+   one batch round trip on the compressai wire and one on the device wire
+   (E1), 6 K3 launches each and every K3 call on bf16 (K2 2 and E1 2 on
+   the device wire), decoded y_hat == the encoder's, real vs predicted
+   bpp, the PSNR beside the f32 path's.
 8. model classes: the five other config/_base_/model/*.yaml at full width
    (elic_hyperprior, elic_charm, interp_ca_elic_hyperprior,
    interp_ca_elic_charm, beta_cond_interp_ca_elic_hyperprior) with
@@ -261,6 +274,9 @@ Phases, each asserted (any failure exits non-zero):
    families, every K3 call held against gdn_plain, 0 on HiFiC; no warm-up
    or timed round trips (a Cheng20 direction takes 1-2 s): each wire's
    times are its counted round trip's, cold.
+   Then Cheng20 at transform_dtype: bfloat16, one round trip on the
+   device wire: 6 K3 launches, all bf16, K2 2, E1 2, decoded y_hat == the
+   encoder's, its PSNR.
 21. resize_range: endurance_r4_stage1.yaml as written (bicubic, uint8)
    on 16 synthetic 512x768 PNG sources in a temporary directory: 5 steps
    through train_loop (losses finite, uint8 crops); the resampler's ms a
@@ -338,8 +354,16 @@ Phases, each asserted (any failure exits non-zero):
    (K1 60, K2 11, E1 2), each kernel's calls held against its twin; 3
    steps of crdr_stage_1.yaml (OpenImageImageDataset, LPIPS allow_random)
    on a train_0/ of the fixtures' JPEGs at batch 8: losses finite, the
-   sample's ms, the loader's wait a step against the step, os.cpu_count().
-26. one JSON line of kernel figures (launches by path, every path above);
+   sample's ms, the loader's wait a step against the step, os.cpu_count();
+   that run with use_wandb (train -wb): its JSONL stream with JAX's keys
+   (a loss, an eval_* and a time line at the last step), then
+   validation(save_img=True) writing JAX's .jpg names, read back.  JPEG
+   output: the port's encoder (built with the decoder) on the photo's
+   pixels and on its JPEG's decode, each file's sha256 equal to cv2's in
+   digests.json, the ms an encode at 768x512; the served reconstruction
+   as a JPEG, read back (its PSNR printed).
+26. one JSON line of kernel figures (launches by path, every path above;
+   K3's bf16 mode as an entry of its own, gdn_bf16);
 27. the ok line.
 Imports nothing of JAX or of the JAX package.
 """
@@ -508,7 +532,7 @@ def build_kernels() -> dict:
                      ("gdn (nvcc sm_90a)", k3.build),
                      ("lane_encode (nvcc sm_90a)", e1.build),
                      ("host rANS (g++)", runtime.build),
-                     ("host JPEG decoder (g++)", jpeg.build)):
+                     ("host JPEG decoder and encoder (g++)", jpeg.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
     for t in threads:
@@ -1442,29 +1466,33 @@ def k3_phase(card: str, ptxas: dict) -> dict:
     clock = max_sm_clock_ghz()
     f32_rate = (torch.cuda.get_device_properties(0).multi_processor_count
                 * FP32_FLOPS_PER_SM_CLOCK * clock * 1e9)
-    build = {}  # {(C, float4 path): report} of each instantiation
+    build = {}  # {(C, vector path, bf16 mode): report} of each instance
     for entry, r in ptxas.items():
-        m = re.search(r"gdn_kernelILi(\d+)ELb([01])E", entry)
+        m = re.search(r"gdn_kernelILi(\d+)ELb([01])ELb([01])E", entry)
         if m:
-            build[(int(m.group(1)), m.group(2) == "1")] = r
-    check(len(build) == 8 and all(r["registers"] for r in build.values()),
+            build[(int(m.group(1)), m.group(2) == "1",
+                   m.group(3) == "1")] = r
+    check(len(build) == 16 and all(r["registers"] for r in build.values()),
           f"K3's ptxas report: {ptxas}")
     spills = {k: r["spill_bytes"] for k, r in build.items()
               if r["spill_bytes"]}
     check(not spills, f"K3 spills registers: {spills}")
     occ = occupancy(192)
-    print("K3 build: registers by (C, float4 path) "
-          + ", ".join(f"{c}{'v' if v else 's'} {r['registers']}"
-                      for (c, v), r in sorted(build.items()))
+    occ_bf16 = occupancy(192, bf16=True)
+    print("K3 build: registers by (C, vector path, mode) "
+          + ", ".join(f"{c}{'v' if v else 's'}{'-bf16' if b else ''} "
+                      f"{r['registers']}"
+                      for (c, v, b), r in sorted(build.items()))
           + f"; no spills; at C 192: {occ['blocks_per_sm']} blocks an SM, "
           f"{occ['tile_pixels']} pixels a block, {occ['smem_bytes']} B of "
-          f"shared memory a block [{card}]")
+          f"shared memory a block (bf16 mode: {occ_bf16['blocks_per_sm']} "
+          f"blocks, {occ_bf16['smem_bytes']} B) [{card}]")
 
     def excess(out, ref):  # max |out - ref| in units of the tolerance
         return float(((out - ref).abs() / (K3_RTOL * ref.abs() + K3_ATOL))
                      .max())
 
-    rows = []
+    rows, bf16_rows = [], []
     for shape in GDN_SHAPES:
         n, c, h, w = shape
         x = torch.randn(shape, device=dev, generator=g)
@@ -1544,6 +1572,7 @@ def k3_phase(card: str, ptxas: dict) -> dict:
                   f"({ex:.3f}x the tolerance; transposed gamma {ex_t:.0f}x, "
                   f"other direction {ex_d:.0f}x); bit-stable across calls "
                   f"and batch 1 vs {n} [{card}]")
+        bf16_rows.extend(k3_bf16_rows(x, beta, gamma, card))
         del x
     total = sum(r["ms"] for r in rows)
     eager = sum(r["eager_ms"] for r in rows)
@@ -1551,10 +1580,97 @@ def k3_phase(card: str, ptxas: dict) -> dict:
     print(f"K3, the six calls of a GDN round trip: {total:.4f} ms (graph "
           f"replays; eager {eager:.4f} ms) against a bound of {bound:.4f} ms "
           f"[{card}]")
-    r192 = build[(192, True)]
-    return {"rows": rows, "registers": r192["registers"],
+    total16 = sum(r["ms"] for r in bf16_rows)
+    bound16 = sum(r["bound_ms"] for r in bf16_rows)
+    print(f"K3 bf16 mode, the six calls of a bf16 GDN round trip: "
+          f"{total16:.4f} ms (graph replays; eager "
+          f"{sum(r['eager_ms'] for r in bf16_rows):.4f} ms) against a bound "
+          f"of {bound16:.4f} ms; f32 mode {total:.4f} ms [{card}]")
+    r192 = build[(192, True, False)]
+    return {"rows": rows, "bf16_rows": bf16_rows,
+            "registers": r192["registers"],
+            "registers_bf16": build[(192, True, True)]["registers"],
             "spill_bytes": sum(r["spill_bytes"] for r in build.values()),
-            **occ}
+            "blocks_per_sm_bf16": occ_bf16["blocks_per_sm"],
+            "smem_bytes_bf16": occ_bf16["smem_bytes"], **occ}
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 ulps, elementwise (the bit patterns' gap; values of
+    one sign)."""
+    import torch
+
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+
+
+def k3_bf16_rows(x, beta, gamma, card: str) -> list:
+    """K3's bf16 mode at one shape, both directions, on the f32 case's
+    inputs rounded to bf16: against the bf16 twin on the card (every
+    element the composite of a sum within 1 ulp of the twin's, every later
+    step exact; the elements and ulps apart counted), bit-stable across
+    calls and batch 1 vs n, blind to neither a transposed gamma; times
+    (graph replay and eager), the twin's, cuBLAS's bf16 product gamma . x^2
+    (yardstick only) and the bound: bf16 x read and out written, against
+    the products at the bf16 tensor-core rate."""
+    import torch
+
+    from crdr_tpu_torch.ops.gdn import bf16_unexplained, gdn, gdn_plain
+
+    n, c, h, w = x.shape
+    x, beta, gamma = x.bfloat16(), beta.bfloat16(), gamma.bfloat16()
+    x2 = (x * x).view(n, c, h * w)
+    lib_ms = graph_time_ms(lambda: torch.matmul(gamma, x2))
+    del x2
+    rows = []
+    for inverse in (False, True):
+        tag = (f"K3 bf16 {list(x.shape)} "
+               f"{'inverse' if inverse else 'forward'}")
+        out = gdn(x, beta, gamma, inverse)
+        again = gdn(x, beta, gamma, inverse)
+        one = gdn(x[:1].contiguous(), beta, gamma, inverse)
+        plain = gdn_plain(x, beta, gamma, inverse)
+        torch.cuda.synchronize()
+        check(out.dtype == torch.bfloat16 and torch.isfinite(out).all(),
+              f"{tag}: {out.dtype} output, or non-finite")
+        check(torch.equal(out, again), f"{tag}: two launches differ")
+        check(torch.equal(out[:1], one),
+              f"{tag}: image 0 alone != image 0 in the batch of {n}")
+        apart = bf16_ulps(out, plain)
+        ulps, differing = int(apart.max()), int((apart > 0).sum())
+        unexplained = bf16_unexplained(out, x, beta, gamma, inverse)
+        check(unexplained == 0, f"{tag}: {unexplained} elements are no sum "
+              f"within 1 ulp of the twin's ({differing} elements, at most "
+              f"{ulps} ulps apart from the twin)")
+        wrong = bf16_unexplained(out, x, beta, gamma.t(), inverse)
+        check(wrong > 0, f"{tag}: the check is blind to a transposed gamma")
+        row = dict(shape=list(x.shape), inverse=inverse, ulps=ulps,
+                   differing=differing,
+                   max_abs_err=float((out.float() - plain.float()).abs()
+                                     .max()),
+                   library_ms=lib_ms)
+        row["ms"] = graph_time_ms(lambda: gdn(x, beta, gamma, inverse))
+        row["eager_ms"] = cuda_time_ms(
+            lambda: gdn(x, beta, gamma, inverse), 20, 3)
+        row["plain_ms"] = cuda_time_ms(
+            lambda: gdn_plain(x, beta, gamma, inverse), 10, 2)
+        m = n * h * w
+        flops = 2.0 * m * c * c + 4.0 * m * c
+        nbytes = 2 * (2 * m * c + c * c + c)
+        t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        row.update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   mbytes=nbytes / 1e6)
+        rows.append(row)
+        print(f"{tag}: kernel {row['ms']:.4f} ms (eager {row['eager_ms']:.4f}"
+              f"), plain {row['plain_ms']:.4f} ms, cuBLAS bf16 product "
+              f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core rate); "
+              f"{differing} of {out.numel()} elements apart from the bf16 "
+              f"twin, at most {ulps} ulp, each a sum within 1 ulp of the "
+              f"twin's (transposed gamma: {wrong} elements no such sum); "
+              f"bit-stable across calls and batch 1 vs {n} [{card}]")
+    return rows
 
 
 def deconv_phase(model, card: str) -> list:
@@ -1638,6 +1754,82 @@ def build_gdn_model(imgs, card: str):
           f"{nparam / 1e6:.1f}M params, analysis gain {gain:.2f}, built in "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
     return model
+
+
+@contextlib.contextmanager
+def k3_call_dtypes():
+    """Within the block, the dtype of x at each GDN layer's K3 call
+    (``nn.norm``'s ``gdn``), in call order."""
+    from crdr_tpu_torch.nn import norm
+
+    real, dtypes = norm.gdn, []
+
+    def spy(x, *args):
+        dtypes.append(x.dtype)
+        return real(x, *args)
+
+    norm.gdn = spy
+    try:
+        yield dtypes
+    finally:
+        norm.gdn = real
+
+
+def psnr_of(imgs, fake) -> float:
+    from crdr_tpu_torch.utils.img_utils import calc_psnr, uint8_to_tensor
+
+    return calc_psnr(uint8_to_tensor(imgs), fake)
+
+
+def bf16_round_trip(model, imgs, label: str, expected: dict,
+                    card: str) -> dict:
+    """One batch round trip of a GDN model at ``transform_dtype: bfloat16``
+    (set in its options, codec_setup again), on the wire its options name:
+    the launches ``expected`` with every K3 call on bf16, and the checks of
+    phase 3 (decoded y_hat == the encoder's, real vs predicted bpp); its
+    PSNR and (cold) times."""
+    import torch
+
+    model.opt["transform_dtype"] = "bfloat16"
+    model.codec_setup()
+    check(model.transform_dtype == torch.bfloat16,
+          f"{label}: transform_dtype is {model.transform_dtype}")
+    expected = {"lane_encode_rounds": 0, **expected}
+    with k3_call_dtypes() as dtypes:
+        encs, (fake, _, y_hat), enc_s, dec_s, counts = \
+            counted_round_trip(model, imgs)
+    check(counts == expected, f"{label}: kernel launches in one batch round "
+                              f"trip {counts} (expected {expected})")
+    check(dtypes == [torch.bfloat16] * expected["gdn"],
+          f"{label}: K3 called on {dtypes}")
+    check_round_trip(label, encs, fake, y_hat)
+    res = {"launches": counts, "psnr": psnr_of(imgs, fake),
+           "encode_ms": enc_s * 1e3, "decode_ms": dec_s * 1e3}
+    print(f"{label}: one batch round trip (cold) encode "
+          f"{res['encode_ms']:.1f} ms, decode {res['decode_ms']:.1f} ms, "
+          f"PSNR {res['psnr']:.3f} dB, launches {counts}, every K3 call on "
+          f"bf16; decoded y_hat == the encoder's [{card}]")
+    return res
+
+
+def gdn_bf16_phase(model, imgs, encs_f32, card: str) -> dict:
+    """Phase 7's bf16 half: the GDN path's model at transform_dtype
+    bfloat16, one round trip on the compressai wire and one on the device
+    wire (E1), 6 K3 launches each, all bf16; the PSNR beside the f32
+    path's (phase 7's streams decoded at f32)."""
+    fake, _, _ = model.decompress_batch([e["string_list"] for e in encs_f32])
+    res = {"f32_psnr": psnr_of(imgs, fake)}
+    res["compressai"] = bf16_round_trip(
+        model, imgs, "GDN path bf16 compressai",
+        {"slice_transform": 0, "lane_decode_round": 0, "gdn": 6}, card)
+    model.opt.update(wire_format="device", device_wire_encoder="device")
+    res["device"] = bf16_round_trip(
+        model, imgs, "GDN path bf16 device wire",
+        device_wire_expected(model, "device", gdn=6), card)
+    print(f"GDN path PSNR: f32 {res['f32_psnr']:.3f} dB, bf16 compressai "
+          f"{res['compressai']['psnr']:.3f} dB, bf16 device wire "
+          f"{res['device']['psnr']:.3f} dB [{card}]")
+    return res
 
 
 def encode_ab_phase(model, imgs, card: str, pairs: int = 6) -> None:
@@ -4748,8 +4940,9 @@ def build_family_model(family: str, imgs, card: str):
 def family_phase(imgs, card: str, profiling: bool = False):
     """Phase 20: each family on both wires (the generic device wire, E1),
     the checks of phases 3 and 4, K3 6 a round trip on Cheng20 (every K3
-    call held against gdn_plain), 0 on HiFiC.  Returns ({path: launches},
-    {path: times})."""
+    call held against gdn_plain), 0 on HiFiC; then Cheng20 at
+    transform_dtype bfloat16, one round trip on the device wire (6 bf16 K3
+    launches).  Returns ({path: launches}, {path: times})."""
     import torch
 
     counts, times = {}, {}
@@ -4783,6 +4976,14 @@ def family_phase(imgs, card: str, profiling: bool = False):
                 [e["string_list"] for e in encs], beta=BETA),
                 f"{family} device-wire decode batch {N_IMG}", card,
                 ("gdn_kernel", "lane_decode"))
+        if family == "cheng20":  # one round trip at bf16, this wire
+            label = f"{family} bf16 device wire"
+            res = bf16_round_trip(model, imgs, label,
+                                  device_wire_expected(model, "device", 6),
+                                  card)
+            counts[label] = res["launches"]
+            times[label] = {k: res[k] for k in ("encode_ms", "decode_ms",
+                                                "psnr")}
         del model, encs
         torch.cuda.empty_cache()
     return counts, times
@@ -6251,6 +6452,39 @@ def jpeg_fixtures_check() -> dict:
     return {"decoded": done, "refused": refused}
 
 
+def jpeg_encode_check() -> dict:
+    """The port's encoder on the card's host: the photo's pixels (the
+    port's decode of photo_768x512.jpg) encoded, then that JPEG's decode
+    (a reconstruction) encoded; each file's sha256 equal to the digest of
+    cv2's bytes in digests.json (make_fixtures.py), its decode equal to
+    cv2's decode of cv2's file; ms an encode at 768x512."""
+    import hashlib
+
+    from crdr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
+
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with open(os.path.join(JPEG_DIR, "photo_768x512.jpg"), "rb") as f:
+        pixels = decode_jpeg(f.read())
+    res = {}
+    for name in ("encoded_photo_q95.jpg", "encoded_reconstruction_q95.jpg"):
+        data = encode_jpeg(pixels)
+        sha = hashlib.sha256(data).hexdigest()
+        check(sha == digests[name]["bytes"], f"encode_jpeg: {name}'s bytes "
+              f"differ from cv2's (sha256 {sha})")
+        pixels = decode_jpeg(data, name, file_path=True)
+        check(pixel_sha(pixels) == digests[name]["file"],
+              f"{name}: decoded pixels differ from cv2's")
+        res[name] = sha
+    runs = []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        encode_jpeg(pixels)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    res["encode_ms_768x512"] = float(np.median(runs[2:]))
+    return res
+
+
 def jpeg_served_check(card: str) -> dict:
     """The 768x512 fixture as a request body to cli/serve.py's server
     (crdr_throughput.yaml, the device wire, E1): its .bin byte-equal to
@@ -6261,7 +6495,7 @@ def jpeg_served_check(card: str) -> dict:
 
     from crdr_tpu_torch.serving.http_server import make_server
     from crdr_tpu_torch.utils.img_utils import decode_png, encode_png
-    from crdr_tpu_torch.utils.jpeg import decode_jpeg
+    from crdr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 
     with open(os.path.join(JPEG_DIR, "photo_768x512.jpg"), "rb") as f:
         body = f.read()
@@ -6298,8 +6532,18 @@ def jpeg_served_check(card: str) -> dict:
     dec = decode_png(out)
     check(dec.shape == (IMG_H, IMG_W, 3),
           f"JPEG body: decoded {dec.shape}")
+    # the reconstruction as JPEG, read back (no cv2 digest: its pixels are
+    # the card's; its PSNR printed, not bounded: a random init's
+    # reconstruction is noise-like, which JPEG keeps poorly)
+    jpg = encode_jpeg(dec)
+    back = decode_jpeg(jpg, "the served reconstruction")
+    check(back.shape == dec.shape and encode_jpeg(dec) == jpg,
+          f"the served reconstruction's JPEG: {back.shape}, or two encodes "
+          "differ")
+    mse = float(np.mean((back.astype(np.float64) - dec) ** 2))
     res = {"launches": got, "held": held, "bin_bytes": len(blob),
-           "compress_ms": enc_s * 1e3, "decompress_ms": dec_s * 1e3}
+           "compress_ms": enc_s * 1e3, "decompress_ms": dec_s * 1e3,
+           "recon_jpeg_psnr": 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))}
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6328,8 +6572,11 @@ def jpeg_training_check(card: str, tmp: str) -> dict:
         shutil.copy(os.path.join(JPEG_DIR, n), train0)
     write_png(os.path.join(kodak, "kodim01.png"),
               np.full((64, 96, 3), 128, np.uint8))
+    # train -wb: loss, validation and time logged at the last step
     cfg = train_config("crdr_stage_1.yaml", tmp, "jpeg",
-                       total_iter=JPEG_STEPS, log_step=JPEG_STEPS)
+                       total_iter=JPEG_STEPS, log_step=JPEG_STEPS,
+                       eval_step=JPEG_STEPS, time_step=JPEG_STEPS,
+                       use_wandb=True, wandb_loss_step=JPEG_STEPS)
     check(cfg.dataset.train_dataset.name == "openimage",
           "crdr_stage_1.yaml's dataset is no longer OpenImage")
     # repeat 2: an epoch of 5 batches, so the 3 steps' waits hold no
@@ -6347,7 +6594,8 @@ def jpeg_training_check(card: str, tmp: str) -> dict:
         t0 = time.perf_counter()
         ds[i]
         runs.append((time.perf_counter() - t0) * 1e3)
-    tr = build_trainer(cfg, CARD)
+    with without_wandb():  # -wb's JSONL stream, never wandb.init
+        tr = build_trainer(cfg, CARD)
     loader = TimedLoader(tr.train_loader)
     tr.train_loader = loader
     logs, steps, _ = record_steps(tr)
@@ -6361,16 +6609,82 @@ def jpeg_training_check(card: str, tmp: str) -> dict:
     batch = next(iter(tr.train_loader.loader))["real_images"]
     check(batch.shape == (8, 256, 256, 3) and np.isfinite(batch).all(),
           f"JPEG training batch {batch.dtype} {batch.shape}")
+    wandb = wandb_stream_check(cfg, last)
+    saved = validation_jpeg_check(tr, os.path.join(tmp, "samples"))
     res = {"sources": len(names), "sample_ms": float(np.median(runs)),
            "steps": len(logs), "step_ms": float(np.median(steps[1:])),
            "wait_ms": float(np.mean(loader.waits[1:])),
            "wait_max_ms": float(np.max(loader.waits[1:])),
            "first_wait_ms": loader.waits[0], "run_s": secs,
-           "loss_last": last["total"]}
+           "loss_last": last["total"], "wandb": wandb,
+           "validation_samples": saved}
     del tr
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+@contextlib.contextmanager
+def without_wandb():
+    """``import wandb`` fails within the block.  The card's host has wandb
+    installed but no login, and ``wandb.init`` would need one and the
+    network; so ``use_wandb`` takes the JSONL stream of
+    ``utils/wandb_compat.py``, as where wandb is not installed."""
+    saved = sys.modules.get("wandb")
+    sys.modules["wandb"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["wandb"]
+        else:
+            sys.modules["wandb"] = saved
+
+
+# JAX's Timer.get_time_stat keys (tests/test_torch_trainer.py holds the
+# port's to them)
+TIME_STAT_KEYS = {"sec_per_iter", "iter_per_sec", "elapsed_hours",
+                  "eta_hours"}
+
+
+def wandb_stream_check(cfg, last: dict) -> dict:
+    """The -wb run's JSONL (wandb is not installed on the card's host):
+    at the last step a loss line (the step's loss keys), an eval_* line and
+    a time line, each with "iter" and "_ts", JAX's keys."""
+    path = os.path.join(cfg.path.job_dir, f"wandb_{cfg.exp}.jsonl")
+    check(os.path.exists(path), f"train -wb wrote no {path}")
+    with open(path) as f:
+        lines = [json.loads(x) for x in f]
+    keys = [set(x) - {"_ts", "iter"} for x in lines]
+    want = [set(last) - {"skipped"}, None, TIME_STAT_KEYS]
+    check(len(lines) == 3 and all("_ts" in x and x["iter"] == JPEG_STEPS
+                                  for x in lines)
+          and keys[0] == want[0] and keys[2] == want[2]
+          and {"eval_bpp", "eval_psnr", "eval_ms_ssim"} <= keys[1]
+          and all(k.startswith("eval_") for k in keys[1]),
+          f"train -wb's JSONL: {[sorted(k) for k in keys]}")
+    return {"lines": len(lines), "keys": [sorted(k) for k in keys]}
+
+
+def validation_jpeg_check(tr, save_dir: str) -> list:
+    """validation(save_img=True) on the trained model: JAX's .jpg names,
+    each file read back by the port's decoder at the eval image's shape."""
+    from crdr_tpu_torch.utils.img_utils import read_image
+
+    model = tr.comp_model
+    rows = model.validation(tr.eval_loader, max_sample_size=1,
+                            save_img=True, save_dir=save_dir)
+    qs = [f"_q{q}" for q in range(model.rate_level)] if model.use_rate \
+        else [""]
+    want = sorted([f"sample_1_fake{q}.jpg" for q in qs]
+                  + ["sample_1_real.jpg"])
+    saved = sorted(os.listdir(save_dir))
+    check(saved == want, f"validation(save_img=True) wrote {saved}, JAX "
+                         f"writes {want}")
+    shapes = {read_image(os.path.join(save_dir, n)).shape for n in saved}
+    check(len(rows) == 1 and len(shapes) == 1,
+          f"validation samples: {len(rows)} rows, shapes {shapes}")
+    return saved
 
 
 def jpeg_phase(card: str) -> tuple:
@@ -6391,6 +6705,7 @@ def jpeg_phase(card: str) -> tuple:
         runs.append((time.perf_counter() - t0) * 1e3)
     ms = float(np.median(runs[2:]))
     res.update(decode_ms_768x512=ms, decode_ms_per_mpix=ms / 0.393216)
+    res["encoder"] = jpeg_encode_check()
     res["served"] = jpeg_served_check(card)
     with tempfile.TemporaryDirectory() as tmp:
         res["training"] = jpeg_training_check(card, tmp)
@@ -6409,6 +6724,16 @@ def jpeg_phase(card: str) -> tuple:
           f"{tr['wait_max_ms']:.2f}, first {tr['first_wait_ms']:.1f}); last "
           f"total loss {tr['loss_last']:.4f}; "
           f"phase {res['phase_s']:.1f} s [{card}]")
+    en = res["encoder"]
+    print(f"JPEG output: encode_jpeg of the photo's pixels and of their "
+          f"JPEG's decode byte-equal to cv2's (sha256 "
+          f"{en['encoded_photo_q95.jpg'][:16]}..., "
+          f"{en['encoded_reconstruction_q95.jpg'][:16]}...); "
+          f"{en['encode_ms_768x512']:.2f} ms an encode at 768x512 (one host "
+          f"thread); the served reconstruction's JPEG "
+          f"{sv['recon_jpeg_psnr']:.2f} dB; validation(save_img=True) wrote "
+          f"{tr['validation_samples']}; train -wb's JSONL: "
+          f"{tr['wandb']['lines']} lines with JAX's keys [{card}]")
     return res, {"jpeg body": sv["launches"]}
 
 
@@ -6470,13 +6795,16 @@ def main() -> None:
         "GDN path",  # 3 GDN in the analysis, 3 IGDN after
         {"slice_transform": 0, "lane_decode_round": 0, "gdn": 6}, card)
     deconv = timed("deconv", deconv_phase, gdn_model, card)
-    if profiling:
+    if profiling:  # the f32 compressai-wire path, before the bf16 half
         profile_phase(lambda: gdn_model.compress_batch(imgs),
                       f"GDN path encode batch {N_IMG}", card,
                       ("gdn_kernel",))
         profile_phase(lambda: gdn_model.decompress_batch(
             [e["string_list"] for e in encs_g]),
             f"GDN path decode batch {N_IMG}", card, ("gdn_kernel",))
+    # leaves gdn_model at bf16 on the device wire
+    gdn_bf16 = timed("GDN bf16", gdn_bf16_phase, gdn_model, imgs, encs_g,
+                     card)
 
     del gdn_model
     torch.cuda.empty_cache()
@@ -6519,8 +6847,10 @@ def main() -> None:
     print("phase_seconds " + json.dumps(PHASE_S))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     r = k1["by_cin"][480]
-    k3r = k3["rows"]
+    k3r, k3b = k3["rows"], k3["bf16_rows"]
     launches = {"compressai": counts_c, "device": counts_d, "gdn": counts_g,
+                **{f"GDN path bf16 {w}": gdn_bf16[w]["launches"]
+                   for w in ("compressai", "device")},
                 **counts_m, **counts_t, **counts_e,
                 "flagship device encoder": counts_f, **counts_cb,
                 **counts_gw, **counts_tr, **counts_sv, **counts_ev,
@@ -6594,6 +6924,36 @@ def main() -> None:
         "training_gdn_step": {"launches_per_step":
                               counts_tr["train gdn"]["gdn"] // SHORT_STEPS,
                               **train["gdn"]["k3"]},
+        "card": card}, {
+        "name": "gdn_bf16", "route": "cuda",
+        "source": "crdr_tpu_torch/csrc/gdn.cu",
+        "replaces": "crdr_tpu/ops/pallas_gdn.py:37 (its bf16 use: JAX's "
+                    "bf16 GDN is the einsum path of crdr_tpu/nn/norm.py:63, "
+                    "the Pallas body cannot store bf16)",
+        "launches": gdn_bf16["compressai"]["launches"]["gdn"],
+        "launches_by_path": {p: c.get("gdn", 0) for p, c in launches.items()
+                             if "bf16" in p},
+        "max_abs_err": max(x["max_abs_err"] for x in k3b),
+        "max_ulps": max(x["ulps"] for x in k3b),
+        "differing": sum(x["differing"] for x in k3b),
+        "ms": k3b[0]["ms"], "eager_ms": k3b[0]["eager_ms"],
+        "plain_ms": k3b[0]["plain_ms"], "bound_ms": k3b[0]["bound_ms"],
+        "bound_by": k3b[0]["bound_by"], "library_ms": k3b[0]["library_ms"],
+        "f32_ms": k3r[0]["ms"],
+        "registers": k3["registers_bf16"],
+        "blocks_per_sm": k3["blocks_per_sm_bf16"],
+        "smem_bytes": k3["smem_bytes_bf16"],
+        "ms_by_call": {f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
+                       x["ms"] for x in k3b},
+        "bound_ms_by_call": {
+            f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
+            x["bound_ms"] for x in k3b},
+        "psnr": {"f32": gdn_bf16["f32_psnr"],
+                 **{f"bf16 {w}": gdn_bf16[w]["psnr"]
+                    for w in ("compressai", "device")}},
+        "shape": f"{list(GDN_SHAPES[0])} NCHW bf16 (ms: CUDA-graph replay, "
+                 "gamma^T copy included; library: cuBLAS's bf16 product "
+                 "gamma . x^2)",
         "card": card}, {
         "name": "lane_encode_rounds", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/lane_encode.cu",

@@ -359,15 +359,15 @@ class BaseModel(CodecMixin, DeviceWireCodecMixin):
                                                  device=self.device)}
 
     def _maybe_save(self, save_img, save_dir, idx, q, out) -> None:
-        """The JAX package writes these samples as .jpg through cv2; the
-        port writes PNG (it carries no JPEG encoder)."""
+        """The samples as the JAX package names them, JPEGs byte-equal to
+        its cv2 ones (``utils/jpeg.py::encode_jpeg``)."""
         if not save_img:
             return
         suffix = f"_q{q}" if q is not None else ""
-        imwrite(os.path.join(save_dir, f"sample_{idx + 1}_fake{suffix}.png"),
+        imwrite(os.path.join(save_dir, f"sample_{idx + 1}_fake{suffix}.jpg"),
                 out["fake_images"])
         if q in (None, 0):
-            imwrite(os.path.join(save_dir, f"sample_{idx + 1}_real.png"),
+            imwrite(os.path.join(save_dir, f"sample_{idx + 1}_real.jpg"),
                     out["real_images"])
 
 

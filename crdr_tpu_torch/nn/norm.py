@@ -7,7 +7,9 @@ the inverse, with non-negative reparameterized ``beta`` /
 ``gamma`` stored as ``sqrt(value + pedestal)``.  ``state_dict`` holds
 exactly ``beta`` [C] and ``gamma`` [C_out, C_in]; the pedestal and the bound
 are constants.  The forward is K3 (``ops/gdn.py``) on the card, its plain
-twin on the CPU.
+twin on the CPU, in the parameters' dtype: the codec's bf16 copies of the
+transforms (``transform_dtype: bfloat16``) reparameterize and run GDN in
+bf16, as the JAX package does.
 
 ``ChannelNorm2D`` (HiFiC: moments over the channels, unbiased variance, eps
 1e-3) and ``InstanceNorm2D`` (moments over the pixels, biased variance, eps
@@ -39,12 +41,19 @@ class NonNegativeParam:
     def __init__(self, minimum: float = 0.0):
         self.pedestal = _REPARAM_OFFSET ** 2
         self.bound = (minimum + _REPARAM_OFFSET ** 2) ** 0.5
+        self._bounds = {}  # dtype -> the bound in it, as JAX converts it
 
     def init(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(torch.clamp(x + self.pedestal, min=self.pedestal))
 
     def __call__(self, stored: torch.Tensor) -> torch.Tensor:
-        return lower_bound(stored, self.bound) ** 2 - self.pedestal
+        bound = self._bounds.get(stored.dtype)
+        if bound is None:  # once a dtype, not on every forward
+            bound = self._bounds[stored.dtype] = torch.tensor(
+                self.bound, dtype=stored.dtype).item()
+        # in bf16 the square and the pedestal's subtraction round to bf16
+        # each, as JAX's do
+        return lower_bound(stored, bound) ** 2 - self.pedestal
 
 
 class GDN(nn.Module):

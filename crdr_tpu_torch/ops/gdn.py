@@ -6,17 +6,27 @@ inverse, with ``gamma`` stored ``[C_out, C_in]`` (the torch conv1x1 layout)
 and the product accumulated in f32.  Tensors here are NCHW.
 
 * ``gdn`` is the wrapper ``nn.norm.GDN`` calls, the registered op
-  ``crdr::gdn`` (one node of an exported program).  On a CUDA tensor its
-  CUDA implementation launches ``csrc/gdn.cu`` (built with nvcc for sm_90a into
-  ``build/crdr_tpu_torch/`` at first use, loaded with ctypes), handing it
-  ``gamma^T``, or raises: for a dtype other than float32, a non-contiguous
-  ``x``, or a channel count the kernel's tile plan does not take.  It never
-  falls back to the twin.  On a CPU tensor its CPU implementation runs
-  ``gdn_plain``.
-  ``gdn.launches`` counts kernel launches.
+  ``crdr::gdn`` (one node of an exported program).  ``x``, ``beta`` and
+  ``gamma`` share one dtype (a mix raises, naming the three).  On a CUDA
+  tensor its CUDA implementation launches ``csrc/gdn.cu`` (built with nvcc
+  for sm_90a into ``build/crdr_tpu_torch/`` at first use, loaded with
+  ctypes), handing it ``gamma^T`` and ``beta`` in f32, in its f32 mode or,
+  for bfloat16 tensors (``transform_dtype: bfloat16``), its bf16 mode; or
+  raises: for another dtype, a non-contiguous ``x``, or a channel count the
+  kernel's tile plan does not take.  It never falls back to the twin.  On a
+  CPU tensor its CPU implementation runs ``gdn_plain``.
+  ``gdn.launches`` counts kernel launches, of both modes.
 * ``gdn_plain`` is the plain PyTorch version: ``gamma`` as a 1x1
   convolution of ``x * x`` plus ``beta`` (TF32 off), then ``rsqrt`` /
-  ``sqrt`` times ``x``.
+  ``sqrt`` times ``x``.  In bfloat16 it is the JAX package's bf16 composite
+  (``crdr_tpu/nn/norm.py``: JAX's Pallas kernel cannot store bf16, so its
+  bf16 GDN is the einsum path), each step rounded to bf16: ``x * x``; the
+  1x1 convolution without ``beta`` (f32 sums of the exact products, bf16
+  out); ``+ beta``; the square root or its reciprocal, correctly rounded
+  in f32 (as XLA's bf16 ``rsqrt``; ``torch.rsqrt`` of a bf16 tensor rounds
+  twice on the CPU); ``x *`` that.  ``bf16_sum`` and ``bf16_tail`` are
+  its two halves, and ``bf16_unexplained`` holds a bf16 output to the
+  composite whatever order its sum took (the checks on the card).
 
 The op has a gradient (``register_autograd``), so its output has a
 ``grad_fn`` whenever an input needs one: the forward is the kernel (the
@@ -62,9 +72,9 @@ def _get_lib() -> ctypes.CDLL:
                 lib = ctypes.CDLL(build())
                 p, i = ctypes.c_void_p, ctypes.c_int
                 lib.crdr_gdn.restype = i
-                lib.crdr_gdn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+                lib.crdr_gdn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
                 lib.crdr_gdn_occupancy.restype = i
-                lib.crdr_gdn_occupancy.argtypes = [i, p]
+                lib.crdr_gdn_occupancy.argtypes = [i, i, p]
                 _lib = lib
     return _lib
 
@@ -76,18 +86,67 @@ def gdn_plain(x: Tensor, beta: Tensor, gamma: Tensor,
     TF32 is off for the forward's convolution only: autograd runs the
     backward's convolutions later, outside these flags, so on the card they
     use TF32 (PyTorch's cuDNN default) unless the caller turns it off (the
-    op's backward, ``crdr::gdn_backward``, runs with TF32 off)."""
+    op's backward, ``crdr::gdn_backward``, runs with TF32 off).  bfloat16
+    tensors take the bf16 composite of the module doc."""
+    if x.dtype == torch.bfloat16:
+        return _gdn_plain_bf16(x, beta, gamma, inverse)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False,
                                      deterministic=True, allow_tf32=False):
         norm = F.conv2d(x * x, gamma[:, :, None, None], beta)
     return x * (torch.sqrt(norm) if inverse else torch.rsqrt(norm))
 
 
-def occupancy(c: int) -> dict:
-    """The kernel's plan at ``c`` channels on the current device: blocks
-    resident an SM, pixels a block, shared-memory bytes a block."""
+def _gdn_plain_bf16(x: Tensor, beta: Tensor, gamma: Tensor,
+                    inverse: bool) -> Tensor:
+    """JAX's bf16 composite, each step rounded to bf16 (module doc)."""
+    return bf16_tail(x, beta, bf16_sum(x, gamma), inverse)
+
+
+def bf16_sum(x: Tensor, gamma: Tensor) -> Tensor:
+    """The bf16 composite's ``gamma . x^2``, rounded to bf16: the product
+    of the bf16 ``x * x`` and ``gamma`` as the f32 convolution of their
+    exact f32 copies (f32 sums, one rounding to bf16), not fused with
+    ``beta``: JAX rounds the sum before the add.  The one step whose result
+    depends on the order of a sum."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                     deterministic=True, allow_tf32=False):
+        norm = F.conv2d((x * x).float(), gamma.float()[:, :, None, None])
+    return norm.to(torch.bfloat16)
+
+
+def bf16_tail(x: Tensor, beta: Tensor, norm: Tensor,
+              inverse: bool) -> Tensor:
+    """The bf16 composite after its sum ``norm`` (bf16): ``+ beta``, the
+    square root or its reciprocal, ``x *`` that, each rounded to bf16."""
+    norm = norm + beta[None, :, None, None]
+    if inverse:
+        root = torch.sqrt(norm.float())
+    else:  # f64's 1 / sqrt rounded to f32: f32's correctly rounded rsqrt
+        root = torch.reciprocal(torch.sqrt(norm.double())).float()
+    return x * root.to(torch.bfloat16)
+
+
+def bf16_unexplained(out: Tensor, x: Tensor, beta: Tensor, gamma: Tensor,
+                     inverse: bool) -> int:
+    """How many elements of a bf16 GDN output ``out`` the composite gives
+    for no sum within 1 bf16 ulp of ``bf16_sum``'s, every later step
+    exact: 0 for K3's bf16 mode, whatever order its f32 sum and the twin's
+    take (an f32 sum in another order may round to the neighbouring bf16
+    value, which moves the output by up to 2 ulps)."""
+    bits = bf16_sum(x, gamma).view(torch.int16)  # the sum is >= 0
+    hit = torch.zeros(out.shape, dtype=torch.bool, device=out.device)
+    for step in (-1, 0, 1):
+        near = (bits + step).clamp(min=0).view(torch.bfloat16)
+        hit |= bf16_tail(x, beta, near, inverse) == out
+    return int((~hit).sum())
+
+
+def occupancy(c: int, bf16: bool = False) -> dict:
+    """The kernel's plan at ``c`` channels in its f32 or bf16 mode on the
+    current device: blocks resident an SM, pixels a block, shared-memory
+    bytes a block."""
     res = (ctypes.c_int * 3)()
-    rc = _get_lib().crdr_gdn_occupancy(c, ctypes.addressof(res))
+    rc = _get_lib().crdr_gdn_occupancy(c, int(bf16), ctypes.addressof(res))
     if rc != 0:
         raise RuntimeError(f"gdn: occupancy query failed (cudaError {rc})")
     return {"blocks_per_sm": res[0], "tile_pixels": res[1],
@@ -100,31 +159,36 @@ def _gdn_op(x: Tensor, beta: Tensor, gamma: Tensor, inverse: bool) -> Tensor:
     if x.dim() != 4:
         raise ValueError(f"gdn: x must be NCHW, got shape {tuple(x.shape)}")
     n, c, h, w = x.shape
-    if x.dtype != torch.float32:
-        raise ValueError(f"gdn: the kernel takes float32, got {x.dtype} "
-                         "(transform_dtype: bfloat16 is not ported for the "
-                         "GDN families)")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gdn: the kernel takes float32 or bfloat16, got "
+                         f"{x.dtype}")
     if not x.is_contiguous():
         raise ValueError("gdn: x must be contiguous NCHW")
     if c not in KERNEL_CHANNELS:
         raise ValueError(f"gdn: {c} channels; the kernel takes "
                          f"{KERNEL_CHANNELS}")
     for t, shape in ((beta, (c,)), (gamma, (c, c))):
-        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+        if tuple(t.shape) != shape or t.dtype != x.dtype \
                 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(
-                f"gdn: expected float32 {shape} contiguous on {x.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+                f"gdn: expected {x.dtype} {shape} contiguous on {x.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if n == 0 or h * w == 0:
         return torch.empty_like(x)
     out = torch.empty_like(x)
-    gamma_t = gamma.t().contiguous()  # [C_in, C_out]: chunks of whole rows
+    # [C_in, C_out] f32 in both modes (bf16 -> f32 is exact): chunks of
+    # whole rows
+    gamma_t = gamma.t().float().contiguous()
+    beta = beta.float()
+    bf16 = x.dtype == torch.bfloat16
     p = h * w
-    vec = p % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    align = 8 if bf16 else 16  # a 4-pixel group's bytes
+    vec = p % 4 == 0 and x.data_ptr() % align == 0 \
+        and out.data_ptr() % align == 0
     with torch.cuda.device(x.device):
         rc = _get_lib().crdr_gdn(
             x.data_ptr(), beta.data_ptr(), gamma_t.data_ptr(), out.data_ptr(),
-            n, c, p, int(inverse), int(vec),
+            n, c, p, int(inverse), int(vec), int(bf16),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"gdn: kernel launch failed (cudaError {rc})")
@@ -186,6 +250,10 @@ def gdn(x: Tensor, beta: Tensor, gamma: Tensor,
     gradient."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gdn: unsupported device {x.device}")
+    if not x.dtype == beta.dtype == gamma.dtype:
+        raise ValueError(f"gdn: x, beta and gamma must share one dtype, got "
+                         f"x {x.dtype}, beta {beta.dtype}, gamma "
+                         f"{gamma.dtype}")
     return torch.ops.crdr.gdn(x, beta, gamma, bool(inverse))
 
 

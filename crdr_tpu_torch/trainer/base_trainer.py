@@ -38,8 +38,12 @@ agree through collectives, so the trajectory is the single process's:
   checkpoint of N ranks resumes in one process and the reverse), the CSV
   logs and the validation.
 
-``batch_size`` must divide by the ranks.  ``use_wandb`` is not ported and
-raises.
+``batch_size`` must divide by the ranks.
+
+``use_wandb`` (``train -wb``) logs where the JAX package's trainer does,
+through ``utils/wandb_compat.py`` (rank 0 alone): ``eval_*`` after each
+validation, the training loss every ``wandb_loss_step`` iterations (10000
+by default) at a log step, and the time stats at each time step.
 """
 
 from __future__ import annotations
@@ -71,8 +75,6 @@ class BaseTrainer:
 
     def __init__(self, opt, device=None):
         self.opt = opt
-        if opt.get("use_wandb"):
-            raise NotImplementedError("use_wandb is not ported")
         self.rank, self.world = self.data_parallel(opt)
         # collectives whenever this process is a rank of a group, even of
         # one (a group over NCCL at world size 1 runs them too)
@@ -98,6 +100,18 @@ class BaseTrainer:
         bolded_log("Dataloader", new_line=True)
         self.set_dataloader()
         self.set_csv_loggers()
+
+        self._wandb = None
+        if opt.get("use_wandb", False) and self.rank == 0:
+            from ..utils import wandb_compat
+
+            self._wandb = wandb_compat
+            wandb_compat.init(
+                project=opt.get("project_name", "crdr_tpu"), name=opt.exp,
+                config=opt.to_dict() if hasattr(opt, "to_dict") else None,
+                resume=opt.start_iter > 0,
+                wandb_dir=opt.get("wandb_root", "./"),
+                log_dir=opt.path.job_dir if opt.get("path") else ".")
 
         self.loss_recorder = AvgMeter()
         self.time_recorder = Timer(start_iter=opt.start_iter,
@@ -300,6 +314,9 @@ class BaseTrainer:
         self.logger.info(f"validation iter{current_iter}: " + " ".join(
             f"{k}={v:.4f}" for k, v in eval_dict.items()))
         self.eval_logger.update({"iter": current_iter, **eval_dict})
+        if self._wandb:
+            self._wandb.log({"iter": current_iter,
+                             **{f"eval_{k}": v for k, v in eval_dict.items()}})
 
     def log_train_loss(self, current_iter: int) -> None:
         avg = self.loss_recorder.get_avg_values()
@@ -309,6 +326,9 @@ class BaseTrainer:
                 + " ".join(f"{k}: {v:.3f}" for k, v in avg.items()))
         if self.train_logger is not None:
             self.train_logger.update({"iter": current_iter, **avg})
+        if self._wandb and current_iter % self.opt.get("wandb_loss_step",
+                                                       10000) == 0:
+            self._wandb.log({"iter": current_iter, **avg})
         self.loss_recorder.reset()
 
     def log_time(self, current_iter: int) -> None:
@@ -316,6 +336,8 @@ class BaseTrainer:
         self.logger.info(
             f"iter {current_iter}: {stat['iter_per_sec']:.2f} it/s, "
             f"eta {stat['eta_hours']:.2f}h")
+        if self._wandb:
+            self._wandb.log({"iter": current_iter, **stat})
 
     def save(self, current_iter: int) -> None:
         raise NotImplementedError

@@ -161,6 +161,7 @@ def get_train_config(argv: Optional[List[str]] = None) -> Config:
                         help="resume from the newest checkpoint in the "
                              "experiment dir")
     parser.add_argument("--dry_run", action="store_true")
+    parser.add_argument("-wb", "--use_wandb", action="store_true")
     args = parser.parse_args(argv)
 
     cfg = Config.from_file(args.config_path)
@@ -178,6 +179,7 @@ def get_train_config(argv: Optional[List[str]] = None) -> Config:
     cfg["distributed"] = bool(args.distributed)
     cfg["auto_resume"] = bool(args.auto_resume)
     cfg["dry_run"] = bool(args.dry_run)
+    cfg["use_wandb"] = bool(args.use_wandb)
     cfg["debug"] = bool(args.debug)
     cfg["is_train"] = True
     cfg.setdefault("start_iter", 0)

@@ -6,8 +6,8 @@ The JAX package reads and writes images through cv2, which the GPU machines
 the port runs on do not have (nor PIL).  The port reads files as
 ``cv2.imread`` does, by their magic bytes and not their suffix: 8-bit PNG
 (through the standard library's ``zlib``), JPEG (``utils/jpeg.py``, EXIF
-orientation applied) and 24- / 32-bit uncompressed BMP.  It writes PNG
-only: it has no JPEG encoder, so ``imwrite`` of a ``.jpg`` raises.
+orientation applied) and 24- / 32-bit uncompressed BMP.  It writes PNG,
+and JPEG byte-equal to ``cv2.imwrite`` (``utils/jpeg.py::encode_jpeg``).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .device import resolve_device
-from .jpeg import JPEG_MAGIC, decode_jpeg
+from .jpeg import JPEG_MAGIC, decode_jpeg, encode_jpeg
 
 # ---------------------------------------------------------------------------
 # range conversion
@@ -348,11 +348,20 @@ def imread(path: str) -> np.ndarray:
 
 
 def imwrite(path: str, img) -> None:
-    """Write a [-1,1] float image (HWC or 1HWC) as an RGB PNG."""
-    if os.path.splitext(path)[1].lower() != ".png":
-        raise ValueError(f"{path}: the port writes PNG only (it has no JPEG "
-                         "encoder)")
+    """Write a [-1,1] float image (HWC or 1HWC) by its extension: ``.png``
+    as an RGB PNG, ``.jpg`` / ``.jpeg`` as the JPEG ``cv2.imwrite`` writes
+    at its defaults (the JAX package's ``imwrite``); another extension
+    raises."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in (".png", ".jpg", ".jpeg"):
+        raise ValueError(f"{path}: the port writes .png, .jpg and .jpeg")
     arr = np.asarray(img)
     if arr.ndim == 4:
         arr = arr[0]
-    write_png(path, tensor_to_uint8(arr))
+    u8 = tensor_to_uint8(arr)
+    if ext == ".png":
+        write_png(path, u8)
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(u8))

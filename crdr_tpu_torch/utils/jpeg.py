@@ -1,10 +1,19 @@
-"""JPEG decoding on the host, byte-equal to libjpeg-turbo as cv2 and PIL run
-it (no JAX counterpart: the JAX package calls cv2 and PIL, which the
-machines the port runs on do not have).
+"""JPEG decoding and encoding on the host, byte-equal to libjpeg-turbo as
+cv2 and PIL run it (no JAX counterpart: the JAX package calls cv2 and PIL,
+which the machines the port runs on do not have).
 
-The decoder is ``runtime/csrc/jpeg.cpp``, plain C ABI, built with ``g++`` at
-first use into ``build/crdr_tpu_torch/`` and called through ctypes (which
-releases the GIL, so the data loader's threads decode in parallel).  It
+The decoder is ``runtime/csrc/jpeg.cpp`` and the encoder
+``runtime/csrc/jpeg_encode.cpp``, plain C ABI, built together with ``g++``
+at first use into ``build/crdr_tpu_torch/`` and called through ctypes
+(which releases the GIL, so the data loader's threads decode in parallel).
+
+``encode_jpeg(rgb, quality=95)`` writes what ``cv2.imencode('.jpg',
+rgb[..., ::-1])`` writes at its defaults, byte for byte: baseline JFIF,
+YCbCr 4:2:0, the islow DCT, the standard tables scaled to the quality, the
+standard Huffman tables (JAX's ``imwrite`` of a ``.jpg`` through
+``img_utils.imwrite``).
+
+The decoder
 decodes baseline and progressive Huffman JPEG (restart intervals, any
 sampling factors libjpeg takes) with libjpeg-turbo's default
 decompression: the islow IDCT, fancy upsampling, jdcolor.c's fixed-point
@@ -39,15 +48,17 @@ from .device import build_library, package_path
 JPEG_MAGIC = b"\xff\xd8\xff"
 
 _SRC = package_path("runtime", "csrc", "jpeg.cpp")
+_ENC_SRC = package_path("runtime", "csrc", "jpeg_encode.cpp")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
 def build() -> str:
-    """Compile the decoder (no-op when the built library is up to date)."""
+    """Compile the decoder and the encoder (no-op when the built library is
+    up to date)."""
     return build_library(
-        "crdr_jpeg", [_SRC],
-        ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", _SRC])
+        "crdr_jpeg", [_SRC, _ENC_SRC],
+        ["g++", "-O3", "-std=c++17", "-fPIC", "-shared", _SRC, _ENC_SRC])
 
 
 def _get_lib() -> ctypes.CDLL:
@@ -61,6 +72,11 @@ def _get_lib() -> ctypes.CDLL:
                 lib.crdr_jpeg_decode.argtypes = [
                     ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ip, ip,
                     ip, ctypes.c_char_p, ctypes.c_int]
+                lib.crdr_jpeg_encode.restype = ctypes.c_void_p
+                lib.crdr_jpeg_encode.argtypes = [
+                    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p,
+                    ctypes.c_int]
                 lib.crdr_jpeg_free.restype = None
                 lib.crdr_jpeg_free.argtypes = [ctypes.c_void_p]
                 _lib = lib
@@ -100,3 +116,25 @@ def decode_jpeg(data: bytes, name: str = "JPEG data",
         lib.crdr_jpeg_free(ptr)
     return _orient(img, orientation.value) if file_path else img
 
+
+
+def encode_jpeg(rgb_u8: np.ndarray, quality: int = 95) -> bytes:
+    """uint8 [H, W, 3] RGB -> the bytes ``cv2.imencode('.jpg', rgb[...,
+    ::-1], [cv2.IMWRITE_JPEG_QUALITY, quality])`` gives (cv2's default
+    quality is 95).  Raises ``ValueError`` on another shape or dtype."""
+    img = np.asarray(rgb_u8)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg: expected uint8 [H, W, 3] RGB, got "
+                         f"{img.dtype} {img.shape}")
+    img = np.ascontiguousarray(img)
+    lib = _get_lib()
+    n = ctypes.c_int64()
+    err = ctypes.create_string_buffer(256)
+    ptr = lib.crdr_jpeg_encode(img.ctypes.data, img.shape[1], img.shape[0],
+                               int(quality), ctypes.byref(n), err, len(err))
+    if not ptr:
+        raise ValueError(f"encode_jpeg: {err.value.decode()}")
+    try:
+        return ctypes.string_at(ptr, n.value)
+    finally:
+        lib.crdr_jpeg_free(ptr)

@@ -10,6 +10,10 @@ restart intervals, optimized Huffman tables, odd sizes, EXIF orientations
 photo-like 768x512 image for timing.  The variants neither writes are made
 from a baseline file: its SOF0 marker rewritten to SOF9 (arithmetic) and to
 SOF3 (lossless), its precision byte set to 12, and one file cut mid-scan.
+Two files hold what ``cv2.imencode('.jpg')`` writes at its defaults (quality
+95, 4:2:0), for the port's encoder (``utils/jpeg.py::encode_jpeg``): of the
+768x512 photo's decoded pixels, and of that JPEG's decoded pixels (a
+reconstruction); ``bytes`` in their entries is the sha256 of the file.
 
 ``digests.json`` holds, for each decodable file, the sha256 of the pixels
 (uint8 RGB, row-major) that ``cv2.imread`` gives (``file``: EXIF orientation
@@ -57,6 +61,12 @@ def cv2_jpeg(rgb: np.ndarray, *params) -> bytes:
     ok, buf = cv2.imencode(".jpg", rgb[..., ::-1], list(params))
     assert ok
     return buf.tobytes()
+
+
+def decoded(data: bytes) -> np.ndarray:
+    """cv2's RGB pixels of a JPEG."""
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return np.ascontiguousarray(bgr[..., ::-1])
 
 
 def pil_jpeg(img: Image.Image, **kw) -> bytes:
@@ -109,6 +119,10 @@ def fixtures() -> dict:
     ycck[i + 11] = 2  # the Adobe transform byte: YCCK
     out["adobe_ycck.jpg"] = bytes(ycck)
     out["photo_768x512.jpg"] = cv2_jpeg(synthetic(512, 768, 40, 4.0), q, 80)
+    photo = decoded(out["photo_768x512.jpg"])
+    out["encoded_photo_q95.jpg"] = cv2_jpeg(photo)
+    out["encoded_reconstruction_q95.jpg"] = cv2_jpeg(
+        decoded(out["encoded_photo_q95.jpg"]))
     base = out["baseline_420.jpg"]
     out["refused_sof9.jpg"] = base.replace(b"\xff\xc0", b"\xff\xc9", 1)
     out["refused_sof3.jpg"] = base.replace(b"\xff\xc0", b"\xff\xc3", 1)
@@ -141,6 +155,8 @@ def main() -> None:
             f.write(data)
         digests[name] = ({"raises": REFUSED[name]} if name in REFUSED
                          else oracle_digests(path))
+        if name.startswith("encoded_"):
+            digests[name]["bytes"] = hashlib.sha256(data).hexdigest()
     with open(os.path.join(HERE, "digests.json"), "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")

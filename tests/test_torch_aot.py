@@ -16,8 +16,13 @@ oracle):
 * a serving mesh of two replicas dispatches each shard through the
   package;
 * K1's op inside exported Charm programs (``fused_slice_kernel`` on);
-* ``torch.library.opcheck`` of K1, K2, K3 and E1's ops on CPU tensors;
-  K3's backward bit-equal to autograd of its plain twin (TF32 off);
+* ``torch.library.opcheck`` of K1, K2, K3 and E1's ops on CPU tensors,
+  K3's at bf16 too; K3's backward bit-equal to autograd of its plain twin
+  (TF32 off);
+* the Balle18 GDN model at ``transform_dtype: bfloat16``
+  (``tests/test_torch_generic.py``'s tiny widths): a package recorded at
+  2x64x64 and loaded into a fresh model gives the live path's streams and
+  decodes, K3's op at bf16 in its transform programs;
 * a call on another card than the recorded one looks up the recorded
   card's key;
 * the manifest, the cuda platform (exported, or skipped with its error on
@@ -276,3 +281,55 @@ def test_moved_key_moves_one_card():
     moved_all = json.loads(aot._moved_key(key, "cpu"))
     assert moved_all[1] == "cpu" and all(
         v[3] == "cpu" for v in moved_all[4] if v[0] == "t")
+
+
+def test_opcheck_gdn_at_bf16_on_cpu():
+    x, beta, gamma, inverse = op_args("gdn")
+    torch.library.opcheck(torch.ops.crdr.gdn.default,
+                          (x.bfloat16(), beta.bfloat16(), gamma.bfloat16(),
+                           inverse))
+
+
+def test_bf16_balle18_bucket_through_a_package(tmp_path):
+    """The Balle18 model at ``transform_dtype: bfloat16``: one bucket
+    recorded and exported, loaded into a fresh model on the same weights;
+    its streams, y_hat and images equal the live path's, with hits on the
+    transform programs, whose graphs hold K3's op three times on bf16."""
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.utils.config import Config
+    from tests.test_torch_generic import _config
+
+    def model():
+        cfg = _config(Config)
+        cfg["transform_dtype"] = "bfloat16"
+        m = build_comp_model(cfg, device="cpu")
+        m.codec_setup()
+        return m
+
+    live, fresh = model(), model()
+    fresh.load_state_dict(live.state_dict())
+    fresh.codec_setup()
+    record_serving_roundtrip(live, N, H, W)
+    path = str(tmp_path / "pkg")
+    manifest = export_package(live, path, platforms=("cpu",))
+    live._aot.recorder = None
+    assert manifest["entries"] and not manifest["skipped"], manifest
+    load_package(fresh, path)
+    x = images(N, H, W, seed=8)
+    want, got = live.compress_batch(x), fresh.compress_batch(x)
+    assert [e["string_list"] for e in got] == \
+        [e["string_list"] for e in want]
+    f_live, _, y_live = live.decompress_batch(
+        [e["string_list"] for e in want])
+    f_aot, _, y_aot = fresh.decompress_batch([e["string_list"] for e in got])
+    np.testing.assert_array_equal(y_aot, y_live)
+    np.testing.assert_array_equal(f_aot, f_live)
+    counts = aot_counts(fresh)
+    for name in ("encode_latents", "decode_image"):
+        assert counts[name]["hits"] > 0, counts
+        entry = next(e for e in manifest["entries"] if e["name"] == name)
+        ep = torch.export.load(os.path.join(path, entry["file"]))
+        calls = [n for n in ep.graph.nodes
+                 if str(n.target) == "crdr.gdn.default"]
+        assert len(calls) == 3, name
+        assert {n.meta["val"].dtype for n in calls} == {torch.bfloat16}

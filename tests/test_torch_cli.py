@@ -116,15 +116,23 @@ def test_png_errors(tmp_path):
     with pytest.raises(ValueError, match="CRC"):
         img_utils.read_png(bad)
     # a JPEG reads as cv2.imread reads it (tests/test_torch_jpeg.py holds
-    # the decoder); the port writes PNG only
+    # the decoder); imwrite writes a .jpeg as cv2.imwrite does
+    # (tests/test_torch_jpeg_write.py holds the encoder) and refuses a
+    # format it does not write
     jpg = str(tmp_path / "photo.jpg")
     photo = np.random.default_rng(1).integers(0, 256, (8, 8, 3), np.uint8)
     assert cv2.imwrite(jpg, photo)
     np.testing.assert_array_equal(
         img_utils.imread(jpg),
         img_utils.uint8_to_tensor(cv2.imread(jpg)[..., ::-1]))
-    with pytest.raises(ValueError, match="out.jpeg"):
-        img_utils.imwrite(str(tmp_path / "out.jpeg"), np.zeros((4, 4, 3)))
+    flat = np.zeros((4, 4, 3), np.float32)
+    img_utils.imwrite(str(tmp_path / "out.jpeg"), flat)
+    assert cv2.imwrite(str(tmp_path / "cv2.jpeg"),
+                       img_utils.tensor_to_uint8(flat)[..., ::-1])
+    assert (tmp_path / "out.jpeg").read_bytes() == \
+        (tmp_path / "cv2.jpeg").read_bytes()
+    with pytest.raises(ValueError, match="out.bmp"):
+        img_utils.imwrite(str(tmp_path / "out.bmp"), flat)
 
 
 # ---------------- .bin container --------------------------------------------------

@@ -11,14 +11,19 @@ plan (64 pixels a block): every channel count, P of 1, 35 (P % 4 != 0),
 1961 (37x53) and 385 (a multiple of the tile plus 1), and an x that is not
 16-byte aligned.  The gradient on the card is held against autograd through
 the twin in float64 on the CPU, and through the twin on the card in f32
-(TF32 off).
+(TF32 off).  The bf16 mode (``transform_dtype: bfloat16``) against the bf16
+twin on the card, at every channel count and the same edges (an x at a
+2-byte offset takes its scalar path): every element the composite of a sum
+within 1 bf16 ulp of the twin's, every later step exact (the two may sum
+the f32 product in other orders, so a sum may round to the neighbouring
+bf16 value), the share and ulps apart printed.
 """
 
 import pytest
 
 import torch
 
-from crdr_tpu_torch.ops.gdn import gdn, gdn_plain
+from crdr_tpu_torch.ops.gdn import bf16_unexplained, gdn, gdn_plain
 
 # f32 FFMA in another summation order than the twin's (TF32 off): a sum of
 # C non-negative terms, then rsqrt / sqrt
@@ -145,12 +150,67 @@ def test_kernel_gradient_on_gpu(cuda, inverse):
                                        atol=1e-5 * float(want.abs().max()))
 
 
+def _bf16_check(x, beta, gamma, inverse):
+    """The bf16 mode against the bf16 twin: every element a sum within 1
+    ulp of the twin's, every later step exact; two launches bit-equal; each
+    image equal to its batch-1 launch; a transposed gamma fails that."""
+    before = gdn.launches
+    out = gdn(x, beta, gamma, inverse)
+    again = gdn(x, beta, gamma, inverse)
+    torch.cuda.synchronize()
+    assert gdn.launches == before + 2
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    ref = gdn_plain(x, beta, gamma, inverse)
+    apart = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
+    print(f"bf16 {tuple(x.shape)} inverse={inverse}: "
+          f"{float((apart > 0).float().mean()):.2e} apart, at most "
+          f"{int(apart.max())} ulp")
+    assert bf16_unexplained(out, x, beta, gamma, inverse) == 0
+    assert bf16_unexplained(out, x, beta, gamma.t(), inverse) > 0
+    for i in range(x.shape[0]):
+        assert torch.equal(out[i:i + 1], gdn(x[i:i + 1].contiguous(), beta,
+                                             gamma, inverse))
+
+
+def _make_bf16(dev, n, c, h, w, seed):
+    x, beta, gamma = _make(dev, n, c, h, w, seed)
+    return (x * 2).bfloat16(), beta.bfloat16(), gamma.bfloat16()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("hw", [(1, 1), (5, 7), (37, 53), (5, 77),
+                                (64, 96)])
+@pytest.mark.parametrize("c", [64, 128, 192, 256])
+def test_bf16_kernel_matches_its_twin_on_gpu(cuda, c, hw, inverse):
+    _bf16_check(*_make_bf16(cuda, 2, c, *hw, 3 * c + hw[0] + inverse),
+                inverse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [64, 192])
+def test_bf16_kernel_takes_an_unaligned_x(cuda, c):
+    """x at a 2-byte offset (a contiguous view of a flat buffer): the
+    bf16 mode takes its scalar path."""
+    x, beta, gamma = _make_bf16(cuda, 2, c, 16, 24, 5 * c)
+    flat = torch.empty(x.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    assert xo.is_contiguous() and xo.data_ptr() % 8 == 2
+    for inverse in (False, True):
+        assert torch.equal(gdn(xo, beta, gamma, inverse),
+                           gdn(x, beta, gamma, inverse))
+        _bf16_check(xo, beta, gamma, inverse)
+
+
 @pytest.mark.gpu
 def test_kernel_raises_on_what_it_does_not_take(cuda):
     x, beta, gamma = _make(cuda, 1, 64, 4, 4, 0)
     before = gdn.launches
-    with pytest.raises(ValueError, match="float32"):
+    with pytest.raises(ValueError, match="share one dtype"):
         gdn(x.to(torch.bfloat16), beta, gamma)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gdn(x.half(), beta.half(), gamma.half())
     with pytest.raises(ValueError, match="contiguous"):
         gdn(x.transpose(2, 3), beta, gamma)
     x96, b96, g96 = _make(cuda, 1, 96, 4, 4, 1)

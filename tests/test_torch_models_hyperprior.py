@@ -133,8 +133,9 @@ def test_validation_rows_match_jax(beta_pair, cls, tmp_path):
     data = [{"real_images": img_utils.uint8_to_tensor(
         images(1, 64, 96, seed=s))} for s in (5, 6, 7)]
     rows = pm.validation(data, max_sample_size=2, save_img=True,
-                         save_dir=str(tmp_path))
-    ref = jm.validation(data, max_sample_size=2).to_dict("records")
+                         save_dir=str(tmp_path / "port"))
+    ref = jm.validation(data, max_sample_size=2, save_img=True,
+                        save_dir=str(tmp_path / "jax")).to_dict("records")
     assert len(rows) == len(ref) == 2
     for mine, theirs in zip(rows, ref):
         assert list(mine) == list(theirs)
@@ -149,13 +150,14 @@ def test_validation_rows_match_jax(beta_pair, cls, tmp_path):
     if pm.use_rate:
         assert [k for k in rows[0] if k.startswith("bpp")] == \
             [f"bpp_{q + 1}" for q in range(pm.rate_level)]
-    saved = sorted(p.name for p in tmp_path.iterdir())
-    assert "sample_1_real.png" in saved and len(saved) == 2 * (
+    # JAX's file names; the real samples' JPEGs byte-equal to JAX's (cv2's)
+    saved = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert saved == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert "sample_1_real.jpg" in saved and len(saved) == 2 * (
         1 + (pm.rate_level if pm.use_rate else 1))
-    back = img_utils.imread(str(tmp_path / "sample_2_real.png"))
-    np.testing.assert_array_equal(img_utils.tensor_to_uint8(back),
-                                  img_utils.tensor_to_uint8(
-                                      data[1]["real_images"][0]))
+    for name in ("sample_1_real.jpg", "sample_2_real.jpg"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes()
 
 
 # ---------------- metrics ----------------------------------------------------------

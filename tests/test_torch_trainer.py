@@ -280,3 +280,44 @@ def test_cli_trains_saves_logs_and_resumes(tmp_path):
     assert (job / "model" / "comp_model_iter3.ckpt").exists()
     with open(job / "log_loss.csv") as f:
         assert [r["iter"] for r in csv.DictReader(f)] == ["1", "2", "3"]
+
+
+def test_cli_use_wandb_streams_jaxs_keys(tmp_path, monkeypatch):
+    """``train -wb -d cpu`` where ``wandb`` is not installed (hidden here,
+    should a host have it: ``wandb.init`` needs a login): the port's CLI and
+    JAX's (``scripts/train.py``) train the same config for the same steps,
+    and their JSONL streams (``{job_dir}/wandb_{exp}.jsonl``) agree line
+    for line in ``iter`` and keys (``_ts`` aside): the loss every
+    ``wandb_loss_step`` at a log step, ``eval_*`` after validation, the
+    time stats, in JAX's order."""
+    import json
+    import sys
+
+    from scripts.train import main as jax_main
+
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    # JAX's CLI would turn on its persistent compilation cache for the rest
+    # of this process, under $HOME
+    monkeypatch.setattr("crdr_tpu.runtime.cache.enable_compilation_cache",
+                        lambda *a, **k: None)
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    streams = []
+    for tag, run in (("port", main), ("jax", jax_main)):
+        opt = _train_dict(tmp_path / tag / "ck", 1, exp="wb_tiny")
+        opt.pop("exp")
+        opt.update(wandb_loss_step=1, time_step=1)
+        (tmp_path / tag).mkdir()
+        cfg_path = str(tmp_path / tag / "wb_tiny.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(opt, f)
+        run([cfg_path, "-d", "cpu", "-ti", "2", "-s", "1000", "-l", "1",
+             "-e", "2", "-wb"])
+        with open(tmp_path / tag / "ck" / "wb_tiny" / "wandb_wb_tiny.jsonl") \
+                as f:
+            streams.append([(x["iter"], sorted(set(x) - {"_ts"}))
+                            for x in map(json.loads, f)])
+    ours, theirs = streams
+    # iter 1: loss, time; iter 2: loss, eval, time
+    assert [i for i, _ in theirs] == [1, 1, 2, 2, 2]
+    assert "eval_psnr" in theirs[3][1]
+    assert ours == theirs
