@@ -11,7 +11,7 @@
 Phases, each asserted (any failure exits non-zero):
 
 1. card: the nvidia-smi name / power-limit line; the kernels build from the
-   checkout's sources (nvcc for K1, K2, K3 and E1, g++ for the host rANS
+   checkout's sources (nvcc for K1, K2, K3 and E1; g++ for the host rANS
    coders, all started together) into build/crdr_tpu_torch/.
 2. K1 (the Charm SliceTransform kernel) at the main path's shapes: batch 4,
    a 32x48 latent (a 512x768 image), Cin 480 (mean / scale) and 512 (LRP),
@@ -61,7 +61,9 @@ Phases, each asserted (any failure exits non-zero):
    differing elements printed) and elementwise within 2e-5 |plain| + 1e-6,
    a transposed gamma and the wrong direction fail that by > 10x,
    bit-stable across calls and batch 1 vs 4; the build's registers and
-   spills (none) from the ptxas report, blocks resident an SM; times of the
+   spills (none) from the ptxas report, blocks resident an SM, the
+   library's HMMA / HGMMA count (the bf16 mode's tensor-core product: > 0);
+   times of the
    kernel (CUDA-graph replay, gamma^T copy included, and eager), the twin,
    the cuBLAS f32 product gamma . x^2 at each shape (yardstick only) and
    the bound.  Then its bf16 mode (transform_dtype: bfloat16) at the same
@@ -72,7 +74,8 @@ Phases, each asserted (any failure exits non-zero):
    bit-stable, not blind to a transposed gamma; times (graph replay
    and eager), the twin's, cuBLAS's bf16 product (yardstick only) and the
    bound (bf16 bytes in and out; the products at the bf16 tensor-core
-   rate); the build's registers of the bf16 instances.
+   rate); the build's registers, shared memory and tile of the bf16
+   instances.
 7. GDN path: the Balle18 mean-scale hyperprior (HyperpriorModel) at full
    width from config/balle18_mean_scale.yaml on the same images, seeded
    init with every GDN's gamma re-drawn non-symmetric, the last analysis
@@ -123,15 +126,17 @@ Phases, each asserted (any failure exits non-zero):
    host coder is never called, the streams equal the host encoder's and
    decode exactly.  E1's calls are recorded.
 12. E1 (the device wire's lane encoder) on those calls (y: 10 rounds, K
-   128, T 3,840; z: one round of 18,432): kernel == plain twin element for
-   element, containers byte-equal to the host coder's, a flipped symbol
-   changes the words, two launches bit-identical, on the escape run every
-   escape (more than the cap) stored and equal to the host coder's;
-   registers and
-   spills from the ptxas report; times of the kernel and of the whole
-   wrapper (operands, kernel, fixups) on y and z as CUDA-graph replays
-   (eager beside them), of the twin and of the host coder on the same
-   symbols; the bound; and, as text only, a serial-chain estimate.
+   128, T 3,840, read where the codec produced it; z: one round of 18,432):
+   kernel == plain twin element for element, containers byte-equal to the
+   host coder's, a flipped symbol changes the words, two launches
+   bit-identical, on the escape run every escape (more than the cap)
+   stored and equal to the host coder's; registers and spills from the
+   ptxas report; times of the kernel (the op crdr::lane_encode) and of the
+   whole wrapper (the op, then the fixups) on y and z as CUDA-graph replays
+   (eager beside them), of the fixups alone, of the twin and of the host
+   coder on the same symbols; cycles a step (time x the SM clock sampled
+   under load / T), beside v1's as PERF.md records it (not measured by
+   this run); the bound; and, as text only, a serial-chain estimate.
 13. checkerboard: config/cb_stage2.yaml (InterpCaHyperpriorCharmModel with
    ElicCheckerboardCharmContextModel) with crdr_throughput.yaml's codec
    options laid over it, seeded init (the spatial convs non-zero), y scales
@@ -622,7 +627,7 @@ def sass_counts(lib: str) -> dict:
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
-        raise RuntimeError("cuobjdump not found: K1's SASS cannot be counted")
+        raise RuntimeError("cuobjdump not found: the SASS cannot be counted")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     return {op: sum(1 for line in sass.splitlines()
@@ -1459,6 +1464,7 @@ def k3_phase(card: str, ptxas: dict) -> dict:
     ``ptxas`` is the gdn library's ``ptxas_report``."""
     import torch
 
+    from crdr_tpu_torch.ops.gdn import build as build_gdn
     from crdr_tpu_torch.ops.gdn import gdn, gdn_plain, occupancy
 
     dev = torch.device("cuda")
@@ -1468,10 +1474,10 @@ def k3_phase(card: str, ptxas: dict) -> dict:
                 * FP32_FLOPS_PER_SM_CLOCK * clock * 1e9)
     build = {}  # {(C, vector path, bf16 mode): report} of each instance
     for entry, r in ptxas.items():
-        m = re.search(r"gdn_kernelILi(\d+)ELb([01])ELb([01])E", entry)
+        m = re.search(r"gdn_(bf16_)?kernelILi(\d+)ELb([01])E", entry)
         if m:
-            build[(int(m.group(1)), m.group(2) == "1",
-                   m.group(3) == "1")] = r
+            build[(int(m.group(2)), m.group(3) == "1",
+                   m.group(1) is not None)] = r
     check(len(build) == 16 and all(r["registers"] for r in build.values()),
           f"K3's ptxas report: {ptxas}")
     spills = {k: r["spill_bytes"] for k, r in build.items()
@@ -1479,6 +1485,11 @@ def k3_phase(card: str, ptxas: dict) -> dict:
     check(not spills, f"K3 spills registers: {spills}")
     occ = occupancy(192)
     occ_bf16 = occupancy(192, bf16=True)
+    # the f32 mode runs FFMA: the library's tensor-core instructions are
+    # the bf16 mode's
+    sass = sass_counts(build_gdn())
+    check(sass["HMMA"] + sass["HGMMA"] > 0,
+          f"K3's SASS has no tensor-core instruction: {sass}")
     print("K3 build: registers by (C, vector path, mode) "
           + ", ".join(f"{c}{'v' if v else 's'}{'-bf16' if b else ''} "
                       f"{r['registers']}"
@@ -1486,7 +1497,9 @@ def k3_phase(card: str, ptxas: dict) -> dict:
           + f"; no spills; at C 192: {occ['blocks_per_sm']} blocks an SM, "
           f"{occ['tile_pixels']} pixels a block, {occ['smem_bytes']} B of "
           f"shared memory a block (bf16 mode: {occ_bf16['blocks_per_sm']} "
-          f"blocks, {occ_bf16['smem_bytes']} B) [{card}]")
+          f"blocks, {occ_bf16['tile_pixels']} pixels a tile, "
+          f"{occ_bf16['smem_bytes']} B; its SASS {sass['HMMA']} HMMA / "
+          f"{sass['HGMMA']} HGMMA over its 8 instances) [{card}]")
 
     def excess(out, ref):  # max |out - ref| in units of the tolerance
         return float(((out - ref).abs() / (K3_RTOL * ref.abs() + K3_ATOL))
@@ -1592,7 +1605,9 @@ def k3_phase(card: str, ptxas: dict) -> dict:
             "registers_bf16": build[(192, True, True)]["registers"],
             "spill_bytes": sum(r["spill_bytes"] for r in build.values()),
             "blocks_per_sm_bf16": occ_bf16["blocks_per_sm"],
-            "smem_bytes_bf16": occ_bf16["smem_bytes"], **occ}
+            "tile_pixels_bf16": occ_bf16["tile_pixels"],
+            "smem_bytes_bf16": occ_bf16["smem_bytes"], "sass_bf16": sass,
+            **occ}
 
 
 def bf16_ulps(a, b):
@@ -2227,10 +2242,15 @@ def entry_point_phase(imgs, card: str) -> dict:
 # the generic device wire ------------------------------------------------------
 
 Y_STD_ESCAPES = 20.0  # phase 11: y's spread in bins for the escape run
-STEP_CHAIN_INSTR = 25  # E1's chain estimate: dependent integer instructions
-#                        a step (the division by freq), an ASSUMED count
+STEP_CHAIN_INSTR = 10  # E1 v2's chain estimate: dependent integer
+#                        instructions a step (the renorm test and select,
+#                        the reciprocal's multiplies, adds and shift, the
+#                        update), an ASSUMED count (v1's division: ~25)
 INT_LATENCY_CYCLES = 4  # an ASSUMED latency of one dependent integer
 #                         instruction on Hopper, not measured
+E1_V1_CYCLES = 414.2  # E1 v1's cycles a step on the flagship's y call
+#                       (time x the SM clock / T), as PERF.md records it
+#                       (PR 18, run D): printed as the "before", not measured
 
 
 def record_e1(model, fn):
@@ -2370,15 +2390,53 @@ def flagship_device_encoder_phase(imgs, host_streams, card: str):
     return recorded, esc_calls, cap, st, counts, med
 
 
-def e1_bound(low_g, freq_g, clock_ghz: float) -> dict:
-    """Bytes / operations of E1's serial half on these inputs: low and freq
-    read once, the words and lengths written once; ~30 integer operations an
-    active entry (the renorm test and shift, the division, the update)."""
+def e1_lane_order(args) -> tuple:
+    """A recorded call of E1's wrapper in the twin's lane-order form (JAX's
+    arguments): the symbols and rows int32, permuted into lane order when
+    the call carries the codec's ``perm``."""
     import torch
 
-    n, t_steps, k = low_g.shape
-    active = int((freq_g > 0).sum())
-    nbytes = 4 * 2 * n * t_steps * k + 4 * n * k * (t_steps + 2) + 4 * n * k
+    sym, idx = args[0].to(torch.int32), args[1]
+    idx = idx.expand(sym.shape[0], -1).to(torch.int32)
+    perm = args[7] if len(args) > 7 else None
+    if perm is not None:
+        sym, idx = sym.index_select(1, perm), idx.index_select(1, perm)
+    return (sym, idx) + tuple(args[2:7])
+
+
+def e1_op_args(args) -> tuple:
+    """The arguments E1's wrapper hands its op (``crdr::lane_encode``) on a
+    recorded codec call (the codec passes ``pos`` and ``etab``)."""
+    import torch
+
+    sym, idx, grid, _cdf, cdf_len, offset, _cap, _perm, pos, etab = args
+    return (sym.to(torch.int32), idx.to(torch.int32), grid, pos, etab,
+            cdf_len, offset)
+
+
+def e1_bound(op_args, n_esc, clock_ghz: float) -> dict:
+    """Bytes / operations of the function E1's wrapper computes on these
+    inputs: the symbols, their rows (once when broadcast), the grid and the
+    positions, the dense CDF table (R x L int32) and its row headers read
+    once; the words, the lengths and this call's ``n_esc`` [N] escapes'
+    fixups (position and value) with their counts written once; ~30
+    integer operations an active entry (the slot, the renorm test and
+    shift, the reciprocal's division, the update).  The op's 16-byte
+    table entries and per-symbol escape flags belong to its design, not to
+    the function, and are not counted."""
+    import torch
+
+    sym, idx, grid, pos, etab, cdf_len, _ = op_args
+    n, m = sym.shape
+    t_steps, k = grid.shape
+    rows, big_l = etab.shape[:2]
+    idx_rows = idx.shape[0] if idx.stride(0) else 1
+    fixups = int(n_esc.sum())
+    active = n * int((grid >= 0).sum())
+    nbytes = (4 * n * m + 4 * idx_rows * m + 4 * 2 * t_steps * k
+              + 4 * rows * big_l + 4 * 2 * cdf_len.numel()
+              + 4 * n * k * (t_steps + 2) + 4 * n * k
+              + 4 * 2 * fixups + 4 * n)
     ops = 30 * active
     int32_rate = (torch.cuda.get_device_properties(0).multi_processor_count
                   * INT32_LANES_PER_SM * clock_ghz * 1e9)
@@ -2390,25 +2448,27 @@ def e1_bound(low_g, freq_g, clock_ghz: float) -> dict:
 
 def e1_phase(recorded, esc_calls, cap, st, card: str, ptxas: dict) -> dict:
     """Phase 12: E1 against its twin and the host coder on the flagship's
-    recorded calls (y: 10 rounds, K 128, T 3,840; z: one round of 18,432):
-    kernel == twin element for element, containers byte-equal to the host
-    coder's, a flipped symbol changes the output, two launches bit-identical;
-    on the escape run's y call every escape, more than the codec's ``cap``,
-    is stored and equals the host coder's, and at a fix_cap of ``cap`` the
-    escapes past it are counted; registers and spills; times."""
+    recorded calls (y: 10 rounds, K 128, T 3,840, read where the codec
+    produced it through ``pos``; z: one round of 18,432): the wrapper ==
+    twin element for element, containers byte-equal to the host coder's, a
+    flipped symbol changes the output, two launches bit-identical; on the
+    escape run's y call every escape, more than the codec's ``cap``, is
+    stored and equals the host coder's, and at a fix_cap of ``cap`` the
+    escapes past it are counted; registers and spills; times, cycles a step
+    (v1's as PERF.md records it, ``E1_V1_CYCLES``) and the bound."""
     import torch
 
     from crdr_tpu_torch.ops import device_rans
-    from crdr_tpu_torch.ops.lane_encode import launch_scan, lane_encode_rounds
+    from crdr_tpu_torch.ops.lane_encode import launch_walk, lane_encode_rounds
     from crdr_tpu_torch.runtime.lane_rans import (lane_encode,
                                                   pack_lane_container)
 
     offs = (st.off, np.asarray([0, recorded[1][0].shape[1]], np.int64))
-    host_ms, err = [], 0
+    host_ms, err, y_esc = [], 0, None
     for args, off, name in zip(recorded, offs, ("y", "z")):
         got = lane_encode_rounds(*args)
         again = lane_encode_rounds(*args)
-        twin = device_rans.lane_encode_rounds(*args)
+        twin = device_rans.lane_encode_rounds(*args[:8])  # to perm
         torch.cuda.synchronize()
         for a, b, c, part in zip(got, again, twin, ("words", "lens",
                                                     "fix_pos", "fix_val",
@@ -2418,7 +2478,10 @@ def e1_phase(recorded, esc_calls, cap, st, card: str, ptxas: dict) -> dict:
             check(torch.equal(a, c), f"E1 {name}: kernel != twin in {part}")
             if a.numel():
                 err = max(err, int((a.long() - c.long()).abs().max()))
-        sym, idx = args[0].cpu().numpy(), args[1].cpu().numpy()
+        if y_esc is None:
+            y_esc = got[4]
+        lane = e1_lane_order(args)
+        sym, idx = lane[0].cpu().numpy(), lane[1].cpu().numpy()
         tabs = [a.cpu().numpy() for a in args[3:6]]
         k = args[2].shape[1]
         words, lens, fp, fv, ne = (a.cpu().numpy() for a in got)
@@ -2445,17 +2508,18 @@ def e1_phase(recorded, esc_calls, cap, st, card: str, ptxas: dict) -> dict:
                           lane_encode_rounds(*y)[0]),
           "E1: a flipped symbol left the words unchanged")
     e = esc_calls[0]
+    e_lane = e1_lane_order(e)
     _, _, efp, efv, ene = lane_encode_rounds(*e)
-    host = lane_encode(e[0][0].cpu().numpy(), e[1][0].cpu().numpy(), st.off,
-                       e[2].shape[1], *[a.cpu().numpy() for a in e[3:6]],
-                       fix_cap=1 << 16)
+    host = lane_encode(e_lane[0][0].cpu().numpy(),
+                       e_lane[1][0].cpu().numpy(), st.off, e[2].shape[1],
+                       *[a.cpu().numpy() for a in e[3:6]], fix_cap=1 << 16)
     f = int(ene[0])
     check(e[6] is None and f == host[2].size > cap and
           np.array_equal(efp[0, :f].cpu().numpy(), host[2]) and
           np.array_equal(efv[0, :f].cpu().numpy(), host[3]),
           f"E1 escapes: n_esc {f} vs the host's {host[2].size}, codec cap "
           f"{cap}, E1's {e[6]}")
-    _, _, cfp, cfv, cne = lane_encode_rounds(*e[:6], cap)
+    _, _, cfp, cfv, cne = lane_encode_rounds(*e[:6], cap, *e[7:])
     check(int(cne[0]) == f and
           np.array_equal(cfp[0].cpu().numpy(), host[2][:cap]) and
           np.array_equal(cfv[0].cpu().numpy(), host[3][:cap]),
@@ -2470,39 +2534,54 @@ def e1_phase(recorded, esc_calls, cap, st, card: str, ptxas: dict) -> dict:
           f"E1's ptxas report: {ptxas}")
     regs = next(iter(build.values()))["registers"]
     spills = next(iter(build.values()))["spill_bytes"]
-    low_y, freq_y, _ = device_rans.lane_encode_operands(*y[:6])
-    low_z, freq_z, _ = device_rans.lane_encode_operands(*recorded[1][:6])
-    ms = graph_time_ms(lambda: launch_scan(low_y, freq_y))
-    eager_ms = cuda_time_ms(lambda: launch_scan(low_y, freq_y), 20)
+    op_y, op_z = e1_op_args(y), e1_op_args(recorded[1])
+    walk_y = launch_walk(*op_y)
+    ms = graph_time_ms(lambda: launch_walk(*op_y))
+    eager_ms = cuda_time_ms(lambda: launch_walk(*op_y), 20)
     call_ms = graph_time_ms(lambda: lane_encode_rounds(*y))
     call_eager_ms = cuda_time_ms(lambda: lane_encode_rounds(*y), 20)
-    z_ms = graph_time_ms(lambda: launch_scan(low_z, freq_z))
+    lane_y = e1_lane_order(y)
+    fixups_ms = graph_time_ms(lambda: device_rans.lane_fixups(
+        lane_y[0], walk_y[2], None))
+    z_ms = graph_time_ms(lambda: launch_walk(*op_z))
     z_call_ms = graph_time_ms(lambda: lane_encode_rounds(*recorded[1]))
-    plain_ms = cuda_time_ms(lambda: device_rans.lane_encode_scan(
-        low_y, freq_y), 1, 1)
+    plain_ms = cuda_time_ms(lambda: device_rans.lane_encode_walk(*op_y), 1,
+                            1)
     clock = max_sm_clock_ghz()
-    bound = e1_bound(low_y, freq_y, clock)
-    n, t_steps, k = low_y.shape
+    load_clock = sm_clock_under_load_ghz(lambda: launch_walk(*op_y))
+    cyc_clock = load_clock or clock
+    bound = e1_bound(op_y, y_esc, clock)
+    n, k = walk_y[1].shape
+    t_steps = y[2].shape[0]
+    cycles = ms * 1e-3 * cyc_clock * 1e9 / t_steps
     chain = t_steps * STEP_CHAIN_INSTR * INT_LATENCY_CYCLES / clock * 1e-6
     print(f"E1 build: {regs} registers, {spills} B spilled [{card}]")
     print(f"E1 y (N{n} K{k} T{t_steps}): kernel {ms:.4f} ms as a CUDA-graph "
-          f"replay (eager {eager_ms:.4f}); the whole wrapper (operands, "
-          f"kernel, fixups) {call_ms:.4f} ms (eager {call_eager_ms:.4f}); z "
-          f"kernel {z_ms:.4f} ms, wrapper {z_call_ms:.4f} ms; plain twin "
-          f"{plain_ms:.4f} ms; host coder on the same symbols, {n} images "
-          f"one after another: y {host_ms[0]:.3f} ms, z {host_ms[1]:.3f} ms; "
-          f"bound {bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}: "
+          f"replay (eager {eager_ms:.4f}); the whole wrapper (the op, then "
+          f"the fixups) {call_ms:.4f} ms (eager {call_eager_ms:.4f}), the "
+          f"fixups alone {fixups_ms:.4f} ms; z kernel {z_ms:.4f} ms, wrapper "
+          f"{z_call_ms:.4f} ms; plain twin {plain_ms:.4f} ms; host coder on "
+          f"the same symbols, {n} images one after another: y "
+          f"{host_ms[0]:.3f} ms, z {host_ms[1]:.3f} ms [{card}]")
+    print(f"E1 cycles a step (time x the SM clock, "
+          f"{'sampled under load' if load_clock else 'max'} "
+          f"{cyc_clock:.3f} GHz, / T): v2 {cycles:.1f}, before (v1, as "
+          f"PERF.md records it, PR 18 run D; not measured here) "
+          f"{E1_V1_CYCLES}; bound "
+          f"{bound['bound_ms'] * 1e3:.3f} us ({bound['bound_by']}: "
           f"{bound['bytes'] / 1e6:.3f} MB, {bound['ops'] / 1e6:.2f} M int "
-          f"ops); chain estimate, not measured, at an ASSUMED "
+          f"ops) beside a chain estimate, not measured, at an ASSUMED "
           f"{STEP_CHAIN_INSTR} dependent instructions a step of "
           f"{INT_LATENCY_CYCLES} cycles at the max SM clock: {chain:.4f} ms "
           f"[{card}]")
     return dict(ms=ms, eager_ms=eager_ms, call_ms=call_ms,
-                call_eager_ms=call_eager_ms, z_ms=z_ms, z_call_ms=z_call_ms,
-                plain_ms=plain_ms, host_ms=host_ms[0], host_z_ms=host_ms[1],
-                chain_estimate_ms=chain, registers=regs, spill_bytes=spills,
-                max_abs_err=err, shape=f"N{n} K{k} T{t_steps}, y table "
-                f"{tuple(y[3].shape)}", **bound)
+                call_eager_ms=call_eager_ms, fixups_ms=fixups_ms, z_ms=z_ms,
+                z_call_ms=z_call_ms, plain_ms=plain_ms, host_ms=host_ms[0],
+                host_z_ms=host_ms[1], cycles_per_step=cycles,
+                cycles_clock_mhz=cyc_clock * 1e3, registers=regs,
+                spill_bytes=spills, max_abs_err=err,
+                shape=f"N{n} K{k} T{t_steps}, y table "
+                      f"{tuple(y[3].shape)}", **bound)
 
 
 def cb_model(card: str, fused: bool = True):
@@ -4059,7 +4138,7 @@ def hold_served_kernels(samples, label: str, card: str) -> dict:
         return all(torch.equal(a, b) for a, b in zip(out, ref)), 0
 
     def e1(args, out):
-        ref = device_rans.lane_encode_rounds(*args)
+        ref = device_rans.lane_encode_rounds(*args[:8])  # to perm
         return all(torch.equal(a, b) for a, b in zip(out, ref)), 0
 
     def k3(args, out):
@@ -5843,7 +5922,7 @@ AOT_CPU_THREADS = 4  # the CPU process's threads, beside the card work
 AOT_DATA_SHAPED = {"rans_round"}
 OP_NAMES = {"slice_transform": "slice_transform",
             "lane_decode_round": "lane_decode_round",
-            "gdn": "gdn", "lane_encode_scan": "lane_encode_rounds"}
+            "gdn": "gdn", "lane_encode": "lane_encode_rounds"}
 
 
 @contextlib.contextmanager
@@ -5902,7 +5981,7 @@ def hold_op_calls(samples, label: str, card: str) -> dict:
         return all(torch.equal(a, b) for a, b in zip(out, ref)), 0.0
 
     def e1(args, out):
-        ref = device_rans.lane_encode_scan(*args)
+        ref = device_rans.lane_encode_walk(*args)
         return all(torch.equal(a, b) for a, b in zip(out, ref)), 0.0
 
     def k3(args, out):
@@ -6942,7 +7021,9 @@ def main() -> None:
         "f32_ms": k3r[0]["ms"],
         "registers": k3["registers_bf16"],
         "blocks_per_sm": k3["blocks_per_sm_bf16"],
+        "tile_pixels": k3["tile_pixels_bf16"],
         "smem_bytes": k3["smem_bytes_bf16"],
+        "hmma": k3["sass_bf16"]["HMMA"], "hgmma": k3["sass_bf16"]["HGMMA"],
         "ms_by_call": {f"{x['shape']} {'igdn' if x['inverse'] else 'gdn'}":
                        x["ms"] for x in k3b},
         "bound_ms_by_call": {
@@ -6952,7 +7033,7 @@ def main() -> None:
                  **{f"bf16 {w}": gdn_bf16[w]["psnr"]
                     for w in ("compressai", "device")}},
         "shape": f"{list(GDN_SHAPES[0])} NCHW bf16 (ms: CUDA-graph replay, "
-                 "gamma^T copy included; library: cuBLAS's bf16 product "
+                 "gamma as it lies, no copy; library: cuBLAS's bf16 product "
                  "gamma . x^2)",
         "card": card}, {
         "name": "lane_encode_rounds", "route": "cuda",
@@ -6966,8 +7047,9 @@ def main() -> None:
         "plain_ms": e1["plain_ms"], "bound_ms": e1["bound_ms"],
         "bound_by": e1["bound_by"], "library_ms": None,
         **{key: e1[key] for key in (
-            "eager_ms", "call_ms", "call_eager_ms", "z_ms", "z_call_ms",
-            "host_ms", "host_z_ms", "registers", "spill_bytes", "shape")},
+            "eager_ms", "call_ms", "call_eager_ms", "fixups_ms", "z_ms",
+            "z_call_ms", "host_ms", "host_z_ms", "cycles_per_step",
+            "cycles_clock_mhz", "registers", "spill_bytes", "shape")},
         "encode_ms_device_vs_host": med_f,
         "card": card}]}))
     print(json.dumps({"ok": True, "device": {

@@ -909,7 +909,8 @@ class CodecMixin:
         for tab in ("ytab", "ztab"):
             lt = getattr(self, "_" + tab)
             out.update({f"{tab}.{f}": getattr(lt, f)
-                        for f in ("cdf", "cdf_len", "cdf_off", "buf")})
+                        for f in ("cdf", "cdf_len", "cdf_off", "buf",
+                                  "etab")})
         return out
 
     @contextlib.contextmanager

@@ -51,7 +51,8 @@ import numpy as np
 
 import torch
 
-from ..ops.device_rans import apply_fixups, encode_grid, init_lane_state
+from ..ops.device_rans import (apply_fixups, encode_grid, init_lane_state,
+                               lane_positions)
 from ..ops.lane_decode import (LaneTable, lane_decode_round,
                                prepare_lane_table)
 from ..ops.lane_encode import lane_encode_rounds
@@ -69,12 +70,15 @@ Lanes = Tuple[Tensor, Tensor, Tensor, Tensor]  # words, fix_pos, fix_val, act
 class LaneStatics(NamedTuple):
     """Per latent shape: the y permutation into lane order (``perm`` on the
     device, int64), the y round boundaries (``off``), the lane grids of y
-    and z for E1, and z's CDF rows."""
+    and z for E1, z's CDF rows, and y's grid composed with ``perm``
+    (``pos_y``, ``device_rans.lane_positions``: E1 reads y where the codec
+    produced it)."""
     perm: Tensor
     off: np.ndarray
     grid_y: Tensor
     grid_z: Tensor
     zidx: Tensor
+    pos_y: Tensor
 
 
 def _is_lane(blob: bytes) -> bool:
@@ -141,13 +145,15 @@ class DeviceWireCodecMixin:
             off = [0, ylen]
         off = np.asarray(off, np.int64)
         dev = self.device
+        perm = torch.from_numpy(perm).to(dev)
+        grid_y = torch.from_numpy(encode_grid(off, self._lane_k(
+            int(off[1] - off[0])))).to(dev)
         st = LaneStatics(
-            torch.from_numpy(perm).to(dev), off,
-            torch.from_numpy(encode_grid(off, self._lane_k(
-                int(off[1] - off[0])))).to(dev),
+            perm, off, grid_y,
             torch.from_numpy(encode_grid([0, zlen], self._lane_k(zlen)))
             .to(dev),
-            (torch.arange(zlen, dtype=torch.int32, device=dev) % self.zC))
+            (torch.arange(zlen, dtype=torch.int32, device=dev) % self.zC),
+            lane_positions(grid_y, perm))
         self._lane_enc_cache[key] = st
         return st
 
@@ -182,7 +188,8 @@ class DeviceWireCodecMixin:
         and fixups, come home.  Returns (y strings, z strings, meta)."""
         n = symbols.shape[0]
         y, z, head = self._lane_encode(symbols, indexes, z_sym, meta,
-                                       st.perm, st.grid_y, st.grid_z, st.zidx)
+                                       st.perm, st.grid_y, st.pos_y,
+                                       st.grid_z, st.zidx)
         head = head.cpu().numpy()
         ky, kz = y[1].shape[1], z[1].shape[1]
         y_lens, y_esc = head[:, :ky], head[:, ky]
@@ -212,20 +219,19 @@ class DeviceWireCodecMixin:
     @program("lane_wire")
     def _lane_encode(self, symbols: Tensor, indexes: Tensor, z_sym: Tensor,
                      meta: Tensor, perm: Tensor, grid_y: Tensor,
-                     grid_z: Tensor, zidx: Tensor):
-        """The device part of ``_lane_wire_dev``: y and z in lane order
-        through E1, and the head (lane lengths, escape counts, meta as
-        int32) that comes home first.  Returns (y's and z's
-        ``lane_encode_rounds``, head)."""
+                     pos_y: Tensor, grid_z: Tensor, zidx: Tensor):
+        """The device part of ``_lane_wire_dev``: y (read in the order the
+        codec produced it, at ``pos_y``) and z through E1, and the head
+        (lane lengths, escape counts, meta as int32) that comes home first.
+        Returns (y's and z's ``lane_encode_rounds``, head)."""
         n = symbols.shape[0]
         yt, zt = self._ytab, self._ztab
-        sym_l = symbols.reshape(n, -1).index_select(1, perm).to(torch.int32)
-        idx_l = indexes.reshape(n, -1).index_select(1, perm)
-        y = lane_encode_rounds(sym_l, idx_l, grid_y, yt.cdf, yt.cdf_len,
-                               yt.cdf_off, None)
-        z = lane_encode_rounds(z_sym.reshape(n, -1).to(torch.int32),
-                               zidx.expand(n, -1), grid_z, zt.cdf,
-                               zt.cdf_len, zt.cdf_off, None)
+        y = lane_encode_rounds(symbols.reshape(n, -1), indexes.reshape(n, -1),
+                               grid_y, yt.cdf, yt.cdf_len, yt.cdf_off, None,
+                               perm, pos_y, yt.etab)
+        z = lane_encode_rounds(z_sym.reshape(n, -1), zidx.expand(n, -1),
+                               grid_z, zt.cdf, zt.cdf_len, zt.cdf_off, None,
+                               None, grid_z, zt.etab)
         head = torch.cat([y[1], y[4][:, None], z[1], z[4][:, None],
                           meta.view(torch.int32)], 1)
         return y, z, head

@@ -15,10 +15,15 @@ holding 16-bit values, idx [N, M >= m] int32, cdf [R, L] int32, cdf_len /
 cdf_off [R] int32.  Everything is integer, so the twin, the CUDA kernel
 (``ops/lane_decode.py``), JAX and the host C++ lane decoder agree exactly.
 
-Encode (E1's twin, ``lane_encode_rounds``): the slot resolution and the
-escape fixups are parallel gathers and cumsums (``lane_encode_operands``,
-``lane_fixups``, shared with the kernel's wrapper ``ops/lane_encode.py``);
-the serial part is a reverse walk over the [T, K] grid of ``encode_grid``.
+Encode (E1's twin, ``lane_encode_rounds``): the slot resolution is a
+parallel gather (``lane_encode_operands``), the serial part a reverse walk
+over the [T, K] grid of ``encode_grid`` (``lane_encode_scan``); the two are
+``lane_encode_walk``, the CPU implementation of E1's op ``crdr::lane_encode``,
+which resolves the slots itself from ``lane_positions`` (the grid composed
+with the codec's lane permutation) and ``encode_table`` (per CDF row and
+slot: low, freq and freq's reciprocal, ``reciprocal48`` / ``divide48``).
+The escape fixups (``lane_fixups``) are cumsums and scatters, shared with
+the kernel's wrapper ``ops/lane_encode.py``.
 """
 
 from __future__ import annotations
@@ -155,6 +160,61 @@ def encode_grid(slice_offsets: Sequence[int], num_lanes: int) -> np.ndarray:
     return np.concatenate(rows, axis=0).astype(np.int32)
 
 
+def lane_positions(grid: Tensor, perm: Optional[Tensor] = None) -> Tensor:
+    """The [T, K] int32 table of where each grid entry's symbol lies in
+    the order the codec produced it: ``perm[grid]`` where the entry is
+    active (``grid >= 0``), -1 elsewhere; ``grid`` itself when ``perm`` is
+    None.  ``perm`` [M] maps lane order to the produced order
+    (``sym_lane = sym.index_select(1, perm)``).  Built once per latent
+    shape: E1 then reads each symbol where it lies, with no permuted copy."""
+    if perm is None:
+        return grid.to(torch.int32)
+    at = perm.to(torch.int64)[grid.to(torch.int64).clamp(min=0)]
+    return torch.where(grid >= 0, at, -1).to(torch.int32)
+
+
+def reciprocal48(freq: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """E1's reciprocal of each freq in [1, 2^16]: m = ceil(2^48 / freq) as
+    (m >> 32, m & 0xFFFFFFFF), int64 arrays (m >> 32 <= 2^16).  Exact
+    division by it (``divide48``): for x < 2^32, m = (2^48 + e) / freq with
+    0 <= e < freq, so x * m / 2^48 = x / freq + x * e / (freq * 2^48), and
+    x * e < 2^48 keeps the excess below 1 / freq: the floor is x // freq."""
+    f = np.asarray(freq, np.int64)
+    m = ((1 << 48) + f - 1) // f
+    return m >> 32, m & 0xFFFFFFFF
+
+
+def divide48(x: np.ndarray, hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """x // freq as E1 computes it from ``reciprocal48``'s halves:
+    (x * hi + ((x * lo) >> 32)) >> 16 (the kernel's 64-bit integer ops;
+    every product fits in 64 bits), uint64 arrays."""
+    x = np.asarray(x, np.uint64)
+    hi, lo = np.asarray(hi, np.uint64), np.asarray(lo, np.uint64)
+    return (x * hi + ((x * lo) >> np.uint64(32))) >> np.uint64(16)
+
+
+def encode_table(cdf, cdf_len, offset) -> Tensor:
+    """E1's per-(row, slot) table [R, L, 4] int32 of a dense CDF table
+    (``cdf`` [R, L], arrays or tensors; on ``cdf``'s device): low =
+    cdf[r, s], freq = cdf[r, s + 1] - cdf[r, s] (0 past the row's end), and
+    freq's ``reciprocal48`` (its low 32 bits as int32, then its high bits),
+    0 where freq < 1.  Built once per table at ``codec_setup``.  The kernel
+    reads one 16-byte entry a symbol; ``lane_encode_walk`` reads its low
+    column as ``cdf``."""
+    device = cdf.device if torch.is_tensor(cdf) else "cpu"
+    c = (cdf.detach().cpu().numpy() if torch.is_tensor(cdf)
+         else np.asarray(cdf)).astype(np.int64)
+    rows, big_l = c.shape
+    freq = np.zeros_like(c)
+    freq[:, :-1] = np.diff(c, axis=1)
+    valid = (freq >= 1) & (freq <= 1 << 16)
+    hi, lo = reciprocal48(np.where(valid, freq, 1))
+    tab = np.stack([c, np.where(valid, freq, 0), np.where(valid, lo, 0),
+                    np.where(valid, hi, 0)], -1)
+    return torch.from_numpy(tab.astype(np.uint32).view(np.int32)
+                            .reshape(rows, big_l, 4)).to(device)
+
+
 def lane_encode_operands(sym: Tensor, idx: Tensor, grid: Tensor, cdf: Tensor,
                          cdf_len: Tensor, offset: Tensor
                          ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -182,6 +242,19 @@ def lane_encode_operands(sym: Tensor, idx: Tensor, grid: Tensor, cdf: Tensor,
             freq_g.to(torch.int32).contiguous(), esc)
 
 
+def _row_cumsum(v: Tensor, piece: int = 1024) -> Tensor:
+    """Inclusive int32 cumsum along dim 1 of [N, M] (few rows, M long) as
+    two short scans: within pieces of ``piece`` (many rows at once), then
+    over the pieces' totals.  The same integers as ``torch.cumsum``; a
+    single scan of a few long rows runs one block a row on the card."""
+    n, m = v.shape
+    w = F.pad(v, (0, -m % piece)).view(n, -1, piece)
+    inner = torch.cumsum(w, 2, dtype=torch.int32)
+    tot = inner[:, :, -1]
+    before = torch.cumsum(tot, 1, dtype=torch.int32) - tot
+    return (inner + before[:, :, None]).view(n, -1)[:, :m]
+
+
 def lane_fixups(sym: Tensor, esc: Tensor, fix_cap: Optional[int]
                 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Escape fixups in forward flat order: (fix_pos [N, F] int32, fix_val
@@ -192,11 +265,11 @@ def lane_fixups(sym: Tensor, esc: Tensor, fix_cap: Optional[int]
     dev = sym.device
     if fix_cap is None:
         fix_cap = m
-    esc_i = esc.to(torch.int64)
-    fcum = torch.cumsum(esc_i, 1)
-    n_esc = fcum[:, -1] if m else torch.zeros(n, dtype=torch.int64,
+    esc_i = esc.to(torch.int32)
+    fcum = _row_cumsum(esc_i)
+    n_esc = fcum[:, -1] if m else torch.zeros(n, dtype=torch.int32,
                                               device=dev)
-    fpos = fcum - esc_i
+    fpos = (fcum - esc_i).to(torch.int64)
     # escapes past the cap, and the symbols that are none, go to a spare
     # region, one slot each (no two writes to one address)
     pos = torch.arange(m, device=dev).expand(n, m)
@@ -249,21 +322,50 @@ def lane_encode_scan(low_g: Tensor, freq_g: Tensor) -> Tuple[Tensor, Tensor]:
     return words.to(torch.int32), lens.to(torch.int32)
 
 
+def lane_encode_walk(sym: Tensor, idx: Tensor, grid: Tensor, pos: Tensor,
+                     etab: Tensor, cdf_len: Tensor, offset: Tensor
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """E1's op (``crdr::lane_encode``) in plain PyTorch, its CPU
+    implementation: grid entry (t, k) encodes the symbol at ``pos[t, k]`` of
+    sym / idx [N, M] (int32; ``lane_positions``), whose lane-order index is
+    ``grid[t, k]``; the slots are resolved from ``etab``'s low column (the
+    dense ``cdf``, ``encode_table``) by ``lane_encode_operands``, then
+    walked by ``lane_encode_scan``.  Returns (words [N, K, T+2] int32, lens
+    [N, K] int32, esc [N, M] bool in lane order)."""
+    n, m = sym.shape
+    act = grid.reshape(-1) >= 0
+    at = grid.reshape(-1)[act].to(torch.int64)
+    src = pos.reshape(-1)[act].to(torch.int64)
+
+    def lane_order(v):
+        out = torch.zeros((n, m), dtype=torch.int32, device=v.device)
+        out[:, at] = v[:, src].to(torch.int32)
+        return out
+
+    low_g, freq_g, esc = lane_encode_operands(
+        lane_order(sym), lane_order(idx.expand(n, -1)), grid, etab[..., 0],
+        cdf_len, offset)
+    return lane_encode_scan(low_g, freq_g) + (esc,)
+
+
 def lane_encode_rounds(sym: Tensor, idx: Tensor, grid: Tensor, cdf: Tensor,
                        cdf_len: Tensor, offset: Tensor,
-                       fix_cap: Optional[int]
+                       fix_cap: Optional[int], perm: Optional[Tensor] = None
                        ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """The device-wire lane encoder in plain PyTorch, the inverse of
     ``lane_decode_round_instep``; its streams equal the host coder's
     (``runtime/lane_rans.lane_encode``) byte for byte.
 
-    sym / idx [N, M] in lane consumption order, grid [T, K] int32 from
-    ``encode_grid`` (on the tensors' device), cdf [R, L] / cdf_len [R] /
-    offset [R] int32.  Returns (words [N, K, T+2] int32 of 16-bit values,
-    lens [N, K] int32, fix_pos [N, F] int32, fix_val [N, F] int32, n_esc [N]
-    int32), F = ``fix_cap`` (M when None: every escape is kept):
-    ``words[n, k, :lens[n, k]]`` is lane k's stream (2 state words, then the
-    renorm words)."""
+    sym / idx [N, M] in lane consumption order, or, with ``perm`` [M] (lane
+    order -> the order given, ``lane_positions``), in the order given;
+    grid [T, K] int32 from ``encode_grid`` (on the tensors' device), cdf
+    [R, L] / cdf_len [R] / offset [R] int32.  Returns (words [N, K, T+2]
+    int32 of 16-bit values, lens [N, K] int32, fix_pos [N, F] int32,
+    fix_val [N, F] int32, n_esc [N] int32), F = ``fix_cap`` (M when None:
+    every escape is kept): ``words[n, k, :lens[n, k]]`` is lane k's stream
+    (2 state words, then the renorm words)."""
+    if perm is not None:
+        sym, idx = sym.index_select(1, perm), idx.index_select(1, perm)
     low_g, freq_g, esc = lane_encode_operands(sym, idx, grid, cdf, cdf_len,
                                               offset)
     words, lens = lane_encode_scan(low_g, freq_g)

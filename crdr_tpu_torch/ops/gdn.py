@@ -10,8 +10,9 @@ and the product accumulated in f32.  Tensors here are NCHW.
   ``gamma`` share one dtype (a mix raises, naming the three).  On a CUDA
   tensor its CUDA implementation launches ``csrc/gdn.cu`` (built with nvcc
   for sm_90a into ``build/crdr_tpu_torch/`` at first use, loaded with
-  ctypes), handing it ``gamma^T`` and ``beta`` in f32, in its f32 mode or,
-  for bfloat16 tensors (``transform_dtype: bfloat16``), its bf16 mode; or
+  ctypes): its f32 mode, handed ``gamma^T`` (a copy a call), or, for
+  bfloat16 tensors (``transform_dtype: bfloat16``), its bf16 mode, handed
+  ``gamma`` and ``beta`` as they lie (the product on the tensor cores); or
   raises: for another dtype, a non-contiguous ``x``, or a channel count the
   kernel's tile plan does not take.  It never falls back to the twin.  On a
   CPU tensor its CPU implementation runs ``gdn_plain``.
@@ -53,8 +54,10 @@ Tensor = torch.Tensor
 _SRC = package_path("csrc", "gdn.cu")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# the tile plan: 64 pixels a block, C / 16 output channels x 4 pixels a
-# thread (gamma^T read in float4s), 16-row chunks of gamma^T and x
+# the tile plans: f32, 64 pixels a block, C / 16 output channels x 4 pixels
+# a thread (gamma^T read in float4s), 16-row chunks of gamma^T and x; bf16,
+# 64-pixel TMA tiles of all C channels, m16n8k16 warp tiles of C / 64 x 32
+# (a TMA box holds at most 256 rows)
 KERNEL_CHANNELS = (64, 128, 192, 256)
 
 
@@ -72,7 +75,9 @@ def _get_lib() -> ctypes.CDLL:
                 lib = ctypes.CDLL(build())
                 p, i = ctypes.c_void_p, ctypes.c_int
                 lib.crdr_gdn.restype = i
-                lib.crdr_gdn.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+                lib.crdr_gdn.argtypes = [p, p, p, p, i, i, i, i, i, p]
+                lib.crdr_gdn_bf16.restype = i
+                lib.crdr_gdn_bf16.argtypes = [p, p, p, p, i, i, i, i, i, p]
                 lib.crdr_gdn_occupancy.restype = i
                 lib.crdr_gdn_occupancy.argtypes = [i, i, p]
                 _lib = lib
@@ -143,8 +148,8 @@ def bf16_unexplained(out: Tensor, x: Tensor, beta: Tensor, gamma: Tensor,
 
 def occupancy(c: int, bf16: bool = False) -> dict:
     """The kernel's plan at ``c`` channels in its f32 or bf16 mode on the
-    current device: blocks resident an SM, pixels a block, shared-memory
-    bytes a block."""
+    current device: blocks resident an SM, pixels a tile (a block's in the
+    f32 mode), shared-memory bytes a block."""
     res = (ctypes.c_int * 3)()
     rc = _get_lib().crdr_gdn_occupancy(c, int(bf16), ctypes.addressof(res))
     if rc != 0:
@@ -176,20 +181,23 @@ def _gdn_op(x: Tensor, beta: Tensor, gamma: Tensor, inverse: bool) -> Tensor:
     if n == 0 or h * w == 0:
         return torch.empty_like(x)
     out = torch.empty_like(x)
-    # [C_in, C_out] f32 in both modes (bf16 -> f32 is exact): chunks of
-    # whole rows
-    gamma_t = gamma.t().float().contiguous()
-    beta = beta.float()
-    bf16 = x.dtype == torch.bfloat16
     p = h * w
-    align = 8 if bf16 else 16  # a 4-pixel group's bytes
-    vec = p % 4 == 0 and x.data_ptr() % align == 0 \
-        and out.data_ptr() % align == 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # vector copies: 16 bytes of pixels (f32 4, bf16 8), aligned
+    vec = p % (16 // x.element_size()) == 0 and x.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
     with torch.cuda.device(x.device):
-        rc = _get_lib().crdr_gdn(
-            x.data_ptr(), beta.data_ptr(), gamma_t.data_ptr(), out.data_ptr(),
-            n, c, p, int(inverse), int(vec), int(bf16),
-            torch.cuda.current_stream(x.device).cuda_stream)
+        if x.dtype == torch.bfloat16:  # gamma [C_out, C_in] as it lies
+            if gamma.data_ptr() % 16:
+                gamma = gamma.clone()
+            rc = _get_lib().crdr_gdn_bf16(
+                x.data_ptr(), beta.data_ptr(), gamma.data_ptr(),
+                out.data_ptr(), n, c, p, int(inverse), int(vec), stream)
+        else:  # [C_in, C_out]: chunks of whole rows
+            gamma_t = gamma.t().contiguous()
+            rc = _get_lib().crdr_gdn(
+                x.data_ptr(), beta.data_ptr(), gamma_t.data_ptr(),
+                out.data_ptr(), n, c, p, int(inverse), int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"gdn: kernel launch failed (cudaError {rc})")
     count_launch(gdn)

@@ -40,7 +40,7 @@ import torch
 
 from ..utils.device import (build_library, count_launch, nvcc_command,
                             package_path)
-from .device_rans import lane_decode_round_instep
+from .device_rans import encode_table, lane_decode_round_instep
 
 Tensor = torch.Tensor
 
@@ -54,10 +54,10 @@ _smem_cap: dict = {}  # {device index: bytes a block may opt in to}
 
 
 class LaneTable(NamedTuple):
-    """A codec's CDF table in the two forms K2's paths read
-    (``prepare_lane_table``): the dense int32 tensors the twin takes
-    (``cdf`` [R, L], ``cdf_len`` / ``cdf_off`` [R]) and the kernel-ready
-    buffer.
+    """A codec's CDF table in the forms the lane coder's paths read
+    (``prepare_lane_table``): the dense int32 tensors the twins take
+    (``cdf`` [R, L], ``cdf_len`` / ``cdf_off`` [R]), K2's kernel-ready
+    buffer and E1's per-slot table ``etab`` (``device_rans.encode_table``).
 
     ``buf`` int32 [n_ints] (n_ints a multiple of 4), in int32 units:
     ``[R][4]`` headers (start of the row's entries in ``buf``, len, offset,
@@ -72,6 +72,7 @@ class LaneTable(NamedTuple):
     cdf_off: Tensor
     buf: Tensor
     bits: int
+    etab: Tensor
 
     @property
     def rows(self) -> int:
@@ -131,7 +132,8 @@ def prepare_lane_table(cdf, cdf_len, cdf_off, bits: int = LOOKUP_BITS,
         buf[starts[r]:starts[r] + n_ent[r]] = cdf[r, :n_ent[r]]
     dense = (np.ascontiguousarray(cdf, np.int32), ln.astype(np.int32),
              off.astype(np.int32), buf)
-    return LaneTable(*(torch.from_numpy(a).to(device) for a in dense), bits)
+    return LaneTable(*(torch.from_numpy(a).to(device) for a in dense), bits,
+                     encode_table(cdf, ln, off).to(device))
 
 
 def lane_plan(k: int, table_ints: int, smem_cap: int) -> dict:
@@ -279,8 +281,8 @@ def _lane_decode_round_op(states: Tensor, ptrs: Tensor, words: Tensor,
                           m: int) -> Tuple[Tensor, Tensor, Tensor]:
     """The kernel: one counted launch (``launch_round``); it writes fresh
     outputs and mutates none of its arguments."""
-    out = launch_round(states, ptrs, words, idx,
-                       LaneTable(cdf, cdf_len, cdf_off, buf, bits), m)
+    out = launch_round(states, ptrs, words, idx,  # K2 reads no etab
+                       LaneTable(cdf, cdf_len, cdf_off, buf, bits, None), m)
     count_launch(lane_decode_round)
     return out
 

@@ -32,13 +32,14 @@ import pytest
 
 import torch
 
-from crdr_tpu_torch.ops.device_rans import encode_grid, lane_encode_operands
+from crdr_tpu_torch.ops.device_rans import (encode_grid, encode_table,
+                                            lane_positions)
 from crdr_tpu_torch.ops.lane_decode import prepare_lane_table
 from crdr_tpu_torch.runtime import aot  # noqa: F401  (registers crdr::*)
 from crdr_tpu_torch.runtime.lane_rans import lane_encode
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OPS = ("slice_transform", "lane_decode_round", "gdn", "lane_encode_scan")
+OPS = ("slice_transform", "lane_decode_round", "gdn", "lane_encode")
 
 
 def op_args(name: str, device="cpu") -> tuple:
@@ -65,12 +66,12 @@ def op_args(name: str, device="cpu") -> tuple:
         m, k = 40, 8
         sym = rng.integers(-3, 4, (2, m)).astype(np.int32)
         idx = rng.integers(0, 3, (2, m)).astype(np.int32)
-        if name == "lane_encode_scan":
-            low, freq, _ = lane_encode_operands(
-                *map(torch.from_numpy, (sym, idx)),
-                torch.from_numpy(encode_grid([0, m], k)),
-                *map(torch.from_numpy, (cdf, ln, off)))
-            args = (low, freq)
+        if name == "lane_encode":  # symbols in a produced order
+            grid = torch.from_numpy(encode_grid([0, m], k))
+            perm = torch.from_numpy(rng.permutation(m))
+            args = (torch.from_numpy(sym), torch.from_numpy(idx), grid,
+                    lane_positions(grid, perm), encode_table(cdf, ln, off),
+                    torch.from_numpy(ln), torch.from_numpy(off))
         else:
             words = np.zeros((2, k, 16), np.int32)
             for i in range(2):

@@ -103,7 +103,8 @@ def test_sweep_kernels_at_n17_on_gpu(cuda):
     assert float((out - plain).abs().max()) <= K1_ATOL
     args, out = e1[0]
     assert args[0].shape[0] == 17
-    for a, b in zip(out, device_rans.lane_encode_rounds(*args)):
+    # the twin takes the wrapper's arguments up to perm (not pos, etab)
+    for a, b in zip(out, device_rans.lane_encode_rounds(*args[:8])):
         assert torch.equal(a, b)
     (st, pt, words, idx, table, m), out = k2[0]
     assert st.shape[0] == 17

@@ -14,6 +14,12 @@ non-symmetric.
   two 1x1 products sum in f32 in other orders, so a sum may round to the
   neighbouring bf16 value, and the rsqrt and product after it carry that
   on; the share apart is printed).
+* The premise of K3's bf16 mode on tensor cores: an output whose f32 sum
+  was taken in any order a tensor core may take (16-term chunks added in
+  order, reversed, pairwise, an f32 accumulation that truncates toward
+  zero at each add) is the composite of a sum within 1 ulp of the twin's
+  (``bf16_unexplained`` 0), at every channel count the kernel takes; a
+  transposed gamma leaves elements unexplained.
 * The wrapper refuses a mix of dtypes, naming them.
 * ``HyperpriorModel`` from ``config/balle18_mean_scale.yaml`` and Cheng20
   (``chip_smoke.py::family_config``) at tiny widths, weights JAX -> port
@@ -53,7 +59,8 @@ from crdr_tpu.utils.config import ConfigDict as JaxConfigDict
 from crdr_tpu_torch.importers.jax_params import export_state_dict
 from crdr_tpu_torch.models import build_comp_model
 from crdr_tpu_torch.nn import GDN, NonNegativeParam
-from crdr_tpu_torch.ops.gdn import gdn, gdn_plain
+from crdr_tpu_torch.ops.gdn import (bf16_sum, bf16_tail, bf16_unexplained, gdn,
+                                    gdn_plain)
 from crdr_tpu_torch.utils.config import Config, ConfigDict
 from test_torch_families import Y_CONV, config, edit, nchw, nhwc
 
@@ -121,6 +128,71 @@ def test_bf16_gdn_matches_flax(ch, inverse):
     f32 = gdn_plain(nchw(x).to(BF16).float(), mod._beta_rp(mod.beta).float(),
                     mod._gamma_rp(mod.gamma).float(), inverse)
     assert not torch.equal(f32.to(BF16).permute(0, 2, 3, 1), got)
+
+
+def _sums_in_other_orders(xx: np.ndarray, gamma: np.ndarray) -> dict:
+    """f32 sums of gamma[o, c] * xx[c, p] (xx [C, P], each term exact in
+    f32) in orders a tensor core may take: {order: [C_out, P] f32}."""
+    terms = (gamma.astype(np.float64)[:, :, None]
+             * xx.astype(np.float64)[None]).astype(np.float32)
+
+    def in_order(t):  # t [O, K, P]: f32 adds, round to nearest
+        acc = np.zeros((t.shape[0], t.shape[2]), np.float32)
+        for k in range(t.shape[1]):
+            acc = acc + t[:, k]
+        return acc
+
+    def pairwise(t):  # an odd count carries its last term up a level
+        while t.shape[1] > 1:
+            h = t.shape[1] // 2
+            t = np.concatenate([t[:, 0:2 * h:2] + t[:, 1:2 * h:2],
+                                t[:, 2 * h:]], 1)
+        return t[:, 0]
+
+    def truncating(t):  # each add rounded toward zero (all terms >= 0)
+        acc = np.zeros((t.shape[0], t.shape[2]), np.float32)
+        for k in range(t.shape[1]):
+            exact = acc.astype(np.float64) + t[:, k]
+            acc = exact.astype(np.float32)
+            acc = np.where(acc.astype(np.float64) > exact,
+                           np.nextafter(acc, np.float32(0)), acc)
+        return acc
+
+    o, c, p = terms.shape
+    chunks = terms.reshape(o, c // 16, 16, p)
+    return {"k16_chunks": in_order(np.stack(
+                [in_order(chunks[:, j]) for j in range(c // 16)], 1)),
+            "reversed": in_order(terms[:, ::-1]),
+            "pairwise": pairwise(terms),
+            "truncating": truncating(terms)}
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("ch", [64, 128, 192, 256])
+def test_bf16_sum_in_any_tensor_core_order_is_explained(ch, inverse):
+    """K3's bf16 mode sums its f32 product on the tensor cores, in another
+    order than the twin's: every output it can give is still the composite
+    of a sum within 1 ulp of the twin's, and the check still sees a
+    transposed gamma."""
+    rng = np.random.default_rng(17 * ch + inverse)
+    x = torch.from_numpy((rng.standard_normal((1, ch, 8, 16)) * 2)
+                         .astype(np.float32)).to(BF16)
+    beta = torch.from_numpy(rng.uniform(0.5, 2.0, ch).astype(np.float32)) \
+        .to(BF16)
+    gamma = torch.from_numpy(rng.uniform(0.0, 0.1, (ch, ch))
+                             .astype(np.float32)).to(BF16)
+    xx = (x * x).float().reshape(ch, -1).numpy()
+    twin = bf16_sum(x, gamma)
+    moved = 0
+    for order, sums in _sums_in_other_orders(
+            xx, gamma.float().numpy()).items():
+        norm = torch.from_numpy(sums).reshape(x.shape).to(BF16)
+        moved += int((norm != twin).sum())
+        out = bf16_tail(x, beta, norm, inverse)
+        assert bf16_unexplained(out, x, beta, gamma, inverse) == 0, order
+        assert bf16_unexplained(out, x, beta, gamma.t(), inverse) > 0, order
+    print(f"C {ch}: {moved} sums rounded to another bf16 than the twin's, "
+          "over the four orders")
 
 
 @pytest.mark.parametrize("dtypes", [

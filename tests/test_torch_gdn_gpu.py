@@ -12,11 +12,14 @@ plan (64 pixels a block): every channel count, P of 1, 35 (P % 4 != 0),
 16-byte aligned.  The gradient on the card is held against autograd through
 the twin in float64 on the CPU, and through the twin on the card in f32
 (TF32 off).  The bf16 mode (``transform_dtype: bfloat16``) against the bf16
-twin on the card, at every channel count and the same edges (an x at a
-2-byte offset takes its scalar path): every element the composite of a sum
-within 1 bf16 ulp of the twin's, every later step exact (the two may sum
-the f32 product in other orders, so a sum may round to the neighbouring
-bf16 value), the share and ulps apart printed.
+twin on the card, at every channel count and the same edges: its vector
+path (P % 8 == 0, 16-byte aligned; a whole tile and a ragged one) and its
+scalar path (P % 8 != 0, or an x at a 2-byte offset); every element the
+composite of a sum within 1 bf16 ulp of the twin's, every later step exact
+(the tensor cores sum the f32 product in another order than the twin, so a
+sum may round to the neighbouring bf16 value), the share and ulps apart
+printed; each image of a batch of 4 equal to its own launch (the
+persistent blocks walk other tiles at batch 1).
 """
 
 import pytest
@@ -180,7 +183,7 @@ def _make_bf16(dev, n, c, h, w, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("hw", [(1, 1), (5, 7), (37, 53), (5, 77),
-                                (64, 96)])
+                                (64, 96), (8, 13)])
 @pytest.mark.parametrize("c", [64, 128, 192, 256])
 def test_bf16_kernel_matches_its_twin_on_gpu(cuda, c, hw, inverse):
     _bf16_check(*_make_bf16(cuda, 2, c, *hw, 3 * c + hw[0] + inverse),
@@ -188,7 +191,7 @@ def test_bf16_kernel_matches_its_twin_on_gpu(cuda, c, hw, inverse):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c", [64, 192])
+@pytest.mark.parametrize("c", [64, 128, 192, 256])
 def test_bf16_kernel_takes_an_unaligned_x(cuda, c):
     """x at a 2-byte offset (a contiguous view of a flat buffer): the
     bf16 mode takes its scalar path."""
@@ -201,6 +204,21 @@ def test_bf16_kernel_takes_an_unaligned_x(cuda, c):
         assert torch.equal(gdn(xo, beta, gamma, inverse),
                            gdn(x, beta, gamma, inverse))
         _bf16_check(xo, beta, gamma, inverse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(64, 96), (37, 53)])
+@pytest.mark.parametrize("c", [64, 128, 192, 256])
+def test_bf16_image_alone_equals_it_in_the_batch(cuda, c, hw):
+    """Batch 4 against each image alone, both directions: the blocks walk
+    the tiles of all four images, or of one."""
+    x, beta, gamma = _make_bf16(cuda, 4, c, *hw, 11 * c + hw[1])
+    for inverse in (False, True):
+        out = gdn(x, beta, gamma, inverse)
+        assert bf16_unexplained(out, x, beta, gamma, inverse) == 0
+        for i in (0, 3):
+            assert torch.equal(out[i:i + 1], gdn(x[i:i + 1].contiguous(),
+                                                 beta, gamma, inverse))
 
 
 @pytest.mark.gpu

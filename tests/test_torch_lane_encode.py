@@ -9,6 +9,19 @@ twin on a CPU tensor and launches nothing) returns JAX's words, lengths,
 fixups and escape counts element for element; each image's container equals
 the host coder's byte for byte.  The kernel itself is held to the twin on
 the card (``tests/test_torch_lane_encode_gpu.py``, ``chip_smoke.py``).
+
+E1 v2's own pieces:
+* its division by an exact reciprocal (``reciprocal48`` / ``divide48``, the
+  kernel's formula in numpy integers) at every freq in [1, 2^16], at the
+  boundary values of x around a spread of quotients and at 2^32 - 1;
+* the position table (``lane_positions``: the grid composed with the
+  codec's lane permutation) against ``index_select`` then the grid's
+  gather, on the flagship's 10-slice grid and on the checkerboard's;
+* the wrapper with symbols in the codec's order (``perm``, ``pos``,
+  ``etab``), whose CPU implementation is the op's twin
+  (``lane_encode_walk``): the same words, lengths, fixups and escape
+  flags as the twin's lane-order path, JAX's values and the host coder's
+  containers.
 """
 
 import numpy as np
@@ -16,6 +29,8 @@ import pytest
 
 import jax
 import torch
+
+from crdr_tpu_torch.models.codec_devicewire import DeviceWireCodecMixin
 
 from crdr_tpu.ops.device_rans import encode_grid as jax_encode_grid
 from crdr_tpu.ops.device_rans import lane_encode_rounds as jax_encode
@@ -143,3 +158,98 @@ def test_an_empty_round_and_a_flipped_symbol():
     w[0, 50] += 1
     moved = lane_encode.lane_encode_rounds(t(w), t(idx), grid, *tabs, 16)
     assert not torch.equal(base[0], moved[0])
+
+
+def test_reciprocal_division_is_exact_at_every_freq():
+    """q = x // freq through ``reciprocal48``'s halves, as the kernel
+    computes it, at every freq in [1, 2^16]: x = q*f - 1, q*f and q*f + f - 1
+    for 48 quotients spread over [0, (2^32 - 1) // f], and x = 2^32 - 1."""
+    top = (1 << 32) - 1
+    spread = np.concatenate([np.arange(8), np.geomspace(8, 1 << 32, 40)])
+    for start in range(1, (1 << 16) + 1, 8192):
+        f = np.arange(start, min(start + 8192, (1 << 16) + 1),
+                      dtype=np.int64)[:, None]
+        hi, lo = device_rans.reciprocal48(f)
+        assert hi.max() <= 1 << 16 and lo.max() < 1 << 32
+        q = np.minimum(spread[None].astype(np.int64), top // f)
+        for x in (q * f - 1, q * f, q * f + f - 1,
+                  np.full_like(q, top)):
+            x = np.clip(x, 0, top)
+            got = device_rans.divide48(x, np.broadcast_to(hi, x.shape),
+                                       np.broadcast_to(lo, x.shape))
+            np.testing.assert_array_equal(got.astype(np.int64), x // f)
+
+
+class _LaneShapes(DeviceWireCodecMixin):
+    """The lane order of the flagship / the checkerboard at 512x768 (y 32x48
+    of 320 channels in 10 slices of 32, z 8x12 of 192): only what
+    ``_lane_wire_statics`` reads."""
+
+    def __init__(self, checkerboard: bool):
+        self.yC, self.zC, self.num_slices, self.slice_ch = 320, 192, 10, 32
+        self.use_charm, self._is_checkerboard = True, checkerboard
+        self.device_wire_lanes, self.device = 128, torch.device("cpu")
+        self._lane_enc_cache, self._cb_ids_cache = {}, {}
+
+
+@pytest.mark.parametrize("checkerboard", [False, True])
+def test_positions_compose_the_permutation_with_the_grid(checkerboard):
+    st = _LaneShapes(checkerboard)._lane_wire_statics(32, 48, 8, 12)
+    m = 32 * 48 * 320
+    assert torch.equal(torch.sort(st.perm).values, torch.arange(m))
+    assert st.grid_y.shape == (3840, 128)
+    sym = torch.from_numpy(np.random.default_rng(int(checkerboard))
+                           .integers(-50, 50, (2, m)).astype(np.int32))
+    act = st.grid_y >= 0
+    lane = sym.index_select(1, st.perm)[:, st.grid_y.clamp(min=0).long()]
+    held = sym[:, st.pos_y.clamp(min=0).long()]
+    assert torch.equal(st.pos_y < 0, ~act)
+    assert torch.equal(held[:, act], lane[:, act])
+    assert torch.equal(device_rans.lane_positions(st.grid_y, st.perm),
+                       st.pos_y)
+    assert torch.equal(device_rans.lane_positions(st.grid_y), st.grid_y)
+
+
+@pytest.mark.parametrize("case", ["escapes", "batched", "in_range"])
+def test_codec_order_matches_the_lane_order_path(case):
+    """Symbols in a produced order (a seeded permutation of lane order) with
+    their ``pos`` and ``etab``, through the wrapper (the op's twin on the
+    CPU): words, lengths and fixups equal the twin's lane-order path and
+    JAX's; the escape flags equal the twin's operands'; each container is
+    the host coder's."""
+    seed, ns, m, k, esc, batch, cap = CASES[case]
+    rng = np.random.default_rng(seed + 100)
+    v, idx, off, cdfs, cdf_len, offsets = _random_case(rng, ns, m, esc,
+                                                       batch)
+    ne = _check(v, idx, off, cdfs, cdf_len, offsets, k, None)
+    t = torch.from_numpy
+    perm = t(rng.permutation(v.shape[1]).astype(np.int64))
+    inv = torch.argsort(perm)
+    v_c, idx_c = t(v)[:, inv], t(idx)[:, inv]  # lane order = v_c[:, perm]
+    grid = t(device_rans.encode_grid(off, k))
+    pos = device_rans.lane_positions(grid, perm)
+    tabs = (t(cdfs), t(cdf_len), t(offsets))
+    etab = device_rans.encode_table(*tabs)
+    assert torch.equal(etab[..., 0], tabs[0])
+    launches = lane_encode.lane_encode_rounds.launches
+    got = lane_encode.lane_encode_rounds(v_c, idx_c, grid, *tabs, None,
+                                         perm, pos, etab)
+    assert lane_encode.lane_encode_rounds.launches == launches
+    want = device_rans.lane_encode_rounds(t(v), t(idx), grid, *tabs, None)
+    for a, b, name in zip(got, want, ("words", "lens", "fix_pos",
+                                      "fix_val", "n_esc")):
+        assert a.dtype == torch.int32 and torch.equal(a, b), name
+    assert torch.equal(got[4], t(ne))
+    words, lens, esc = device_rans.lane_encode_walk(v_c, idx_c, grid, pos,
+                                                    etab, *tabs[1:])
+    _, _, esc_l = device_rans.lane_encode_operands(t(v), t(idx), grid,
+                                                   *tabs)
+    assert torch.equal(esc, esc_l) and torch.equal(words, got[0])
+    for b in range(v.shape[0]):
+        host = host_encode(v[b], idx[b], off, k, cdfs, cdf_len, offsets,
+                           fix_cap=1 << 16)
+        f = int(got[4][b])
+        assert pack_lane_container(
+            got[0][b].numpy().astype(np.uint16), got[1][b].numpy(),
+            got[2][b, :f].numpy().astype(np.int64), got[3][b, :f].numpy()) \
+            == pack_lane_container(*host)

@@ -9,10 +9,13 @@ Without a GPU its tests skip (the kernel has no CPU mode; the twin's CPU
 tests are in ``tests/test_torch_lane_encode.py``).  Shapes: the flagship's
 device-wire y (batch 4, 10 rounds of 49,152 symbols, K 128, T 3,840, the
 real y table, escapes included) and z (one round of 18,432, the channel as
-CDF row, K 128); a ragged small case and K = 1; m = 0.  The kernel's words
-and lengths must equal the twin's element for element, each image's
-container the host coder's byte for byte, and two launches must be
-bit-identical.
+CDF row, K 128); a ragged small case and K = 1; m = 0.  Each case runs
+twice: with the symbols in lane order, and in a produced order (a seeded
+permutation, read through ``lane_positions`` as the codec reads y).  The
+wrapper's words, lengths and fixups (E1's op ``crdr::lane_encode``, then
+the fixups) must equal the twin's element for element, the op's escape
+flags the twin's operands', each image's container the host coder's byte
+for byte, and two launches must be bit-identical.
 """
 
 import numpy as np
@@ -21,9 +24,11 @@ import pytest
 import torch
 
 from crdr_tpu_torch.entropy import GaussianConditionalCodec, get_scale_table
-from crdr_tpu_torch.ops.device_rans import (encode_grid, lane_encode_operands,
-                                            lane_encode_scan)
-from crdr_tpu_torch.ops.lane_encode import launch_scan, lane_encode_rounds
+from crdr_tpu_torch.ops.device_rans import (encode_grid, encode_table,
+                                            lane_encode_operands,
+                                            lane_encode_rounds as twin_rounds,
+                                            lane_positions)
+from crdr_tpu_torch.ops.lane_encode import launch_walk, lane_encode_rounds
 from crdr_tpu_torch.runtime import pmf_to_quantized_cdf
 from crdr_tpu_torch.runtime.lane_rans import lane_encode, pack_lane_container
 
@@ -62,19 +67,27 @@ def _check(dev, v, idx, off, k, tables, fix_cap=4096):
                               .to(dev) for a in tables)
     grid = torch.from_numpy(encode_grid(off, k)).to(dev)
     sym, rows = torch.from_numpy(v).to(dev), torch.from_numpy(idx).to(dev)
-    before = lane_encode_rounds.launches
-    out = lane_encode_rounds(sym, rows, grid, cdfs, cdf_len, offsets,
-                             fix_cap)
-    again = lane_encode_rounds(sym, rows, grid, cdfs, cdf_len, offsets,
-                               fix_cap)
-    torch.cuda.synchronize()
-    assert lane_encode_rounds.launches == before + 2
-    for a, b in zip(out, again):
-        assert torch.equal(a, b)
-    low_g, freq_g, _ = lane_encode_operands(sym, rows, grid, cdfs, cdf_len,
-                                            offsets)
-    twin = lane_encode_scan(low_g, freq_g)
-    assert torch.equal(out[0], twin[0]) and torch.equal(out[1], twin[1])
+    etab = encode_table(cdfs, cdf_len, offsets)
+    twin = twin_rounds(sym, rows, grid, cdfs, cdf_len, offsets, fix_cap)
+    _, _, esc = lane_encode_operands(sym, rows, grid, cdfs, cdf_len, offsets)
+    perm = torch.from_numpy(np.random.default_rng(v.shape[1]).permutation(
+        v.shape[1])).to(dev)
+    inv = torch.argsort(perm)
+    orders = {"lane": (sym, rows, None, grid),  # lane = produced[:, perm]
+              "produced": (sym[:, inv], rows[:, inv], perm,
+                           lane_positions(grid, perm))}
+    for name, (s, r, p, pos) in orders.items():
+        before = lane_encode_rounds.launches
+        out = lane_encode_rounds(s, r, grid, cdfs, cdf_len, offsets, fix_cap,
+                                 p, pos, etab)
+        again = lane_encode_rounds(s, r, grid, cdfs, cdf_len, offsets,
+                                   fix_cap, p, pos, etab)
+        torch.cuda.synchronize()
+        assert lane_encode_rounds.launches == before + 2, name
+        for a, b, c in zip(out, again, twin):
+            assert torch.equal(a, b) and torch.equal(a, c), name
+        flags = launch_walk(s, r, grid, pos, etab, cdf_len, offsets)[2]
+        assert torch.equal(flags, esc), name
     words, lens, fp, fv, ne = (a.cpu().numpy() for a in out)
     for b in range(v.shape[0]):
         host = lane_encode(v[b], idx[b], off, k, *tables,
@@ -131,13 +144,12 @@ def test_a_flipped_symbol_changes_the_words(cuda):
     v = _symbols(rng, tables, idx, escape_share=0.0)
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in tables]
     grid = torch.from_numpy(encode_grid([0, 4096], 32)).to(cuda)
-    low, freq, _ = lane_encode_operands(torch.from_numpy(v).to(cuda),
-                                        torch.from_numpy(idx).to(cuda),
-                                        grid, *t)
-    base = launch_scan(low, freq)
+    etab = encode_table(*t)
+    rows = torch.from_numpy(idx).to(cuda)
+    base = launch_walk(torch.from_numpy(v).to(cuda), rows, grid, grid, etab,
+                       *t[1:])
     w = v.copy()
     w[0, 1000] += 1
-    low2, freq2, _ = lane_encode_operands(torch.from_numpy(w).to(cuda),
-                                          torch.from_numpy(idx).to(cuda),
-                                          grid, *t)
-    assert not torch.equal(base[0], launch_scan(low2, freq2)[0])
+    moved = launch_walk(torch.from_numpy(w).to(cuda), rows, grid, grid, etab,
+                        *t[1:])
+    assert not torch.equal(base[0], moved[0])
