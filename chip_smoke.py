@@ -317,6 +317,13 @@ Phases, each asserted (any failure exits non-zero):
    serving_partition: spatial on one 2048x3072 still split 2 ways:
    symbols apart from one device's printed, cross-decode exact both ways,
    peak memory and times of the split and the whole encode / decode; then
+   the split across a global operation: HiFiC with InstanceNorm2D
+   (channel_norm: False) at full width, one 768x512 image over 2 replicas
+   on the device wire (E1) against the same model whole, the tiles
+   exchanging each norm's moments: decodes equal to their encoders',
+   cross-decode exact both ways, K1 / K2 / K3 / E1 = 0 / 2 / 0 / 2 split
+   and whole, one exchange a norm a direction; symbols apart, the image's
+   difference and times printed; then
    cli/serve.py with serving_devices 2 and --mesh_devices cuda:0,cuda:0,
    two requests in one dispatch of 2; then the hyper pair against the
    card's free memory: the flagship (crdr.yaml, decode_begin) and the
@@ -4973,10 +4980,13 @@ def family_config(family: str, tiny: bool = False) -> dict:
     return opt
 
 
-def build_family_model(family: str, imgs, card: str):
+def build_family_model(family: str, imgs, card: str,
+                       instance_norm: bool = False, **opts):
     """The family's model: seeded init, every GDN's gamma re-drawn
     non-symmetric, y spread over ~Y_STD bins by a gain on the last analysis
-    conv, the hyper-decoder's scale half raised (as phase 7)."""
+    conv, the hyper-decoder's scale half raised (as phase 7).
+    ``instance_norm``: HiFiC with ``channel_norm: False`` in the encoder
+    and the decoder; ``opts`` go into the options."""
     import torch
 
     from crdr_tpu_torch.models import build_comp_model
@@ -4984,7 +4994,11 @@ def build_family_model(family: str, imgs, card: str):
     from crdr_tpu_torch.utils.config import ConfigDict
 
     t0 = time.perf_counter()
-    model = build_comp_model(ConfigDict(family_config(family)), device=CARD)
+    cfg = dict(family_config(family), **opts)
+    if instance_norm:
+        for part in ("encoder", "decoder"):
+            cfg["subnet"][part]["channel_norm"] = False
+    model = build_comp_model(ConfigDict(cfg), device=CARD)
     net = model.net
     g = torch.Generator(device=model.device).manual_seed(4321)
     last_conv = net.encoder.conv_block_out if family == "hific" \
@@ -5628,6 +5642,8 @@ def mesh_phase(imgs, card: str) -> tuple:
         m.codec_setup()
     res["spatial"], counts["mesh spatial"] = spatial_mesh_check(one, mesh,
                                                                 card)
+    res["spatial_global"], counts["mesh spatial hific_in"] = \
+        spatial_global_check(imgs, mesh, card)
     res["serve"] = mesh_serve_check(card)
     del one
     gc.collect()
@@ -5739,6 +5755,118 @@ def spatial_mesh_check(one, mesh, card: str) -> tuple:
           sl["launches"]["slice_transform"] == 0,
           f"spatial: launches {sl['launches']} vs whole {w['launches']}")
     del sp
+    torch.cuda.empty_cache()
+    return out, sl["launches"]
+
+
+def spatial_global_check(imgs, mesh, card: str) -> tuple:
+    """The split across a global operation: HiFiC with InstanceNorm2D
+    (channel_norm: False) at full width, one IMG_W x IMG_H image over 2
+    replicas on the card against the same model whole, on the device wire
+    with E1.  Checked: each decode equals its encoder's y_hat,
+    cross-decode exact both ways, launches equal split and whole (K1 / K2
+    / K3 / E1 = 0 / 2 / 0 / 2), the tiles' exchange once a norm a
+    direction, nothing non-finite.  Printed: margins and tiles, streams
+    equal or the symbols apart, the image's difference from the whole,
+    warm encode / decode ms.  The split model is set up (its margins on the
+    CPU) in a thread while the whole round trip runs on the card."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from crdr_tpu_torch.models import build_comp_model
+    from crdr_tpu_torch.utils.config import ConfigDict
+
+    t0 = time.perf_counter()
+    kernels = kernel_wrappers()
+    whole = build_family_model("hific", imgs, card, instance_norm=True,
+                               wire_format="device",
+                               device_wire_encoder="device")
+
+    def split_model():
+        m = build_comp_model(ConfigDict(dict(
+            whole.opt.to_dict(), serving_devices=2,
+            serving_partition="spatial")), device=CARD)
+        m.load_state_dict(whole.state_dict())
+        m.codec_setup(mesh)
+        return m
+
+    img = imgs[:1]
+    want = device_wire_expected(whole, "device")
+    out, encs, decs = {}, {}, {}
+
+    def one_round(m):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        enc = m.compress(img)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dec = m.decompress(enc["string_list"])
+        torch.cuda.synchronize()
+        return enc, dec, (t1 - t) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    def counted(name, m):
+        for k in kernels.values():
+            k.launches = 0
+        encs[name], decs[name], *cold = one_round(m)
+        launches = {n: k.launches for n, k in kernels.items()}
+        out[name] = {"launches": launches, "cold_ms": cold}
+        check(launches == want, f"spatial hific_in {name}: launches "
+              f"{launches}, expected {want}")
+        check(np.isfinite(decs[name][0]).all(), f"spatial hific_in {name}: "
+              "non-finite decode")
+        check(np.array_equal(decs[name][2], encs[name]["y_hat"]),
+              f"spatial hific_in {name}: decoded y_hat != its encoder's")
+
+    with ThreadPoolExecutor(1) as pool:
+        pending = pool.submit(split_model)
+        counted("whole", whole)
+        sp = pending.result()
+    sp._exchange_rounds = [0, 0]
+    counted("split", sp)
+    norms = list(sp._spatial_globals)
+    out["exchanges"] = list(sp._exchange_rounds)
+    check(out["exchanges"] == norms, f"spatial hific_in: exchanges "
+          f"{out['exchanges']} a round trip, expected one a norm {norms}")
+    for name, m in (("whole", whole), ("split", sp)):  # warm, timed
+        *_, e_ms, d_ms = one_round(m)
+        out[name].update(encode_ms=e_ms, decode_ms=d_ms)
+    apart = compare_latents(whole, encs["split"]["y_hat"],
+                            encs["whole"]["y_hat"])
+    cross = {"whole decodes split": cross_decode(
+        whole, encs["split"], "spatial hific_in: whole decodes the split"),
+        "split decodes whole": cross_decode(
+        sp, encs["whole"], "spatial hific_in: the split decodes the whole")}
+    for key, c in cross.items():
+        check(c.get("equal") is True, f"spatial hific_in cross-decode "
+              f"({key}): {c}")
+    img_diff = float(np.abs(decs["split"][0].astype(np.float64)
+                            - decs["whole"][0]).max())
+    out.update({"margins": list(sp._spatial_margins),
+                "plan": [sp._spatial_plan(IMG_H // 16, w) for w in (0, 1)],
+                "norms": norms, "streams_equal": encs["split"]["string_list"]
+                == encs["whole"]["string_list"],
+                "symbols_apart": apart["symbols_apart"],
+                "symbols": int(encs["whole"]["y_hat"].size),
+                "image_max_abs_diff": img_diff, "cross_decode": cross,
+                "check_s": time.perf_counter() - t0})
+    w, sl = out["whole"], out["split"]
+    print(f"mesh spatial hific_in: HiFiC with InstanceNorm2D, one "
+          f"{IMG_W}x{IMG_H} image over 2 replicas on {card} (margins "
+          f"{out['margins']} latent rows, analysis tiles {out['plan'][0]}, "
+          f"synthesis tiles {out['plan'][1]}; {norms} norms, one exchange "
+          f"each a direction: {out['exchanges']}): streams equal "
+          f"{out['streams_equal']}, symbols apart {out['symbols_apart']} of "
+          f"{out['symbols']}; image max |split - whole| {img_diff:.4g}; "
+          f"cross-decode exact both ways; launches {sl['launches']} split "
+          f"and whole; warm encode / decode ms, split vs whole: "
+          f"{sl['encode_ms']:.1f} / {sl['decode_ms']:.1f} vs "
+          f"{w['encode_ms']:.1f} / {w['decode_ms']:.1f} (cold: "
+          f"{sl['cold_ms'][0]:.1f} / {sl['cold_ms'][1]:.1f} vs "
+          f"{w['cold_ms'][0]:.1f} / {w['cold_ms'][1]:.1f}; two replicas "
+          f"share one card: not a scaling figure); "
+          f"{out['check_s']:.1f} s [{card}]")
+    del sp, whole
+    gc.collect()  # a mesh model and its replicas form a reference cycle
     torch.cuda.empty_cache()
     return out, sl["launches"]
 

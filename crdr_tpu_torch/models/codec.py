@@ -101,7 +101,13 @@ mesh; here each replica runs its share from its own worker thread:
   entropy parameters from the same unsplit function of ``y_hat``: a stream
   of either setting decodes on the other.  Heights whose latent rows do
   not divide by N run whole.  A transform with a global operation
-  (``InstanceNorm2D``, HiFiC with ``channel_norm: False``) raises.
+  (``InstanceNorm2D``, HiFiC with ``channel_norm: False``) splits too: its
+  tiles share one ``TileExchange`` a call, and at each such norm every
+  tile posts the partial moments of its own rows, waits for the others
+  (outside its precision section) and normalizes with the image's
+  moments, combined in tile order.  Such a tile runs live, never through
+  an AOT package's ``decode_image``, which would hold no exchange.  Any
+  other operation over the whole height still raises.
 
 The mesh is ``cuda:0 .. N-1`` on the card (fewer cards raise), N times the
 CPU on the CPU, or the list ``codec_setup(mesh_devices=...)`` gives (two
@@ -140,7 +146,8 @@ from ..ops.cb_uniform import (cb_phase_a, cb_phase_b, cb_reconstruct_last,
 from ..ops.charm_uniform import (kernel_stacks, pack_charm_weights,
                                  uniform_decode_step, uniform_reconstruct_last)
 from ..parallel.mesh import make_mesh, shard_rows
-from ..parallel.spatial import grid_margin, join_rows, split_rows, tile_plan
+from ..parallel.spatial import (TileExchange, grid_margin, join_rows,
+                                split_rows, tile, tile_plan)
 from ..runtime.aot import program
 from ..subnet.context_model.checkerboard import anchor_mask
 from ..utils.codec_utils import HeaderHandler, MultiRateHeaderHandler
@@ -372,11 +379,13 @@ class CodecMixin:
         if getattr(self, "_pool", None) is not None:
             self._pool.shutdown()
         self._mesh, self._replicas, self._pool = mesh, [self], None
-        self._spatial_margins = None
+        self._spatial_margins = self._spatial_globals = None
+        self._exchange_rounds = [0, 0]
         if mesh is not None:
             self._replicas += [self._replica(d) for d in mesh[1:]]
             if self.opt.get("serving_partition", "batch") == "spatial":
-                self._spatial_margins = self._transform_margins()
+                (self._spatial_margins,
+                 self._spatial_globals) = self._transform_margins()
             # the replicas' worker threads, kept between calls (a thread's
             # first launches create its cuDNN and cuBLAS handles)
             self._pool = ThreadPoolExecutor(len(mesh),
@@ -393,9 +402,10 @@ class CodecMixin:
         rep._pool = None
         return rep
 
-    def _transform_margins(self) -> Tuple[int, int]:
-        """The overlap margins, in latent rows, of the analysis and the
-        synthesis (``parallel/spatial.py::grid_margin``, on CPU copies)."""
+    def _transform_margins(self):
+        """((the overlap margins, in latent rows), (the global operations a
+        call)) of the analysis and the synthesis
+        (``parallel/spatial.py::grid_margin``, on CPU copies)."""
         net = self.net
         enc, dec = (copy.deepcopy(m).cpu().float()
                     for m in (net.encoder, net.decoder))
@@ -404,11 +414,11 @@ class CodecMixin:
         bt = one if self.use_beta else None
         with torch.no_grad():
             # 4 latent columns: reflect padding needs more than its width
-            m_enc = grid_margin(enc, lambda x: net.encode(x, ri, enc),
+            m_enc = grid_margin(lambda x: net.encode(x, ri, enc),
                                 self.y_stride, 1, 3, 4 * self.y_stride)
-            m_dec = grid_margin(dec, lambda y: net.decode(y, ri, bt, dec),
+            m_dec = grid_margin(lambda y: net.decode(y, ri, bt, dec),
                                 1, self.y_stride, self.yC, 4)
-        return m_enc, m_dec
+        return (m_enc[0], m_dec[0]), (m_enc[1], m_dec[1])
 
     def _setup_tables(self) -> None:
         """The codec state of the model's own device (``codec_setup``)."""
@@ -545,7 +555,7 @@ class CodecMixin:
 
             with _tf32(self._transform_tf32):
                 return _fixed_batches(call, x, rate_ind if per_image else None)
-        y = self._spatial_map(x, plan, self.y_stride, 1, lambda rep, xt: (
+        y = self._spatial_map(x, plan, self.y_stride, 1, 0, lambda rep, xt: (
             rep._encode_y(xt, None if rate_ind is None
                           else rate_ind.to(rep.device))))
         with _tf32(self._transform_tf32):
@@ -597,13 +607,24 @@ class CodecMixin:
         return [f.result() for f in futures]
 
     def _spatial_map(self, x: Tensor, plan, in_rows: int, out_rows: int,
-                     fn) -> Tensor:
+                     which: int, fn) -> Tensor:
         """``fn(replica, tile)`` over the overlap tiles of NCHW ``x`` (each
         moved to its replica's device), the own rows joined on the model's
-        device."""
-        tiles = split_rows(x, plan, in_rows)
-        outs = self._on_replicas(lambda rep, t: fn(rep, t.to(rep.device)),
-                                 tiles)
+        device.  A transform (``which``: 0 the analysis, 1 the synthesis)
+        with global operations gets one exchange for the call, its waits
+        in host sections (module doc)."""
+        exchange = TileExchange(plan, release=_host) \
+            if self._spatial_globals[which] else None
+
+        def run(rep, item):
+            i, t = item
+            with tile(exchange, i):
+                return fn(rep, t.to(rep.device))
+
+        outs = self._on_replicas(run, list(enumerate(
+            split_rows(x, plan, in_rows))))
+        if exchange is not None:
+            self._exchange_rounds[which] += exchange.rounds
         return join_rows(outs, plan, out_rows, self.device)
 
     def _hyper_decode(self, z_sym: Tensor) -> Tuple[Tensor, Tensor]:
@@ -850,7 +871,7 @@ class CodecMixin:
             img = self._synthesis_rows(yc, conds)
         else:
             img = self._spatial_map(
-                yc, plan, 1, self.y_stride, lambda rep, yt: (
+                yc, plan, 1, self.y_stride, 1, lambda rep, yt: (
                     rep._synthesis_rows(yt, [None if c is None else
                                              c.to(rep.device)
                                              for c in conds])))

@@ -13,7 +13,10 @@ bf16, as the JAX package does.
 
 ``ChannelNorm2D`` (HiFiC: moments over the channels, unbiased variance, eps
 1e-3) and ``InstanceNorm2D`` (moments over the pixels, biased variance, eps
-1e-5) carry ``gamma`` / ``beta``.  ``BatchNorm2D`` is flax's
+1e-5) carry ``gamma`` / ``beta``.  ``InstanceNorm2D`` takes its moments
+through ``parallel/spatial.py::image_moments``: ``torch.mean`` /
+``torch.var`` over the pixels, or, in a tile of a spatial split, the whole
+image's from the tiles' exchange.  ``BatchNorm2D`` is flax's
 ``nn.BatchNorm`` (momentum 0.9, eps 1e-5), not ``torch.nn.BatchNorm2d``: in
 training it normalizes with the batch's moments computed in f32 as E[x],
 E[x^2] - E[x]^2, and its running ``var`` takes the *biased* batch variance,
@@ -30,6 +33,7 @@ from torch import nn
 
 from ..entropy.ops import lower_bound
 from ..ops.gdn import gdn
+from ..parallel.spatial import image_moments
 
 _REPARAM_OFFSET = 2.0 ** -18
 
@@ -117,8 +121,7 @@ class InstanceNorm2D(ChannelNorm2D):
         super().__init__(ch, eps, affine)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mu = torch.mean(x, dim=(2, 3), keepdim=True)
-        var = torch.var(x, dim=(2, 3), keepdim=True, correction=0)
+        mu, var = image_moments(x)
         y = (x - mu) * torch.rsqrt(var + self.eps)
         if self.gamma is not None:
             y = _channel_param(self.gamma) * y + _channel_param(self.beta)

@@ -5,4 +5,5 @@ image's height over a mesh (``spatial.py``)."""
 from .distributed import (all_reduce_mean_, batch_mean, broadcast_,
                           init_distributed, mean_over_ranks, spawn)
 from .mesh import gather, make_mesh, shard_batch, shard_rows
-from .spatial import SpatialSplitError, grid_margin, row_halo, tile_plan
+from .spatial import (SpatialSplitError, TileExchange, grid_margin,
+                      row_halo, tile_plan)

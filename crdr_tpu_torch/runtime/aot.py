@@ -18,8 +18,11 @@ named after its JAX program.  A dispatch
 - runs a loaded package's program when the call's signature is in the
   package (``aot_hits``), else the live method (``aot_misses``): an unseen
   shape still serves;
-- is a plain call outside a recorder and a package, and inside another
-  dispatch.
+- is a plain call outside a recorder and a package, inside another
+  dispatch, and inside a spatial tile with an exchange
+  (``parallel/spatial.py``: an exported program holds no exchange, and
+  would normalize with the tile's own rows), which is neither recorded
+  nor served from the package.
 
 The signature key is the program name, the argument tree, each tensor's
 (shape, dtype, device), each Python scalar's value (``torch.export``
@@ -74,6 +77,7 @@ from ..ops import gdn as _k3  # noqa: F401
 from ..ops import lane_decode as _k2  # noqa: F401
 from ..ops import lane_encode as _e1  # noqa: F401
 from ..ops import slice_transform as _k1  # noqa: F401
+from ..parallel.spatial import tile_exchange
 
 __all__ = ["ExeDispatch", "AotRecorder", "AotPackage", "export_package",
            "load_package", "record_serving_roundtrip", "MANIFEST", "program",
@@ -108,14 +112,16 @@ class AotSlot:
 def program(name: str):
     """Decorator: the method is the codec device program ``name``.  It runs
     through the model's ``ExeDispatch`` of that name when a package or a
-    recorder is attached (``model._aot``), else it is a plain call."""
+    recorder is attached (``model._aot``), else, and in a tile with an
+    exchange, it is a plain call."""
     def wrap(fn):
         @functools.wraps(fn)
         def dispatch(self, *args):
             slot = getattr(self, "_aot", None)
             if slot is None or (slot.package is None
                                 and slot.recorder is None) \
-                    or getattr(_local, "depth", 0):
+                    or getattr(_local, "depth", 0) \
+                    or tile_exchange() is not None:
                 return fn(self, *args)
             return slot.dispatch(name)(self, fn, args)
         dispatch.program = name

@@ -6,7 +6,8 @@ Weights go JAX -> port through ``export_state_dict`` (``tests/test_torch_familie
 and instance norm, each activation), the residual block, the decoder
 with and without noise (JAX's ``jax.random.normal`` draw passed in, NCHW),
 both up layers: rtol 1e-4, atol 5e-4.  The codec: ``HyperpriorModel`` on
-the HiFiC pair and the Balle18 hyper pair, ``[header, z, y]`` byte-identical
+the HiFiC pair and the Balle18 hyper pair, with channel norms and with
+instance norms (``channel_norm: False``), ``[header, z, y]`` byte-identical
 to JAX's on the compressai wire and on the device wire, each package
 decoding the other's streams.
 """
@@ -122,9 +123,11 @@ def test_full_width_state_dict_shapes():
     assert sum(k.startswith("resblock_") for k in d) == 9 * 8
 
 
-@pytest.fixture(scope="module")
-def models():
-    return pair("hific")
+@pytest.fixture(scope="module", params=["channel_norm", "instance_norm"])
+def models(request):
+    """HiFiC with ``ChannelNorm2D``, and with ``InstanceNorm2D``
+    (``channel_norm: False`` in the encoder and the decoder)."""
+    return pair("hific", instance_norm=request.param == "instance_norm")
 
 
 @pytest.mark.parametrize("wire", ["compressai", "device"])

@@ -12,11 +12,15 @@ devices, the port's on ``[cpu] * N``):
   cross-decode with one device both ways; the split analysis and synthesis
   against the whole ones at JAX's 2e-4;
 * the overlap margin is needed: one grid row less breaks the result (the
-  Balle18 GDN model and HiFiC by value; the flagship by dependence, with
-  the rows past the margin set to NaN);
-* HiFiC with ``InstanceNorm2D`` (``channel_norm: False``) refuses a spatial
-  split, by name; the compress CLI with ``--serving_devices 2`` and the
-  serve CLI with an explicit device list on the CPU.
+  Balle18 GDN model, HiFiC and HiFiC with ``InstanceNorm2D`` by value, the
+  last through the tiles' exchange; the flagship by dependence, with the
+  rows past the margin set to NaN);
+* HiFiC with ``InstanceNorm2D`` (``channel_norm: False``) splits, its tiles
+  exchanging the moments of each norm (``tests/test_torch_spatial_global
+  .py`` holds it to JAX); a tile without an exchange refuses the norm, and
+  any other whole-height operation refuses the split; the compress CLI
+  with ``--serving_devices 2`` and the serve CLI with an explicit device
+  list on the CPU.
 """
 
 import os
@@ -30,8 +34,8 @@ import torch
 from crdr_tpu_torch.cli import compress as compress_cli
 from crdr_tpu_torch.cli import serve as serve_cli
 from crdr_tpu_torch.models import build_comp_model
-from crdr_tpu_torch.parallel.spatial import (SpatialSplitError, join_rows,
-                                             split_rows, tile_plan)
+from crdr_tpu_torch.parallel.spatial import (SpatialSplitError, TileExchange,
+                                             tile, tile_plan)
 from crdr_tpu_torch.utils import img_utils
 from crdr_tpu_torch.utils.codec_utils import (pack_byte_strings,
                                               unpack_byte_strings)
@@ -39,6 +43,7 @@ from crdr_tpu_torch.utils.config import ConfigDict
 from crdr_tpu_torch.utils.img_utils import decode_png, encode_png
 from chip_smoke import family_config
 from tests.test_torch_serving import _get_json, _post, _start
+from tests.test_torch_spatial_global import run_tiles
 from tests.torch_pairs import (BETA, Q, images,  # noqa: F401
                                one_torch_thread, pair, port_model,
                                tiny_config)
@@ -226,16 +231,26 @@ def _family_model(family: str, **over):
     return build_comp_model(ConfigDict(opt), device="cpu")
 
 
+def _hific_in():
+    """HiFiC with ``InstanceNorm2D`` (``channel_norm: False``)."""
+    sub = family_config("hific", tiny=True)["subnet"]
+    for part in ("encoder", "decoder"):
+        sub[part]["channel_norm"] = False
+    return _family_model("hific", subnet=sub)
+
+
 def _tiles(fn, x, plan, a, b):
-    return join_rows([fn(t) for t in split_rows(x, plan, a)], plan, b,
-                     x.device)
+    """The tiles of ``plan`` through ``fn``, in threads under one exchange
+    (which a transform without a global operation never calls)."""
+    return run_tiles(fn, x, plan, a, b, TileExchange(plan))
 
 
-@pytest.mark.parametrize("family", ["balle18", "hific"])
+@pytest.mark.parametrize("family", ["balle18", "hific", "hific_in"])
 def test_one_margin_row_less_breaks_the_split(family):
     """By value: with the computed margin the tiles give the whole result
     (within 2e-4), with one latent row less they do not (by > 1e-3)."""
-    m = _family_model("hific") if family == "hific" else _balle18()
+    m = {"balle18": _balle18, "hific": lambda: _family_model("hific"),
+         "hific_in": _hific_in}[family]()
     m.opt["serving_devices"], m.opt["serving_partition"] = 2, "spatial"
     m.codec_setup()
     m_enc, m_dec = m._spatial_margins
@@ -288,7 +303,9 @@ def test_flagship_margin_is_the_dependence_reach():
 
 def _nan_reach(fn, channels, rows, width):
     """(top, bottom) rows of ``fn``'s output that turn NaN when the input
-    rows past each edge of a middle cut are NaN: the dependence by value."""
+    rows past each edge of a middle cut are NaN: the dependence by value.
+    ``fn`` runs as one tile whose own rows, where a global module takes its
+    moments, are the 10 grid rows farthest from the cut."""
     g, cut = 40, 20
     out = []
     for past_top in (True, False):
@@ -297,20 +314,26 @@ def _nan_reach(fn, channels, rows, width):
             x[:, :, :cut * rows[0]] = float("nan")
         else:
             x[:, :, cut * rows[0]:] = float("nan")
-        bad = torch.isnan(fn(x)).any(dim=3).any(dim=1)[0].numpy()
+        own = (g - 10, g) if past_top else (0, 10)
+        with tile(TileExchange([(0, g) + own]), 0):
+            bad = torch.isnan(fn(x)).any(dim=3).any(dim=1)[0].numpy()
         c = cut * rows[1]
         out.append(int(bad[c:].sum()) if past_top else int(bad[:c].sum()))
     return tuple(out)
 
 
-@pytest.mark.parametrize("family", ["flagship", "balle18", "hific"])
+@pytest.mark.parametrize("family", ["flagship", "balle18", "hific",
+                                    "hific_in"])
 def test_row_halo_is_the_nan_dependence(family):
     """The row tracker's reach of each transform (from the operations'
-    geometry) equals the reach of NaN rows through the real transform."""
+    geometry; a global module's moments as constants) equals the reach of
+    NaN rows through the real transform (its moments from rows far from
+    the NaN)."""
     from crdr_tpu_torch.parallel.spatial import row_halo
 
     m = {"flagship": lambda: _port(), "balle18": _balle18,
-         "hific": lambda: _family_model("hific")}[family]()
+         "hific": lambda: _family_model("hific"),
+         "hific_in": _hific_in}[family]()
     ri, bt = torch.tensor([1.0]), torch.tensor([2.56])
     net = m.net
     enc = lambda x: net.encode(x, ri if m.use_rate else None)
@@ -349,16 +372,33 @@ def test_row_tracker_refuses_what_a_tile_cannot_reproduce():
             row_halo(bad, probe)
 
 
-def test_spatial_refuses_instance_norm():
-    sub = family_config("hific", tiny=True)["subnet"]
-    sub["encoder"]["channel_norm"] = False
-    m = _family_model("hific", subnet=sub)
+def test_spatial_refuses_instance_norm(monkeypatch):
+    """HiFiC with ``InstanceNorm2D`` splits: the model sets up with its
+    margins and one exchange a norm, and a batch mesh still builds 2
+    replicas.  What the split refuses is the norm's local moments (a tile
+    without an exchange raises) and any whole-height operation it does not
+    know (a raw mean over the height in the transform raises
+    ``SpatialSplitError`` at setup)."""
+    from torch import nn
+
+    m = _hific_in()
     m.opt["serving_devices"], m.opt["serving_partition"] = 2, "spatial"
-    with pytest.raises(SpatialSplitError, match="InstanceNorm2D"):
+    m.codec_setup()
+    assert m._spatial_margins == (3, 7) and m._spatial_globals == (5, 10)
+    with tile(None, 0), pytest.raises(SpatialSplitError, match="exchange"):
+        m.net.encode(torch.zeros(1, 3, 64, 64))
+
+    class RawMean(nn.Module):
+        def forward(self, x):
+            return x - x.mean(dim=(2, 3), keepdim=True)
+
+    monkeypatch.setattr(m.net.encoder.norm1, "norm", RawMean())
+    with pytest.raises(SpatialSplitError, match="mixes or reshapes"):
         m.codec_setup()
+    monkeypatch.undo()
     m.opt["serving_partition"] = "batch"
     m.codec_setup()  # a batch mesh has nothing to split
-    assert len(m._replicas) == 2
+    assert len(m._replicas) == 2 and m._spatial_margins is None
 
 
 # ---------------- the CLIs ------------------------------------------------------------
