@@ -55,6 +55,13 @@ Phases, each asserted (any failure exits non-zero):
    the clock sampled with nvidia-smi while the y round runs); the bound;
    and, as text only, two chain estimates (v1's binary search and v2's
    bucket search, at an assumed shared-memory latency).
+5a. the SliceTransform's actv on the same flagship (its weights kept,
+   ``slice_transform_kwargs: {actv: gelu}`` set and codec_setup again):
+   gelu at batch 4 on the compressai wire (launches 0 / 0 / 0 / 0: K1 runs
+   ReLU only, as JAX's Pallas kernel, so the chain takes the plain convs)
+   and on the device wire with E1 (0 / 11 / 0 / 2), each with the checks
+   of phases 3 and 4, y_hat unlike the ReLU model's; lrelu at batch 1 on
+   the compressai wire (0 / 0 / 0 / 0, y_hat exact).
 6. K3 (GDN / inverse GDN) at the GDN path's three shapes ([4, 192, 256x384
    / 128x192 / 64x96] NCHW f32), both directions, seeded non-symmetric
    gamma: kernel vs plain twin (TF32 off) bit for bit (the count of
@@ -157,11 +164,11 @@ Phases, each asserted (any failure exits non-zero):
    directory, each run through build_trainer(...).train_loop() with the
    kernel counts set to 0 just before it: config/endurance_stage1.yaml
    (elic_charm, HiFiC rate + MSE + LPIPS on its seeded random init,
-   mixed precision, aux Adam) for 30 steps, every loss finite and no step
+   mixed precision, aux Adam) for 20 steps, every loss finite and no step
    skipped, the median step time (each step between two synchronizes; its
    quartiles and range), images/s, peak memory, model FLOPs a step
    (forward hooks: 3 x the net's conv / GDN FLOPs + 1.5 x LPIPS's) and
-   their share of the bf16 / TF32 / f32 peaks; then 20 steps on one fixed
+   their share of the bf16 / TF32 / f32 peaks; then 15 steps on one fixed
    batch, the mean total loss of the last 5 below that of the first 5, and
    a checkpoint; the same weights, batch (2 images) and noise through one
    f32 step on the card and on the CPU, TF32 off: at the seeded init,
@@ -171,13 +178,13 @@ Phases, each asserted (any failure exits non-zero):
    from it counted, and with the ReLUs and max pools held to its gates and
    picks the card and the f32 CPU each within those limits of it and of
    each other (with free gates a gradient past the limit passes only where
-   some gate differs); endurance_stage2.yaml and cb_stage2.yaml, 25 steps
+   some gate differs); endurance_stage2.yaml and cb_stage2.yaml, 12 steps
    each from that checkpoint (the handoff loads every stage-1 tensor and
    keeps the InterpCA / spatial-context ones at init; rate_ind spans its 5
    levels); balle18_mean_scale.yaml's model under the stage-1 recipe in
-   f32, 25 steps, K3 6 launches a step and every GDN parameter a gradient
-   (the op's backward, crdr::gdn_backward), K3's six calls of a step timed (each config's step time
-   over its last 20 steps); resume: saved at step 3, rebuilt from the
+   f32, 12 steps, K3 6 launches a step and every GDN parameter a gradient
+   (the op's backward, crdr::gdn_backward), K3's six calls of a step timed
+   (each config's step time over its steps after the first 5); resume: saved at step 3, rebuilt from the
    checkpoint, run to 6 on the same batches, bit-equal to the
    uninterrupted run; the train CLI (python -m crdr_tpu_torch.cli.train
    endurance_stage1.yaml -ti 3) as a subprocess, started with phase 16's
@@ -191,8 +198,8 @@ Phases, each asserted (any failure exits non-zero):
    random init, mixed precision) at batch 8, 256x256, warm-started from
    phase 15's stage-1 checkpoint: the handoff's counts (every stage-1
    tensor of the same name and shape loaded, the InterpCA / beta modules
-   at init, D equal to its seeded init); 25 steps through train_loop, the
-   last 20 timed (median, quartiles, images/s, peak memory, model FLOPs a
+   at init, D equal to its seeded init); 12 steps through train_loop, the
+   last 7 timed (median, quartiles, images/s, peak memory, model FLOPs a
    step with the anchor forward and D's convs and their share of each
    peak), every logged loss finite, no step skipped, rate_ind spanning
    0..4, D's parameters moving, each sub-D moved exactly when its rate was
@@ -333,14 +340,15 @@ Phases, each asserted (any failure exits non-zero):
    every output bit-equal.
 24. AOT serving packages (``runtime/aot.py``, the kernels as ``crdr::``
    ops inside ``torch.export`` programs): the flagship recorded at
-   4x512x768 and 1x512x768 on both wires (E1 encoding the device wire),
+   4x512x768 and 1x512x768 on the compressai wire and at 4x512x768 on the
+   device wire (E1 encoding it),
    the GDN path at both and the checkerboard (cb_stage2.yaml) at 4x512x768
    on the compressai wire, each exported for cuda (every program must
    export; the
    GDN path's for cpu too), with the record and export seconds and the
    package bytes; each package loaded into a freshly built model on the
-   same weights: a batch-4 and (but the checkerboard's) a batch-1 round
-   trip byte-equal to the live
+   same weights: a batch-4 and (but the checkerboard's and the flagship's
+   device wire's) a batch-1 round trip byte-equal to the live
    path's streams and pixel-equal decodes, K1 / K2 / K3 / E1 launches
    equal to the live path's counts (section 2 of PERF.md), each op's calls
    held against its twin, hits and misses by program printed and no miss
@@ -353,17 +361,23 @@ Phases, each asserted (any failure exits non-zero):
    the flagship's; the serve CLI starts in two fresh processes together,
    without and with the flagship's package, meanwhile: seconds to
    listening and to the first /compress.  Then, with nothing else running,
-   the flagship's round trips and the package's in turns, batch 4 and 1,
+   the flagship's round trips and the package's in turns, batch 4 (and 1
+   on the compressai wire),
    and warm one-image /compress and /decompress of the two servers in
    turns, the .bin equal.
-25. JPEG input: every fixture of tests/data/jpeg decoded by the port's
-   host decoder (built with the others in phase 1) on the file path and
-   the body path, the pixels' sha256 equal to the digests cv2 and PIL
-   gave, the refused ones raising their reason; the decoder's ms at
-   768x512 (a Mpix); the 768x512 fixture as a JPEG body to cli/serve.py's
-   server (crdr_throughput.yaml, device wire, E1): its .bin byte-equal to
-   the PNG of the same pixels', the round trip's launches those of phase 4
-   (K1 60, K2 11, E1 2), each kernel's calls held against its twin; 3
+25. image input: every fixture of tests/data/jpeg, tests/data/png and
+   tests/data/bmp decoded by the port's readers (the host JPEG and PNG
+   decoders built with the others in phase 1) on the file path and the
+   body path, the pixels' sha256 equal to the digests cv2 and PIL gave,
+   the refused ones raising their reason, each small PNG equal through the
+   C++ decoder's numpy twin; the JPEG decoder's ms at 768x512 (a Mpix);
+   the C++ PNG decoder's ms at 768x512 (PIL's file and an all-Paeth one)
+   beside its numpy twin's; the 768x512 fixture as a JPEG body to
+   cli/serve.py's server (crdr_throughput.yaml, device wire, E1): its .bin
+   byte-equal to the PNG of the same pixels', the round trip's launches
+   those of phase 4 (K1 60, K2 11, E1 2), each kernel's calls held against
+   its twin; PIL's 768x512 palette PNG as a body, its .bin byte-equal to
+   the RGB PNG's of its pixels; 3
    steps of crdr_stage_1.yaml (OpenImageImageDataset, LPIPS allow_random)
    on a train_0/ of the fixtures' JPEGs at batch 8: losses finite, the
    sample's ms, the loader's wait a step against the step, os.cpu_count();
@@ -528,7 +542,7 @@ def build_kernels() -> dict:
     from crdr_tpu_torch.ops import lane_decode as k2
     from crdr_tpu_torch.ops import lane_encode as e1
     from crdr_tpu_torch.ops import slice_transform as k1
-    from crdr_tpu_torch.utils import jpeg
+    from crdr_tpu_torch.utils import jpeg, png
 
     results, threads = {}, []
 
@@ -544,7 +558,8 @@ def build_kernels() -> dict:
                      ("gdn (nvcc sm_90a)", k3.build),
                      ("lane_encode (nvcc sm_90a)", e1.build),
                      ("host rANS (g++)", runtime.build),
-                     ("host JPEG decoder and encoder (g++)", jpeg.build)):
+                     ("host JPEG decoder and encoder (g++)", jpeg.build),
+                     ("host PNG decoder (g++)", png.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
     for t in threads:
@@ -1190,8 +1205,9 @@ def padding_cost(model, strings, label: str, card: str,
 def device_wire_expected(model, encoder: str, gdn: int = 0) -> dict:
     """Kernel launches of one device-wire batch round trip: K2 1 z round +
     a round per slice (Charm), two per slice (checkerboard) or one
-    (generic); K1 (when on) 3 SliceTransforms a slice each way; E1 a y and
-    a z call per encode with the device encoder; ``gdn`` K3 calls."""
+    (generic); K1 (when on, and the SliceTransforms ReLU) 3 SliceTransforms
+    a slice each way; E1 a y and a z call per encode with the device
+    encoder; ``gdn`` K3 calls."""
     if model._is_checkerboard:
         k2 = 1 + 2 * model.num_slices
     elif model.use_charm:
@@ -1199,7 +1215,7 @@ def device_wire_expected(model, encoder: str, gdn: int = 0) -> dict:
     else:
         k2 = 2
     k1 = 6 * model.num_slices if model.use_charm and \
-        model.fused_slice_kernel else 0
+        model.fused_slice_kernel and model.slice_actv == "relu" else 0
     return {"slice_transform": k1, "lane_decode_round": k2, "gdn": gdn,
             "lane_encode_rounds": 2 if encoder == "device" else 0}
 
@@ -1294,6 +1310,74 @@ def chain_name(model) -> str:
         return ("z round, decode_begin, the slice steps with their K2 "
                 "rounds, decode_final")
     return "z round, generic_params, one K2 round, + mean, synthesis"
+
+
+def set_slice_actv(model, actv: str) -> None:
+    """The built flagship as ``crdr_throughput.yaml`` with
+    ``slice_transform_kwargs: {actv: ...}`` builds it (its weights do not
+    depend on the activation): the key in the model's options, the net's
+    SliceTransforms' activations, then codec_setup."""
+    from crdr_tpu_torch.subnet.context_model.charm import (Activation,
+                                                           SliceTransform)
+
+    kw = {"actv": actv}
+    model.opt["subnet"]["context_model"]["slice_transform_kwargs"] = kw
+    model.net.subnet_opt["context_model"]["slice_transform_kwargs"] = \
+        dict(kw)
+    for m in model.net.context_model.modules():
+        if isinstance(m, SliceTransform):
+            m.model[1], m.model[3] = Activation(actv), Activation(actv)
+    model.codec_setup()
+    check(model.slice_actv == actv, f"codec_setup read actv "
+          f"{model.slice_actv!r}, not {actv!r}")
+
+
+def slice_actv_check(model, imgs, y_relu, card: str) -> tuple:
+    """The SliceTransform's ``actv`` on the flagship at full width (the
+    model of phases 3-5, ``fused_slice_kernel`` on): ``gelu`` at batch 4 on
+    the compressai wire (K1 / K2 / K3 / E1 0 / 0 / 0 / 0: K1 runs ReLU
+    only, as JAX's kernel) and on the device wire with E1 (0 / 11 / 0 /
+    2), the checks of phases 3 and 4 (decoded y_hat == the encoder's,
+    equal on both wires, real vs predicted bpp, batch-1 streams == batch-4
+    streams, a sync-free decode chain), y_hat unlike the ReLU model's;
+    then ``lrelu`` at batch 1 on the compressai wire (0 / 0 / 0 / 0, y_hat
+    exact).  Leaves the model at ReLU on the compressai wire.  Returns
+    ({figures}, {path: launches})."""
+    res, counts = {}, {}
+    model.opt.update(wire_format="compressai")
+    set_slice_actv(model, "gelu")
+    encs, counts["gelu compressai"], res["gelu compressai"] = \
+        host_wire_path(model, imgs, "gelu compressai wire",
+                       {"slice_transform": 0, "lane_decode_round": 0,
+                        "gdn": 0}, card, runs=0, padding=False)
+    y_gelu = np.concatenate([e["y_hat"] for e in encs])
+    check(not np.array_equal(y_gelu, y_relu),
+          "gelu: y_hat equals the ReLU model's (the activation unused)")
+    _, counts["gelu device"], res["gelu device"], _ = device_wire_path(
+        model, imgs, y_gelu, card, label="gelu device wire",
+        encoder="device", runs=0)
+    model.opt.update(wire_format="compressai")
+    set_slice_actv(model, "lrelu")
+    encs, (fake, _, y_hat), enc_s, dec_s, got = counted_round_trip(
+        model, imgs[:1])
+    want = {"slice_transform": 0, "lane_decode_round": 0, "gdn": 0,
+            "lane_encode_rounds": 0}
+    check(got == want, f"lrelu batch 1: launches {got}, expected {want}")
+    check(np.array_equal(y_hat, encs[0]["y_hat"]),
+          "lrelu batch 1: decoded y_hat != encoder y_hat")
+    check(fake.shape == (1, IMG_H, IMG_W, 3) and np.isfinite(fake).all(),
+          f"lrelu batch 1: reconstruction {fake.shape}, finite "
+          f"{bool(np.isfinite(fake).all())}")
+    counts["lrelu compressai batch 1"] = got
+    res["lrelu compressai batch 1"] = {"encode_ms": enc_s * 1e3,
+                                       "decode_ms": dec_s * 1e3}
+    set_slice_actv(model, "relu")
+    print(f"SliceTransform actv: gelu on the flagship at full width, batch "
+          f"{N_IMG}, launches {counts['gelu compressai']} (compressai) and "
+          f"{counts['gelu device']} (device wire, E1), y_hat equal on both "
+          f"wires and to the decode; lrelu batch 1 {got}, y_hat exact; cold "
+          f"round trips ms: " + json.dumps(res) + f" [{card}]")
+    return res, counts
 
 
 def k2_bound(st, pt_in, pt_out, idx, cdf_len, clock_ghz: float) -> dict:
@@ -2728,9 +2812,9 @@ def generic_device_phase(imgs, card: str):
 
 # ---------------- phase 15: training (stages 1 and 2) ------------------------
 
-TRAIN_STEPS = 30      # stage 1 through build_trainer(...).train_loop()
-FALL_STEPS = 20       # on one fixed batch: the last 5 below the first 5
-SHORT_STEPS = 25      # stage 2, the checkerboard, the GDN model
+TRAIN_STEPS = 20      # stage 1 through build_trainer(...).train_loop()
+FALL_STEPS = 15       # on one fixed batch: the last 5 below the first 5
+SHORT_STEPS = 12      # stage 2, the checkerboard, the GDN model
 WARM_STEPS = 5        # steps left out of the step-time statistics
 RESUME_K = 3          # resume: save at step k, rebuild, run to 2k
 CMP_BATCH = 2         # the card-vs-CPU f32 step (the CPU runs it too)
@@ -3434,7 +3518,7 @@ def training_phase(card: str, profiling: bool = False) -> dict:
 
 # ---------------- phase 16: stage 3, the GAN fine-tune ------------------------
 
-GAN_STEPS = 25        # endurance_stage3.yaml through train_loop
+GAN_STEPS = 12        # endurance_stage3.yaml through train_loop
 GAN_RATE, GAN_BETA = 1.0, 2.56   # the controls of the card-vs-CPU step
 TOP_RATE_STEPS = 6    # steps at each of the top rate and rate 1, in turns
 
@@ -6041,6 +6125,9 @@ def mesh_serve_check(card: str) -> dict:
 
 AOT_SHAPES = ((N_IMG, IMG_H, IMG_W), (1, IMG_H, IMG_W))
 AOT_TURNS = 3        # warm served requests a server, in turns
+# the flagship's package: the device wire at the batch bucket only (the
+# served one-image requests of the cold start run on the compressai wire)
+AOT_FLAGSHIP_SHAPES = {"compressai": AOT_SHAPES, "device": AOT_SHAPES[:1]}
 # the GDN package's bucket for the CPU process (the CPU's passes at 512x768
 # would be most of the phase)
 AOT_CPU_H, AOT_CPU_W = 256, 384
@@ -6132,18 +6219,19 @@ def hold_op_calls(samples, label: str, card: str) -> dict:
     return held
 
 
-def aot_export(model, path: str, wires, label: str, card: str,
-               platforms=("cuda",), shapes=AOT_SHAPES) -> dict:
-    """Record the model's serving round trips at ``shapes`` on each wire
-    (E1 encoding the device wire), export them for ``platforms`` into
-    ``path``; every cuda entry must export.  Returns the figures."""
+def aot_export(model, path: str, wires: dict, label: str, card: str,
+               platforms=("cuda",)) -> dict:
+    """Record the model's serving round trips on each wire of ``wires``
+    ({wire: shapes}; E1 encoding the device wire) at its shapes, export
+    them for ``platforms`` into ``path``; every cuda entry must export.
+    Returns the figures."""
     import torch
 
     from crdr_tpu_torch.runtime.aot import (export_package,
                                             record_serving_roundtrip)
 
     t0 = time.perf_counter()
-    for wire in wires:
+    for wire, shapes in wires.items():
         model.opt["wire_format"] = wire
         model.opt["device_wire_encoder"] = "device"
         model.codec_setup()
@@ -6168,7 +6256,7 @@ def aot_export(model, path: str, wires, label: str, card: str,
            "bytes": sum(e["bytes"] for e in by["cuda"]),
            "cpu_bytes": sum(e["bytes"] for e in by["cpu"]),
            "names": sorted({e["name"] for e in by["cuda"]})}
-    print(f"{label}: recorded {wires} at {shapes} in {res['record_s']:.1f}"
+    print(f"{label}: recorded {wires} in {res['record_s']:.1f}"
           f" s, exported {res['programs']} cuda programs ({res['bytes']} B) "
           f"and {res['cpu_programs']} cpu ({res['cpu_bytes']} B, "
           f"{len(skipped['cpu'])} skipped) in {res['export_s']:.1f} s "
@@ -6232,23 +6320,24 @@ def aot_compare(live, fresh, imgs, wire: str, label: str, expected: dict,
     return {"counts": counts, "held": held, "launches": got_p}, got_p
 
 
-def aot_turns(live, fresh, imgs, wire: str, label: str, card: str) -> dict:
+def aot_turns(live, fresh, imgs, wire: str, label: str, card: str,
+              sizes=(N_IMG, 1)) -> dict:
     """Round trips of ``live`` and ``fresh`` (the package) on ``wire`` in
-    turns, batch 4 and 1: medians of TIMED_RUNS (encode / decode ms) and
-    the last batch-1 decode's parts."""
+    turns, at the batch ``sizes``: medians of TIMED_RUNS (encode / decode
+    ms) and the last decode's parts."""
     set_wire((live, fresh), wire)
-    times = {(k, n): [] for k in ("live", "package") for n in (N_IMG, 1)}
+    times = {(k, n): [] for k in ("live", "package") for n in sizes}
     parts = {}
     for r in range(2 * TIMED_RUNS):
         m, k = ((live, "live"), (fresh, "package"))[(r + r // 2) % 2]
-        for n in (N_IMG, 1):
+        for n in sizes:
             times[k, n].append([v * 1e3 for v in round_trip(m, imgs[:n])[2:]])
         parts[k] = {name: v * 1e3 for name, v in m.last_decode_timing.items()}
     med = {f"{k} batch {n}": [float(v) for v in np.median(t, axis=0)]
            for (k, n), t in times.items()}
     print(f"{label}: encode / decode ms, medians of {TIMED_RUNS} in turns: "
           + ", ".join(f"{k} {v[0]:.1f} / {v[1]:.1f}" for k, v in med.items())
-          + f"; the last batch-1 decode's parts, ms: {parts} [{card}]")
+          + f"; the last decode's parts, ms: {parts} [{card}]")
     return {"ms": med, "decode_parts_ms": parts}
 
 
@@ -6463,9 +6552,9 @@ def aot_child(kind: str, path: str) -> None:
     cpu_check = None
     if kind == "gdn":
         live = build_gdn_model(imgs, card)
-        export = aot_export(live, path, ("compressai",), "aot GDN path",
-                            card, ("cuda", "cpu"),
-                            AOT_SHAPES + ((1, AOT_CPU_H, AOT_CPU_W),))
+        export = aot_export(live, path, {"compressai": AOT_SHAPES + (
+            (1, AOT_CPU_H, AOT_CPU_W),)}, "aot GDN path", card,
+            ("cuda", "cpu"))
         cpu_check = aot_cpu_start(path)
         fresh = build_gdn_model(imgs, card)
         want = {"slice_transform": 0, "lane_decode_round": 0, "gdn": 6,
@@ -6473,8 +6562,8 @@ def aot_child(kind: str, path: str) -> None:
         label = "aot GDN path compressai"
     else:
         live = cb_model(card)
-        export = aot_export(live, path, ("compressai",), "aot checkerboard",
-                            card, shapes=AOT_SHAPES[:1])
+        export = aot_export(live, path, {"compressai": AOT_SHAPES[:1]},
+                            "aot checkerboard", card)
         fresh = cb_model(card)
         want = {"slice_transform": 6 * live.num_slices,
                 "lane_decode_round": 0, "gdn": 0, "lane_encode_rounds": 0}
@@ -6542,7 +6631,7 @@ def aot_phase(imgs, card: str) -> tuple:
             flag = os.path.join(tmp, "flagship")
             live = build_model(card)
             res["flagship_export"] = aot_export(
-                live, flag, ("compressai", "device"), "aot flagship", card)
+                live, flag, AOT_FLAGSHIP_SHAPES, "aot flagship", card)
             servers = cold_start_begin(flag)
             fresh = build_model(card)
             t0 = time.perf_counter()
@@ -6556,7 +6645,8 @@ def aot_phase(imgs, card: str) -> tuple:
                         "lane_decode_round": 0, "gdn": 0,
                         "lane_encode_rounds": 0}
                 res[label], counts[label] = aot_compare(
-                    live, fresh, imgs, wire, label, want, card)
+                    live, fresh, imgs, wire, label, want, card,
+                    batch1=len(AOT_FLAGSHIP_SHAPES[wire]) > 1)
             # phase 23's batch mesh with the package: 8 images, a recorded
             # bucket of 4 a replica
             two = mesh_model(card, [card_device()] * 2, serving_devices=2)
@@ -6593,8 +6683,9 @@ def aot_phase(imgs, card: str) -> tuple:
             children = []
             for wire in ("compressai", "device"):
                 label = f"aot flagship {wire}"
-                res[label].update(aot_turns(live, fresh, imgs, wire, label,
-                                            card))
+                res[label].update(aot_turns(
+                    live, fresh, imgs, wire, label, card,
+                    [b for b, _, _ in AOT_FLAGSHIP_SHAPES[wire]]))
             del live, fresh
             torch.cuda.empty_cache()
             res["cold_start"] = cold_start_end(servers, card)
@@ -6615,6 +6706,8 @@ def aot_phase(imgs, card: str) -> tuple:
 # ---------------- phase 25: JPEG input --------------------------------------
 
 JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+PNG_DIR = os.path.join(ROOT, "tests", "data", "png")
+BMP_DIR = os.path.join(ROOT, "tests", "data", "bmp")
 JPEG_STEPS = 3
 
 
@@ -6625,18 +6718,21 @@ def pixel_sha(img) -> str:
                           .tobytes()).hexdigest()
 
 
-def jpeg_fixtures_check() -> dict:
-    """Every fixture of tests/data/jpeg decoded on both paths, its pixels'
-    sha256 against the digests cv2 (file) and PIL (body) gave; the refused
-    ones raise their reason."""
-    from crdr_tpu_torch.utils.img_utils import read_image
-    from crdr_tpu_torch.utils.jpeg import decode_jpeg
+def fixtures_check(folder: str, twin=None) -> dict:
+    """Every fixture of ``folder`` (tests/data/jpeg, png or bmp) decoded on
+    both paths (``read_image``: cv2's, for files; ``decode_image(...,
+    file_path=False)``: PIL's, for request bodies), its pixels' sha256
+    against the digests cv2 and PIL gave; the refused ones raise their
+    reason.  ``twin(data, name, file_path)``, when given, decodes each
+    fixture under 100 kB again, equal on both paths (the C++ PNG decoder's
+    numpy twin; the 768x512 photos are ``png_decode_timing``'s)."""
+    from crdr_tpu_torch.utils.img_utils import decode_image, read_image
 
-    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+    with open(os.path.join(folder, "digests.json")) as f:
         digests = json.load(f)
-    done = refused = 0
+    done = refused = twins = 0
     for name, want in sorted(digests.items()):
-        path = os.path.join(JPEG_DIR, name)
+        path = os.path.join(folder, name)
         if "raises" in want:
             try:
                 read_image(path)
@@ -6649,14 +6745,56 @@ def jpeg_fixtures_check() -> dict:
                  f"({want['raises']})")
         with open(path, "rb") as f:
             data = f.read()
-        for path_kind, img in (("file", read_image(path)),
-                               ("body", decode_jpeg(data, name))):
+        for path_kind, img in (
+                ("file", read_image(path)),
+                ("body", decode_image(data, name, file_path=False))):
             check(list(img.shape) == want[f"{path_kind}_shape"] and
                   pixel_sha(img) == want[path_kind],
                   f"{name}: the {path_kind} path's pixels differ from "
                   f"{'cv2' if path_kind == 'file' else 'PIL'}'s")
+            if twin is not None and len(data) < 100_000:
+                check(np.array_equal(twin(data, name, path_kind == "file"),
+                                     img),
+                      f"{name}: the numpy twin's {path_kind} pixels differ")
+                twins += 1
         done += 1
-    return {"decoded": done, "refused": refused}
+    return {"decoded": done, "refused": refused, "twin_checked": twins}
+
+
+def png_decode_timing() -> dict:
+    """The C++ PNG decoder on the card's host against its numpy twin, at
+    768x512: PIL's optimized file of the photo and the file every row of
+    which is Paeth (tests/data/png).  ms of the whole decode (chunks,
+    Python's zlib, the pixels) and of the C++ pixels alone, medians of 12
+    after 2 warm-up; the twin's whole decode, median of 2; pixels equal."""
+    from crdr_tpu_torch.utils import png
+
+    res = {}
+    for name in ("photo_768x512_pil.png", "photo_768x512_paeth.png"):
+        with open(os.path.join(PNG_DIR, name), "rb") as f:
+            data = f.read()
+        parsed = png.parse_png(data, name)
+        whole, pixels, plain = [], [], []
+        for _ in range(14):
+            t0 = time.perf_counter()
+            img = png.decode_png(data, name)
+            t1 = time.perf_counter()
+            png.png_pixels(parsed, False, name)
+            whole.append((t1 - t0) * 1e3)
+            pixels.append((time.perf_counter() - t1) * 1e3)
+        for _ in range(2):
+            t0 = time.perf_counter()
+            ref = png.decode_png_plain(data, name)
+            plain.append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(img, ref), f"{name}: the C++ decoder's pixels "
+              "differ from its numpy twin's")
+        res[name] = {"ms": float(np.median(whole[2:])),
+                     "pixels_ms": float(np.median(pixels[2:])),
+                     "plain_ms": float(np.median(plain)),
+                     "rows_by_filter": np.bincount(np.frombuffer(
+                         parsed.data, np.uint8)[::parsed.width * 3 + 1],
+                         minlength=5).tolist()}
+    return res
 
 
 def jpeg_encode_check() -> dict:
@@ -6697,16 +6835,22 @@ def jpeg_served_check(card: str) -> dict:
     (crdr_throughput.yaml, the device wire, E1): its .bin byte-equal to
     the .bin of a PNG of the same pixels; the JPEG body's round trip's
     launches those of phase 4, each kernel's calls held against its
-    twin."""
+    twin.  The 768x512 palette PNG (PIL's, tests/data/png) as a body too:
+    its .bin byte-equal to the .bin of an RGB PNG of its pixels."""
     import torch
 
     from crdr_tpu_torch.serving.http_server import make_server
-    from crdr_tpu_torch.utils.img_utils import decode_png, encode_png
+    from crdr_tpu_torch.utils.img_utils import (decode_image, decode_png,
+                                                encode_png)
     from crdr_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 
     with open(os.path.join(JPEG_DIR, "photo_768x512.jpg"), "rb") as f:
         body = f.read()
     png = encode_png(decode_jpeg(body, "photo_768x512.jpg"))
+    with open(os.path.join(PNG_DIR, "palette_768x512.png"), "rb") as f:
+        pal = f.read()
+    pal_rgb = encode_png(decode_image(pal, "palette_768x512.png",
+                                      file_path=False))
     model, args = serve_model(card, wire="device")
     check(model.device_wire_encoder == "device",
           "the device wire's default encoder is E1")
@@ -6726,6 +6870,8 @@ def jpeg_served_check(card: str) -> dict:
             got = {n: k.launches for n, k in kernels.items()}
         held = hold_served_kernels(samples, "JPEG body", card)
         blob_png = http_post(base + "/compress?q=2.0", png)[0]
+        blob_pal = http_post(base + "/compress?q=2.0", pal)[0]
+        blob_pal_rgb = http_post(base + "/compress?q=2.0", pal_rgb)[0]
     finally:
         srv.shutdown()
         srv.batcher.close()
@@ -6736,6 +6882,8 @@ def jpeg_served_check(card: str) -> dict:
     check(got == want, f"JPEG body round trip: launches {got}, expected "
           f"{want} (phase 4's)")
     check(blob == blob_png, "the JPEG body's .bin != its PNG's")
+    check(blob_pal == blob_pal_rgb, "the palette PNG body's .bin != the "
+          "RGB PNG's of its pixels")
     dec = decode_png(out)
     check(dec.shape == (IMG_H, IMG_W, 3),
           f"JPEG body: decoded {dec.shape}")
@@ -6749,6 +6897,7 @@ def jpeg_served_check(card: str) -> dict:
           "differ")
     mse = float(np.mean((back.astype(np.float64) - dec) ** 2))
     res = {"launches": got, "held": held, "bin_bytes": len(blob),
+           "palette_bin_bytes": len(blob_pal),
            "compress_ms": enc_s * 1e3, "decompress_ms": dec_s * 1e3,
            "recon_jpeg_psnr": 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))}
     del model
@@ -6901,8 +7050,13 @@ def jpeg_phase(card: str) -> tuple:
 
     from crdr_tpu_torch.utils.jpeg import decode_jpeg
 
+    from crdr_tpu_torch.utils.png import decode_png_plain
+
     t_phase = time.perf_counter()
-    res = {"fixtures": jpeg_fixtures_check(), "cpu_count": os.cpu_count()}
+    res = {"fixtures": fixtures_check(JPEG_DIR), "cpu_count": os.cpu_count(),
+           "png_fixtures": fixtures_check(PNG_DIR, decode_png_plain),
+           "bmp_fixtures": fixtures_check(BMP_DIR),
+           "png_decode": png_decode_timing()}
     with open(os.path.join(JPEG_DIR, "photo_768x512.jpg"), "rb") as f:
         data = f.read()
     runs = []
@@ -6931,6 +7085,17 @@ def jpeg_phase(card: str) -> tuple:
           f"{tr['wait_max_ms']:.2f}, first {tr['first_wait_ms']:.1f}); last "
           f"total loss {tr['loss_last']:.4f}; "
           f"phase {res['phase_s']:.1f} s [{card}]")
+    pf, bf, pd = res["png_fixtures"], res["bmp_fixtures"], res["png_decode"]
+    print(f"PNG and BMP input: {pf['decoded']} PNG fixtures' pixels equal "
+          f"to cv2's and PIL's digests on both paths ({pf['twin_checked']} "
+          f"decodes equal to the numpy twin's), {pf['refused']} refused with "
+          f"their reasons; {bf['decoded']} BMP fixtures likewise; the C++ "
+          f"PNG decoder at 768x512, whole decode / its pixels / numpy twin: "
+          + "; ".join(f"{n} (rows by filter {v['rows_by_filter']}) "
+                      f"{v['ms']:.2f} / {v['pixels_ms']:.2f} / "
+                      f"{v['plain_ms']:.1f} ms" for n, v in pd.items())
+          + f" (one host thread); a served palette PNG body's .bin equal to "
+          f"the RGB PNG's of its pixels [{card}]")
     en = res["encoder"]
     print(f"JPEG output: encode_jpeg of the photo's pixels and of their "
           f"JPEG's decode byte-equal to cv2's (sha256 "
@@ -6988,6 +7153,8 @@ def main() -> None:
             ("k1_", "lane_decode_round_kernel"))
     k2 = timed("k2", k2_phase, recorded, 1 + model.num_slices, card,
                ptxas["lane_decode"])
+    _, counts_actv = timed("slice actv", slice_actv_check, model, imgs, y_c,
+                           card)
     print(f"both wires, batch {N_IMG}, medians: compressai encode "
           f"{times_c['encode_ms']:.1f} / decode {times_c['decode_ms']:.1f} ms; "
           f"device encode {times_d['encode_ms']:.1f} / decode "
@@ -7062,7 +7229,7 @@ def main() -> None:
                 "flagship device encoder": counts_f, **counts_cb,
                 **counts_gw, **counts_tr, **counts_sv, **counts_ev,
                 **counts_fam, **counts_dp, **counts_mesh, **counts_aot,
-                **counts_jpeg}
+                **counts_jpeg, **counts_actv}
     print(json.dumps({"kernels": [{
         "name": "slice_transform", "route": "cuda",
         "source": "crdr_tpu_torch/csrc/slice_transform.cu",

@@ -13,8 +13,8 @@ Endpoints (``crdr_tpu_torch/serving/http_server.py``):
 
 Concurrent requests with the same image size coalesce into one batched
 dispatch; each image keeps its own q / beta.  Every kernel library the
-model's path launches, and the host's JPEG decoder, is built before the
-server listens.  A body is PNG, JPEG or BMP; a JPEG decodes to PIL's
+model's path launches, and the host's JPEG and PNG decoders, is built
+before the server listens.  A body is PNG, JPEG or BMP, decoded to PIL's
 pixels, as in the JAX server.
 
 Several devices: the config's ``serving_devices`` / ``serving_partition``
@@ -42,7 +42,7 @@ from ..models import build_comp_model
 from ..models.codec import serving_mesh
 from ..runtime.aot import load_package
 from ..runtime.cache import warm_kernel_cache
-from ..utils import jpeg
+from ..utils import jpeg, png
 from ..utils.config import Config
 
 logger = logging.getLogger("crdr_tpu_torch.cli.serve")
@@ -112,7 +112,8 @@ def main(argv=None) -> None:
     logging.basicConfig(level=logging.INFO, datefmt="%H:%M:%S",
                         format="%(asctime)s %(levelname)s: %(message)s")
     model = build_model(args)
-    jpeg.build()
+    jpeg.build()  # the host image decoders a request body may need
+    png.build()
     srv = make_server(model, host=args.host, port=args.port,
                       max_batch=args.max_batch,
                       max_wait_s=args.max_wait_ms / 1e3,

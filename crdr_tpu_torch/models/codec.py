@@ -466,9 +466,12 @@ class CodecMixin:
         self.zC = hyp.get("bottleneck_z", hyp.get("out_ch", 192))
         self.y_stride, self.model_stride = 16, 64
 
-        # K1 on/off: the config key is the only switch (as in JAX)
+        # K1 on/off: the config key is the only switch (as in JAX); K1 runs
+        # ReLU SliceTransforms only (JAX's charm_uniform.py:101)
         self.fused_slice_kernel = self.opt.get("fused_slice_kernel") in (
             True, 1, "1")
+        self.slice_actv = dict((sub.get("context_model") or {}).get(
+            "slice_transform_kwargs") or {}).get("actv", "relu")
         if self.use_charm:
             pack = pack_cb_weights if self._is_checkerboard \
                 else pack_charm_weights
@@ -478,7 +481,7 @@ class CodecMixin:
                 self.max_support_slices)
             self._packed = {k: torch.from_numpy(v).to(self.device)
                             for k, v in packed.items()}
-            if self.fused_slice_kernel:
+            if self.fused_slice_kernel and self.slice_actv == "relu":
                 self._packed.update(kernel_stacks(self._packed))
 
         tdt = self.transform_dtype
@@ -499,7 +502,8 @@ class CodecMixin:
 
     def _step_args(self):
         return (self._table, self.scale_bound, self.num_slices, self.slice_ch,
-                self.max_support_slices, self.fused_slice_kernel)
+                self.max_support_slices, self.fused_slice_kernel,
+                self.slice_actv)
 
     # ---------------- device programs (NHWC at the boundaries) -----------------
 
@@ -684,7 +688,7 @@ class CodecMixin:
     def _reconstruct_last(self, hm, support, sym, mu) -> Tensor:
         return uniform_reconstruct_last(
             self._packed, hm, support, sym, mu, self.num_slices,
-            self.fused_slice_kernel)
+            self.fused_slice_kernel, self.slice_actv)
 
     def _charm_replay(self, y: Tensor, z_sym: Tensor):
         """Charm encode by replay of the decode chain (module doc): per
@@ -771,7 +775,7 @@ class CodecMixin:
         y_prev, support, mu, sigma, idx = cb_phase_a(
             self._packed, i, hm, hs, support, sym_grid, y_a, mu_c,
             self._table, self.scale_bound, self.num_slices, self.slice_ch,
-            self.max_support_slices, self.fused_slice_kernel)
+            self.max_support_slices, self.fused_slice_kernel, self.slice_actv)
         return y_prev, support, mu, sigma, self._cb_gather(idx, a_ids)
 
     @program("cb_b_dev")
@@ -809,7 +813,8 @@ class CodecMixin:
         y_hat NHWC."""
         y_last = cb_reconstruct_last(
             self._packed, hm, support, self._cb_scatter(sym_na, na_ids, hm),
-            y_a, mu_c, self.num_slices, self.fused_slice_kernel)
+            y_a, mu_c, self.num_slices, self.fused_slice_kernel,
+            self.slice_actv)
         return torch.cat(list(y_slices) + [y_last], dim=-1)
 
     @program("cb_replay_pack")
@@ -823,7 +828,8 @@ class CodecMixin:
         y_hat), NHWC."""
         y_last = cb_reconstruct_last(
             self._packed, hm, support, self._cb_scatter(sym_na, na_ids, hm),
-            y_a, mu_c, self.num_slices, self.fused_slice_kernel)
+            y_a, mu_c, self.num_slices, self.fused_slice_kernel,
+            self.slice_actv)
         y_hat = torch.cat(list(y_slices) + [y_last], dim=-1)
         anchor = anchor_mask(hm.shape[1], hm.shape[2], torch.bool,
                              hm.device)[None, :, :, None]

@@ -4,8 +4,8 @@ every slice.
 Counterpart of ``crdr_tpu/ops/cb_uniform.py`` (``pack_cb_weights``,
 ``cb_phase_a``, ``cb_phase_b``, ``cb_reconstruct_last``).  The mean, scale
 and LRP SliceTransforms share Charm's packed, zero-padded layout
-(``ops/charm_uniform.py``; with ``fused_slice_kernel`` they run K1); the
-per-slice spatial 5x5 convs are stacked.  NHWC tensors.
+(``ops/charm_uniform.py``; with ``fused_slice_kernel`` and ReLU they run
+K1); the per-slice spatial 5x5 convs are stacked.  NHWC tensors.
 
 Reconstruction contract:
   y_a  = (sym_a + mu) * amask
@@ -66,7 +66,8 @@ def cb_phase_a(packed: Mapping[str, Tensor], slice_idx: int,
                hyper_mean: Tensor, hyper_scale: Tensor, support_buf: Tensor,
                sym_na_prev: Tensor, y_a_prev: Tensor, mu_c_prev: Tensor,
                scale_table: Tensor, scale_bound: float, num_slices: int,
-               slice_ch: int, max_support: int, fused: bool = False
+               slice_ch: int, max_support: int, fused: bool = False,
+               actv: str = "relu"
                ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """For ``slice_idx = i`` (0 <= i < num_slices):
 
@@ -84,14 +85,14 @@ def cb_phase_a(packed: Mapping[str, Tensor], slice_idx: int,
         prev = i - 1
         lrp_in = torch.cat([hyper_mean, support_buf, y_prev], dim=-1)
         y_prev = y_prev + 0.5 * torch.tanh(
-            _slice_transform(packed, "lrp", prev, lrp_in, fused))
+            _slice_transform(packed, "lrp", prev, lrp_in, fused, actv))
         if prev < max_support:
             support_buf[..., prev * slice_ch:(prev + 1) * slice_ch] = y_prev
     cur = min(i, num_slices - 1)
     mean_in = torch.cat([hyper_mean, support_buf], dim=-1)
     scale_in = torch.cat([hyper_scale, support_buf], dim=-1)
-    mu = _slice_transform(packed, "mean", cur, mean_in, fused)
-    sigma = _slice_transform(packed, "scale", cur, scale_in, fused)
+    mu = _slice_transform(packed, "mean", cur, mean_in, fused, actv)
+    sigma = _slice_transform(packed, "scale", cur, scale_in, fused, actv)
     return (y_prev, support_buf, mu, sigma,
             build_indexes(sigma, scale_table, scale_bound))
 
@@ -117,11 +118,11 @@ def cb_phase_b(packed: Mapping[str, Tensor], slice_idx: int, sym_a: Tensor,
 
 def cb_reconstruct_last(packed: Mapping[str, Tensor], hyper_mean: Tensor,
                         support_buf: Tensor, sym_na: Tensor, y_a: Tensor,
-                        mu_c: Tensor, num_slices: int, fused: bool = False
-                        ) -> Tensor:
+                        mu_c: Tensor, num_slices: int, fused: bool = False,
+                        actv: str = "relu") -> Tensor:
     """Finish the LAST slice: non-anchor reconstruct + LRP, the ``y_prev``
     of ``cb_phase_a`` at ``slice_idx == num_slices``."""
     y_prev = y_a + (sym_na + mu_c) * (1.0 - _amask(hyper_mean))
     lrp_in = torch.cat([hyper_mean, support_buf, y_prev], dim=-1)
     return y_prev + 0.5 * torch.tanh(_slice_transform(
-        packed, "lrp", num_slices - 1, lrp_in, fused))
+        packed, "lrp", num_slices - 1, lrp_in, fused, actv))

@@ -29,6 +29,7 @@ import numpy as np
 
 import torch
 
+from ..subnet.context_model.charm import activation
 from .slice_transform import _conv_nhwc, fits_fused, slice_transform
 
 Tensor = torch.Tensor
@@ -83,12 +84,14 @@ def kernel_stacks(packed: Mapping[str, Tensor]) -> Dict[str, Tensor]:
 
 
 def _slice_transform(packed: Mapping[str, Tensor], kind: str, idx: int,
-                     x: Tensor, fused: bool = False) -> Tensor:
-    """SliceTransform ``kind`` of slice ``idx`` on NHWC ``x`` (ReLU
-    activations).  ``fused`` (config ``fused_slice_kernel``) takes the K1
-    kernel where JAX takes its Pallas kernel: latents within ``fits_fused``;
-    else f32 convolutions."""
-    if fused and fits_fused(x.shape[1], x.shape[2]):
+                     x: Tensor, fused: bool = False,
+                     actv: str = "relu") -> Tensor:
+    """SliceTransform ``kind`` of slice ``idx`` on NHWC ``x``, activation
+    ``actv`` (``subnet/context_model/charm.py::ACTIVATIONS``).  ``fused``
+    (config ``fused_slice_kernel``) takes the K1 kernel where JAX takes its
+    Pallas kernel: ReLU, latents within ``fits_fused``; else f32
+    convolutions."""
+    if fused and actv == "relu" and fits_fused(x.shape[1], x.shape[2]):
         return slice_transform(
             x, packed[f"{kind}0_wk"], packed[f"{kind}0_b"],
             packed[f"{kind}2_wk"], packed[f"{kind}2_b"],
@@ -98,21 +101,23 @@ def _slice_transform(packed: Mapping[str, Tensor], kind: str, idx: int,
         return _conv_nhwc(v, packed[f"{kind}{tag}_w"][idx],
                           packed[f"{kind}{tag}_b"][idx], pad)
 
-    h = torch.relu(conv(x, "0", 2))
-    h = torch.relu(conv(h, "2", 2))
+    act = activation(actv)
+    h = act(conv(x, "0", 2))
+    h = act(conv(h, "2", 2))
     return conv(h, "4", 1).contiguous()
 
 
 def uniform_reconstruct_last(packed: Mapping[str, Tensor], hyper_mean: Tensor,
                              support_buf: Tensor, sym_prev: Tensor,
                              mu_prev: Tensor, num_slices: int,
-                             fused: bool = False) -> Tensor:
+                             fused: bool = False,
+                             actv: str = "relu") -> Tensor:
     """Reconstruct the FINAL slice (dequantize + LRP) with the same padded
     input layout as the step, so encoder and decoder agree to the bit."""
     y_prev = sym_prev + mu_prev
     lrp_in = torch.cat([hyper_mean, support_buf, y_prev], dim=-1)
     lrp = 0.5 * torch.tanh(_slice_transform(packed, "lrp", num_slices - 1,
-                                            lrp_in, fused))
+                                            lrp_in, fused, actv))
     return y_prev + lrp
 
 
@@ -121,7 +126,8 @@ def uniform_decode_step(packed: Mapping[str, Tensor], slice_idx: int,
                         support_buf: Tensor, sym_prev: Tensor,
                         mu_prev: Tensor, scale_table: Tensor,
                         scale_bound: float, num_slices: int, slice_ch: int,
-                        max_support: int, fused: bool = False
+                        max_support: int, fused: bool = False,
+                        actv: str = "relu"
                         ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One serial-decode step, shape-uniform across slices (NHWC tensors).
 
@@ -139,15 +145,15 @@ def uniform_decode_step(packed: Mapping[str, Tensor], slice_idx: int,
         prev = i - 1
         lrp_in = torch.cat([hyper_mean, support_buf, y_prev], dim=-1)
         y_prev = y_prev + 0.5 * torch.tanh(
-            _slice_transform(packed, "lrp", prev, lrp_in, fused))
+            _slice_transform(packed, "lrp", prev, lrp_in, fused, actv))
         if prev < max_support:
             support_buf[..., prev * slice_ch:(prev + 1) * slice_ch] = y_prev
 
     cur = min(i, num_slices - 1)
     mean_in = torch.cat([hyper_mean, support_buf], dim=-1)
     scale_in = torch.cat([hyper_scale, support_buf], dim=-1)
-    mu = _slice_transform(packed, "mean", cur, mean_in, fused)
-    sigma = _slice_transform(packed, "scale", cur, scale_in, fused)
+    mu = _slice_transform(packed, "mean", cur, mean_in, fused, actv)
+    sigma = _slice_transform(packed, "scale", cur, scale_in, fused, actv)
     sigma = torch.clamp(sigma, min=scale_bound)
     indexes = torch.clamp(
         torch.searchsorted(scale_table, sigma, right=False),

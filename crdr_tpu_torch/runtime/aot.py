@@ -26,8 +26,10 @@ named after its JAX program.  A dispatch
 
 The signature key is the program name, the argument tree, each tensor's
 (shape, dtype, device), each Python scalar's value (``torch.export``
-specialises them, e.g. a slice index), the model's device, and the numerics
-the call runs under: the TF32 flags of its precision section, cuDNN's
+specialises them, e.g. a slice index), the model's device, the
+SliceTransform activation its chain traces (``slice_actv``: a package of a
+``gelu`` model does not serve a ``relu`` one), and the numerics the call
+runs under: the TF32 flags of its precision section, cuDNN's
 ``deterministic`` / ``benchmark`` / ``enabled``, and grad mode.  Those flags
 are process-wide and read by each convolution and matmul when it runs, not
 traced into a graph, so an exported program runs inside the same section as
@@ -178,16 +180,17 @@ def _key_str(name: str, owner, args: Tuple) -> str:
     call's arguments, under the same numerics."""
     leaves, spec = pytree.tree_flatten(args)
     return json.dumps([name, _dev(torch.device(owner.device)), _numerics(),
-                       str(spec), [_leaf_sig(v) for v in leaves]])
+                       str(spec), [_leaf_sig(v) for v in leaves],
+                       getattr(owner, "slice_actv", "relu")])
 
 
 def _moved_key(key: str, device: str, src: Optional[str] = None) -> str:
     """The key of the same call with the model, and every tensor on ``src``
     (every tensor when None), on ``device``."""
-    name, _, flags, spec, leaves = json.loads(key)
+    name, _, flags, spec, leaves, *rest = json.loads(key)
     leaves = [v[:3] + [device] if v[0] == "t" and src in (None, v[3]) else v
               for v in leaves]
-    return json.dumps([name, device, flags, spec, leaves])
+    return json.dumps([name, device, flags, spec, leaves, *rest])
 
 
 def _tensor_sig(t: torch.Tensor) -> list:

@@ -16,26 +16,55 @@ minnen20_charm_context_model.py:41-240), NCHW:
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...nn import Conv2d
 from ...utils.registry import CONTEXTMODEL_REGISTRY
 
+# JAX's ``_ACTV`` (``slice_transform_kwargs: {actv: ...}``): flax's gelu is
+# the tanh approximation, lrelu's slope 0.2
+ACTIVATIONS = {
+    "relu": torch.relu,
+    "gelu": functools.partial(F.gelu, approximate="tanh"),
+    "lrelu": functools.partial(F.leaky_relu, negative_slope=0.2),
+}
+
+
+def activation(actv: str) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The SliceTransform activation ``actv`` as a function."""
+    if actv not in ACTIVATIONS:
+        raise ValueError(f"SliceTransform actv {actv!r}: one of "
+                         f"{sorted(ACTIVATIONS)}")
+    return ACTIVATIONS[actv]
+
+
+class Activation(nn.Module):
+    """``activation(actv)`` as a module (it holds no parameter)."""
+
+    def __init__(self, actv: str):
+        super().__init__()
+        self.actv, self.fn = actv, activation(actv)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x)
+
+    def extra_repr(self) -> str:
+        return self.actv
+
 
 class SliceTransform(nn.Module):
-    """ReLU activations: the other ``actv`` values of the JAX package are
-    used by no config and are not ported."""
+    """conv5 -> actv -> conv5 -> actv -> conv3 (``ACTIVATIONS``)."""
 
     def __init__(self, in_ch: int, out_ch: int, actv: str = "relu"):
         super().__init__()
-        if actv != "relu":
-            raise NotImplementedError(f"SliceTransform actv {actv!r}")
         self.model = nn.Sequential(
-            Conv2d(in_ch, 224, 5, 1, 2), nn.ReLU(),
-            Conv2d(224, 128, 5, 1, 2), nn.ReLU(),
+            Conv2d(in_ch, 224, 5, 1, 2), Activation(actv),
+            Conv2d(224, 128, 5, 1, 2), Activation(actv),
             Conv2d(128, out_ch, 3, 1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

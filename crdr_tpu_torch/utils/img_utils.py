@@ -2,19 +2,17 @@
 (uint8-rounded) and MS-SSIM, and image I/O, with the JAX package's exact
 formulas (its own copy of ``crdr_tpu/utils/img_utils.py``).
 
-The JAX package reads and writes images through cv2, which the GPU machines
-the port runs on do not have (nor PIL).  The port reads files as
-``cv2.imread`` does, by their magic bytes and not their suffix: 8-bit PNG
-(through the standard library's ``zlib``), JPEG (``utils/jpeg.py``, EXIF
-orientation applied) and 24- / 32-bit uncompressed BMP.  It writes PNG,
-and JPEG byte-equal to ``cv2.imwrite`` (``utils/jpeg.py::encode_jpeg``).
+The JAX package reads and writes images through cv2 and PIL, which the GPU
+machines the port runs on do not have.  The port reads files as
+``cv2.imread`` does and request bodies as PIL does, by their magic bytes and
+not their suffix: PNG (``utils/png.py``), JPEG (``utils/jpeg.py``) and BMP
+(``utils/bmp.py``), EXIF orientation applied to a file.  It writes PNG, and
+JPEG and BMP byte-equal to ``cv2.imwrite``.
 """
 
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 from typing import Tuple, Union
 
 import numpy as np
@@ -22,8 +20,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .bmp import BMP_MAGIC, decode_bmp, encode_bmp  # noqa: F401
 from .device import resolve_device
 from .jpeg import JPEG_MAGIC, decode_jpeg, encode_jpeg
+from .png import (PNG_SIGNATURE, decode_png, encode_png,  # noqa: F401
+                  read_png, write_png)
 
 # ---------------------------------------------------------------------------
 # range conversion
@@ -163,175 +164,22 @@ def calc_ms_ssim(real, fake, device: Union[str, torch.device, None] = None
 
 
 # ---------------------------------------------------------------------------
-# 8-bit PNG I/O (stdlib zlib; no cv2, no PIL)
+# image I/O (utils/png.py, utils/jpeg.py, utils/bmp.py; no cv2, no PIL)
 # ---------------------------------------------------------------------------
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # gray, RGB, gray+alpha, RGBA
-
-
-def _png_chunks(data: bytes, path: str):
-    pos = len(_PNG_SIGNATURE)
-    while pos + 8 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        crc = data[pos + 8 + length:pos + 12 + length]
-        if len(body) != length or len(crc) != 4:
-            raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
-        if struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
-            raise ValueError(f"{path}: CRC mismatch in PNG chunk {kind!r}")
-        yield kind, body
-        if kind == b"IEND":
-            return
-        pos += 12 + length
-    raise ValueError(f"{path}: PNG without IEND")
-
-
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
-
-
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str
-              ) -> np.ndarray:
-    """Undo the per-row PNG filters (None, Sub, Up, Average, Paeth) of
-    ``raw`` (h rows of a filter byte + ``stride`` bytes)."""
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"{path}: PNG image data of {len(raw)} bytes, "
-                         f"expected {h * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.zeros((h, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for r in range(h):
-        kind, line = int(rows[r, 0]), rows[r, 1:]
-        if kind == 0:
-            cur = line.copy()
-        elif kind == 1:  # Sub: a running sum mod 256 along each channel
-            cur = np.cumsum(line.reshape(-1, bpp).astype(np.int64), axis=0) \
-                .astype(np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            cur = line + prev
-        elif kind in (3, 4):  # Average / Paeth: serial along the row
-            cur_b, up, filt = bytearray(stride), prev.tolist(), line.tolist()
-            for i in range(stride):
-                a = cur_b[i - bpp] if i >= bpp else 0
-                if kind == 3:
-                    pred = (a + up[i]) >> 1
-                else:
-                    pred = _paeth(a, up[i], up[i - bpp] if i >= bpp else 0)
-                cur_b[i] = (filt[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur_b), np.uint8)
-        else:
-            raise ValueError(f"{path}: unknown PNG row filter {kind}")
-        out[r] = cur
-        prev = out[r]
-    return out
-
-
-def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
-    """The bytes of an 8-bit non-interlaced PNG (gray, gray+alpha, RGB or
-    RGBA) -> uint8 [H, W, 3] RGB: alpha dropped, gray expanded.  Chunk CRCs
-    are checked; other bit depths, palettes and interlacing raise a
-    ``ValueError`` that starts with ``name``."""
-    if not data.startswith(_PNG_SIGNATURE):
-        raise ValueError(f"{name}: not a PNG file")
-    header, idat = None, []
-    for kind, body in _png_chunks(data, name):
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    if header is None:
-        raise ValueError(f"{name}: PNG without IHDR")
-    w, h, depth, color, _comp, _filt, interlace = header
-    if depth != 8 or color not in _PNG_CHANNELS or interlace:
-        raise ValueError(f"{name}: only 8-bit non-interlaced gray / RGB / "
-                         f"RGBA PNG is read (bit depth {depth}, color type "
-                         f"{color}, interlace {interlace})")
-    ch = _PNG_CHANNELS[color]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch, name)
-    img = img.reshape(h, w, ch)
-    if ch <= 2:
-        return np.repeat(img[..., :1], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
-
-
-def encode_png(img: np.ndarray) -> bytes:
-    """uint8 [H, W, 3] RGB -> the bytes of an 8-bit RGB PNG (row filter 0)."""
-    img = np.ascontiguousarray(img, np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"encode_png takes uint8 [H, W, 3], got {img.shape}")
-    h, w, _ = img.shape
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
-                         axis=1).tobytes()
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body \
-            + struct.pack(">I", zlib.crc32(kind + body))
-
-    return (_PNG_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw, 6))
-            + chunk(b"IEND", b""))
-
-
-def read_png(path: str) -> np.ndarray:
-    """``decode_png`` of a file; errors name the path."""
-    with open(path, "rb") as f:
-        return decode_png(f.read(), path)
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """uint8 [H, W, 3] RGB -> an 8-bit RGB PNG file (``encode_png``)."""
-    data = encode_png(img)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(data)
-
-
-def decode_bmp(data: bytes, name: str = "BMP data") -> np.ndarray:
-    """The bytes of a 24- or 32-bit uncompressed BMP (bottom-up or top-down;
-    BI_RGB, or BI_BITFIELDS with the usual BGRA masks) -> uint8 [H, W, 3]
-    RGB, as ``cv2.imread`` gives it (a 32-bit BMP's fourth byte dropped).
-    Other BMPs raise a ``ValueError`` that starts with ``name``."""
-    if len(data) < 54 or data[:2] != b"BM":
-        raise ValueError(f"{name}: not a BMP file")
-    offset = struct.unpack_from("<I", data, 10)[0]
-    hsize, w, h, _planes, bpp, comp = struct.unpack_from("<IiiHHI", data, 14)
-    masks_ok = comp == 3 and bpp == 32 and len(data) >= 66 and \
-        struct.unpack_from("<III", data, 54) == (0xFF0000, 0xFF00, 0xFF)
-    if hsize < 40 or bpp not in (24, 32) or not (comp == 0 or masks_ok) \
-            or w <= 0 or h == 0:
-        raise ValueError(f"{name}: only 24- / 32-bit uncompressed BMP is "
-                         f"read (header {hsize}, {bpp} bits, compression "
-                         f"{comp}, {w}x{h})")
-    ch = bpp // 8
-    stride = (w * ch + 3) & ~3
-    rows = abs(h)
-    if len(data) < offset + stride * rows:
-        raise ValueError(f"{name}: truncated BMP pixel data")
-    px = np.frombuffer(data, np.uint8, stride * rows, offset)
-    px = px.reshape(rows, stride)[:, :w * ch].reshape(rows, w, ch)
-    if h > 0:  # bottom-up
-        px = px[::-1]
-    return np.ascontiguousarray(px[..., 2::-1])
-
 
 def decode_image(data: bytes, name: str = "image data",
                  file_path: bool = True) -> np.ndarray:
     """PNG, JPEG or BMP bytes (told apart by their magic bytes) -> uint8
-    [H, W, 3] RGB.  A JPEG decodes as ``cv2.imread`` reads a file, EXIF
-    orientation applied, or with ``file_path`` False as PIL's
-    ``convert("RGB")`` reads a request body (``utils/jpeg.py``)."""
-    if data.startswith(_PNG_SIGNATURE):
-        return decode_png(data, name)
+    [H, W, 3] RGB, as ``cv2.imread`` reads a file (EXIF orientation
+    applied) or, with ``file_path`` False, as PIL's ``convert("RGB")``
+    reads a request body (``utils/png.py``, ``utils/jpeg.py``,
+    ``utils/bmp.py``)."""
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data, name, file_path=file_path)
     if data.startswith(JPEG_MAGIC):
         return decode_jpeg(data, name, file_path=file_path)
-    if data.startswith(b"BM"):
-        return decode_bmp(data, name)
+    if data.startswith(BMP_MAGIC):
+        return decode_bmp(data, name, file_path=file_path)
     raise ValueError(f"{name}: not a PNG, JPEG or BMP file")
 
 
@@ -349,19 +197,19 @@ def imread(path: str) -> np.ndarray:
 
 def imwrite(path: str, img) -> None:
     """Write a [-1,1] float image (HWC or 1HWC) by its extension: ``.png``
-    as an RGB PNG, ``.jpg`` / ``.jpeg`` as the JPEG ``cv2.imwrite`` writes
-    at its defaults (the JAX package's ``imwrite``); another extension
-    raises."""
+    as an RGB PNG, ``.jpg`` / ``.jpeg`` and ``.bmp`` as ``cv2.imwrite``
+    writes them at its defaults, byte for byte (the JAX package's
+    ``imwrite``); another extension raises."""
     ext = os.path.splitext(path)[1].lower()
-    if ext not in (".png", ".jpg", ".jpeg"):
-        raise ValueError(f"{path}: the port writes .png, .jpg and .jpeg")
+    encode = {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg,
+              ".bmp": encode_bmp}.get(ext)
+    if encode is None:
+        raise ValueError(f"{path}: the port writes .png, .jpg, .jpeg and "
+                         ".bmp")
     arr = np.asarray(img)
     if arr.ndim == 4:
         arr = arr[0]
-    u8 = tensor_to_uint8(arr)
-    if ext == ".png":
-        write_png(path, u8)
-        return
+    data = encode(tensor_to_uint8(arr))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
-        f.write(encode_jpeg(u8))
+        f.write(data)

@@ -83,7 +83,7 @@ def _get_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     """cv2's ``ExifTransform``: EXIF orientation 2-8 -> the upright image."""
     if orientation in (5, 6, 7, 8):
         img = img.transpose(1, 0, 2)
@@ -114,7 +114,7 @@ def decode_jpeg(data: bytes, name: str = "JPEG data",
             (h.value, w.value, 3)).copy()
     finally:
         lib.crdr_jpeg_free(ptr)
-    return _orient(img, orientation.value) if file_path else img
+    return orient(img, orientation.value) if file_path else img
 
 
 

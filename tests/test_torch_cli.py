@@ -116,9 +116,9 @@ def test_png_errors(tmp_path):
     with pytest.raises(ValueError, match="CRC"):
         img_utils.read_png(bad)
     # a JPEG reads as cv2.imread reads it (tests/test_torch_jpeg.py holds
-    # the decoder); imwrite writes a .jpeg as cv2.imwrite does
-    # (tests/test_torch_jpeg_write.py holds the encoder) and refuses a
-    # format it does not write
+    # the decoder); imwrite writes a .jpeg and a .bmp as cv2.imwrite does
+    # (tests/test_torch_jpeg_write.py and tests/test_torch_bmp.py hold the
+    # encoders) and refuses a format it does not write
     jpg = str(tmp_path / "photo.jpg")
     photo = np.random.default_rng(1).integers(0, 256, (8, 8, 3), np.uint8)
     assert cv2.imwrite(jpg, photo)
@@ -131,8 +131,13 @@ def test_png_errors(tmp_path):
                        img_utils.tensor_to_uint8(flat)[..., ::-1])
     assert (tmp_path / "out.jpeg").read_bytes() == \
         (tmp_path / "cv2.jpeg").read_bytes()
-    with pytest.raises(ValueError, match="out.bmp"):
-        img_utils.imwrite(str(tmp_path / "out.bmp"), flat)
+    img_utils.imwrite(str(tmp_path / "out.bmp"), flat)
+    assert cv2.imwrite(str(tmp_path / "cv2.bmp"),
+                       img_utils.tensor_to_uint8(flat)[..., ::-1])
+    assert (tmp_path / "out.bmp").read_bytes() == \
+        (tmp_path / "cv2.bmp").read_bytes()
+    with pytest.raises(ValueError, match="out.gif"):
+        img_utils.imwrite(str(tmp_path / "out.gif"), flat)
 
 
 # ---------------- .bin container --------------------------------------------------

@@ -1,7 +1,7 @@
 """The port stands alone: no file of crdr_tpu_torch/ nor chip_smoke.py imports
 JAX, flax, the JAX package, cv2 or PIL (absent where the port runs; the
-port reads PNG, JPEG and BMP itself), and importing the port leaves them
-unloaded."""
+port reads PNG, JPEG and BMP itself), importing the port leaves them
+unloaded, and the PNG decoder builds from standard C++ headers alone."""
 
 import ast
 import os
@@ -44,6 +44,19 @@ def test_no_jax_imports(path):
         assert top not in FORBIDDEN, f"{path} imports {name}"
 
 
+def test_png_decoder_needs_only_standard_headers():
+    """``runtime/csrc/png.cpp`` includes only standard C++ headers (no
+    libpng's ``png.h``, no ``zlib.h``: Python's zlib inflates), so the
+    card's machine builds it from the repository's sources alone."""
+    std = {"algorithm", "cstdint", "cstdio", "cstdlib", "cstring",
+           "stdexcept", "string", "vector"}
+    with open(os.path.join(ROOT, "crdr_tpu_torch", "runtime", "csrc",
+                           "png.cpp")) as f:
+        includes = [line.split()[1].strip("<>\"") for line in f
+                    if line.startswith("#include")]
+    assert includes and set(includes) <= std, includes
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
@@ -55,6 +68,7 @@ def test_importing_the_port_loads_no_jax():
         "import crdr_tpu_torch.cli.serve, crdr_tpu_torch.cli.serve_smoke\n"
         "import crdr_tpu_torch.runtime.cache, crdr_tpu_torch.data\n"
         "import crdr_tpu_torch.utils.jpeg, crdr_tpu_torch.utils.img_utils\n"
+        "import crdr_tpu_torch.utils.png, crdr_tpu_torch.utils.bmp\n"
         "import crdr_tpu_torch.cli.compress, crdr_tpu_torch.cli.calc_metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

@@ -14,7 +14,8 @@ BMP reader against cv2 and PIL, on the CPU; tolerance 0 throughout.
 * ``imread`` reads a JPEG by its magic bytes, whatever its suffix, and
   decodes in several threads at once.
 * 24- and 32-bit BMPs, bottom-up and top-down: equal to ``cv2.imread``;
-  other BMPs and unknown formats raise.
+  a bit count cv2 refuses, a truncated BMP and unknown formats raise (the
+  other BMP variants: ``tests/test_torch_bmp.py``).
 """
 
 import hashlib
@@ -213,8 +214,10 @@ def test_bmp_matches_cv2(tmp_path, bpp, top_down):
 
 def test_bmp_and_unknown_formats_raise(tmp_path):
     data = bytearray(_bmp(np.zeros((4, 4, 3), np.uint8), 24, False))
-    data[28] = 8  # 8 bits a pixel: a palette BMP
-    with pytest.raises(ValueError, match="24- / 32-bit"):
+    data[28] = 2  # 2 bits a pixel: a bit count cv2 refuses too
+    assert cv2.imdecode(np.frombuffer(bytes(data), np.uint8),
+                        cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="2-bit BMP"):
         img_utils.decode_bmp(bytes(data), "pal.bmp")
     with pytest.raises(ValueError, match="truncated BMP"):
         img_utils.decode_bmp(_bmp(np.zeros((4, 4, 3), np.uint8), 24,

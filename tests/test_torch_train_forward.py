@@ -64,8 +64,9 @@ def _nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
-def _models(case):
-    """(port model, JAX model, JAX params) on the same weights."""
+def _models(case, actv=None):
+    """(port model, JAX model, JAX params) on the same weights; ``actv``
+    sets the context model's SliceTransform activation."""
     if case == "balle18":
         jm = jax_build(balle18_config(JaxConfig))
         jm.init_params(input_size=64)
@@ -87,6 +88,9 @@ def _models(case):
         opt["subnet"]["entropy_model_z"]["type"] = "EntropyBottleneck"
     elif extra is not None:
         opt["subnet"]["context_model"] = dict(extra)
+    if actv is not None:
+        opt["subnet"]["context_model"]["slice_transform_kwargs"] = {
+            "actv": actv}
     opt = Config(opt)
     pm = port_model(opt)
     jm, params = jax_params(pm, opt)
@@ -125,7 +129,12 @@ def _rel_l2(a, b):
                                   "hyperprior_ste", "hyperprior_plain",
                                   "balle18"])
 def test_training_forward_loss_and_gradients_match_jax(case):
-    pm, jm, params = _models(case)
+    check_training_forward(*_models(case))
+
+
+def check_training_forward(pm, jm, params) -> None:
+    """The port's training forward, loss, gradients and aux loss against
+    JAX's on the same weights and noise (module doc)."""
     x = uint8_to_tensor(images(2, 64, 64, 5))
     rate_opt = VAR_RATE if pm.use_rate else RATE
     kw = {}
