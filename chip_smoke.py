@@ -370,14 +370,23 @@ Phases, each asserted (any failure exits non-zero):
    decoders built with the others in phase 1) on the file path and the
    body path, the pixels' sha256 equal to the digests cv2 and PIL gave,
    the refused ones raising their reason, each small PNG equal through the
-   C++ decoder's numpy twin; the JPEG decoder's ms at 768x512 (a Mpix);
+   C++ decoder's numpy twin; the truncated JPEGs read on the file path as
+   cv2 reads them (also through OpenImageImageDataset) and refused on the
+   body path; every fixture of tests/data/webp, gif, pnm and tiff decoded
+   on the body path to PIL's digest (the WebP and LZW decoders built in
+   phase 1), the refused ones (PIL's, and those refused on purpose)
+   raising their reason, each refused on the file path; the C++ WebP
+   decoder's ms at 768x512 (lossy and lossless, of serve_smoke's
+   synthetic_images: the lossless one equal to those pixels) and the
+   GIF decoder's; the JPEG decoder's ms at 768x512 (a Mpix);
    the C++ PNG decoder's ms at 768x512 (PIL's file and an all-Paeth one)
    beside its numpy twin's; the 768x512 fixture as a JPEG body to
    cli/serve.py's server (crdr_throughput.yaml, device wire, E1): its .bin
    byte-equal to the PNG of the same pixels', the round trip's launches
    those of phase 4 (K1 60, K2 11, E1 2), each kernel's calls held against
-   its twin; PIL's 768x512 palette PNG as a body, its .bin byte-equal to
-   the RGB PNG's of its pixels; 3
+   its twin; PIL's 768x512 palette PNG, the lossy WebP and the GIF as
+   bodies, each .bin byte-equal to the RGB PNG's of its pixels, the WebP
+   and GIF round trips' launches those of the JPEG body's; 3
    steps of crdr_stage_1.yaml (OpenImageImageDataset, LPIPS allow_random)
    on a train_0/ of the fixtures' JPEGs at batch 8: losses finite, the
    sample's ms, the loader's wait a step against the step, os.cpu_count();
@@ -542,7 +551,7 @@ def build_kernels() -> dict:
     from crdr_tpu_torch.ops import lane_decode as k2
     from crdr_tpu_torch.ops import lane_encode as e1
     from crdr_tpu_torch.ops import slice_transform as k1
-    from crdr_tpu_torch.utils import jpeg, png
+    from crdr_tpu_torch.utils import gif, jpeg, png, webp
 
     results, threads = {}, []
 
@@ -559,7 +568,9 @@ def build_kernels() -> dict:
                      ("lane_encode (nvcc sm_90a)", e1.build),
                      ("host rANS (g++)", runtime.build),
                      ("host JPEG decoder and encoder (g++)", jpeg.build),
-                     ("host PNG decoder (g++)", png.build)):
+                     ("host PNG decoder (g++)", png.build),
+                     ("host WebP decoder (g++)", webp.build),
+                     ("host LZW decoders, GIF and TIFF (g++)", gif.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
     for t in threads:
@@ -6708,6 +6719,9 @@ def aot_phase(imgs, card: str) -> tuple:
 JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
 PNG_DIR = os.path.join(ROOT, "tests", "data", "png")
 BMP_DIR = os.path.join(ROOT, "tests", "data", "bmp")
+# the formats only a request body reads (PIL's digests)
+BODY_DIRS = {kind: os.path.join(ROOT, "tests", "data", kind.lower())
+             for kind in ("WebP", "GIF", "PNM", "TIFF")}
 JPEG_STEPS = 3
 
 
@@ -6730,9 +6744,25 @@ def fixtures_check(folder: str, twin=None) -> dict:
 
     with open(os.path.join(folder, "digests.json")) as f:
         digests = json.load(f)
-    done = refused = twins = 0
+    done = refused = twins = truncated = 0
     for name, want in sorted(digests.items()):
         path = os.path.join(folder, name)
+        if "body_raises" in want:  # a truncated JPEG: cv2 reads the file
+            img = read_image(path)
+            check(list(img.shape) == want["file_shape"] and
+                  pixel_sha(img) == want["file"],
+                  f"{name}: the file path's pixels differ from cv2's")
+            with open(path, "rb") as f:
+                data = f.read()
+            try:
+                decode_image(data, name, file_path=False)
+            except ValueError as e:
+                check(want["body_raises"] in str(e),
+                      f"{name}: the body raised {e!r}")
+            else:
+                fail(f"{name}: the body path read it, PIL refuses it")
+            truncated += 1
+            continue
         if "raises" in want:
             try:
                 read_image(path)
@@ -6758,7 +6788,102 @@ def fixtures_check(folder: str, twin=None) -> dict:
                       f"{name}: the numpy twin's {path_kind} pixels differ")
                 twins += 1
         done += 1
-    return {"decoded": done, "refused": refused, "twin_checked": twins}
+    return {"decoded": done, "refused": refused, "twin_checked": twins,
+            "truncated": truncated}
+
+
+def body_fixtures_check(kind: str) -> dict:
+    """Every fixture of tests/data/<kind> (WebP, GIF, PNM, TIFF): on the
+    body path its pixels' sha256 equal to PIL's digest, or refused with its
+    reason (what PIL refuses, and what the port refuses by name); on the
+    file path refused, the format named."""
+    import re
+
+    from crdr_tpu_torch.utils.img_utils import decode_image
+
+    folder = BODY_DIRS[kind]
+    with open(os.path.join(folder, "digests.json")) as f:
+        digests = json.load(f)
+    done = refused = 0
+    for name, want in sorted(digests.items()):
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        # the file path: the format named (a file that is no PNM at all,
+        # PFM's colour "PF", is no format the port knows)
+        for file_path, why in ((True, f"a {kind} file|not a PNG, JPEG, BMP"),
+                               (False, want.get("refused"))):
+            try:
+                img = decode_image(data, name, file_path=file_path)
+            except ValueError as e:
+                check(why is not None and re.search(why, str(e)) is not None,
+                      f"{name}: raised {e!r}")
+                continue
+            check(why is None, f"{name}: read on the "
+                  f"{'file' if file_path else 'body'} path, which refuses it")
+            check(list(img.shape) == want["body_shape"] and
+                  pixel_sha(img) == want["body"],
+                  f"{name}: the body path's pixels differ from PIL's")
+        if "refused" in want:
+            refused += 1
+        else:
+            done += 1
+    return {"decoded": done, "refused": refused}
+
+
+def body_decode_timing() -> dict:
+    """The C++ WebP decoder (lossy and lossless) and the GIF reader on the
+    card's host at 768x512, of serve_smoke's synthetic_images(1, 512, 768,
+    25): ms a decode, medians of 12 after 2 warm-up; the lossless WebP
+    equal to those pixels, each equal to PIL's digest."""
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+    from crdr_tpu_torch.utils.gif import decode_gif
+    from crdr_tpu_torch.utils.webp import decode_webp
+
+    pixels = synthetic_images(1, 512, 768, 25)[0]
+    res = {}
+    for kind, name, decode in (
+            ("webp_lossy", "photo_768x512_lossy.webp", decode_webp),
+            ("webp_lossless", "photo_768x512_lossless.webp", decode_webp),
+            ("gif", "photo_768x512.gif", decode_gif)):
+        folder = BODY_DIRS["GIF" if kind == "gif" else "WebP"]
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        with open(os.path.join(folder, "digests.json")) as f:
+            want = json.load(f)[name]["body"]
+        runs = []
+        for _ in range(14):
+            t0 = time.perf_counter()
+            img = decode(data, name)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        check(pixel_sha(img) == want, f"{name}: pixels differ from PIL's")
+        if kind == "webp_lossless":
+            check(np.array_equal(img, pixels), f"{name}: not the pixels of "
+                  "synthetic_images(1, 512, 768, 25)")
+        res[kind] = {"ms": float(np.median(runs[2:])), "bytes": len(data)}
+    return res
+
+
+def truncated_dataset_check(tmp: str) -> dict:
+    """The truncated JPEG fixtures in a train_0/ read through
+    OpenImageImageDataset (uint8), each equal to cv2's digest (JAX's
+    loader reads them with cv2.imread)."""
+    from crdr_tpu_torch.data.datasets import OpenImageImageDataset
+
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    names = sorted(n for n, d in digests.items() if "body_raises" in d)
+    train0 = os.path.join(tmp, "truncated", "train_0")
+    os.makedirs(train0)
+    for n in names:
+        shutil.copy(os.path.join(JPEG_DIR, n), train0)
+    ds = OpenImageImageDataset(os.path.dirname(train0), [0], is_train=True,
+                               uint8_io=True)
+    check(len(ds) == len(names), f"the truncated tree: {len(ds)} images")
+    for i, n in enumerate(names):
+        img = ds._load(i)
+        check(pixel_sha(img) == digests[n]["file"],
+              f"{n} through OpenImageImageDataset: pixels differ from cv2's")
+    return {"files": len(names)}
 
 
 def png_decode_timing() -> dict:
@@ -6851,6 +6976,13 @@ def jpeg_served_check(card: str) -> dict:
         pal = f.read()
     pal_rgb = encode_png(decode_image(pal, "palette_768x512.png",
                                       file_path=False))
+    bodies = {}  # kind: (the body, the RGB PNG of its pixels)
+    for kind, name in (("WebP", "photo_768x512_lossy.webp"),
+                       ("GIF", "photo_768x512.gif")):
+        with open(os.path.join(BODY_DIRS[kind], name), "rb") as f:
+            data = f.read()
+        bodies[kind] = (data, encode_png(decode_image(data, name,
+                                                      file_path=False)))
     model, args = serve_model(card, wire="device")
     check(model.device_wire_encoder == "device",
           "the device wire's default encoder is E1")
@@ -6872,6 +7004,16 @@ def jpeg_served_check(card: str) -> dict:
         blob_png = http_post(base + "/compress?q=2.0", png)[0]
         blob_pal = http_post(base + "/compress?q=2.0", pal)[0]
         blob_pal_rgb = http_post(base + "/compress?q=2.0", pal_rgb)[0]
+        served = {}
+        for kind, (data, rgb_png) in bodies.items():
+            for k in kernels.values():
+                k.launches = 0
+            blob_k = http_post(base + "/compress?q=2.0", data)[0]
+            http_post(base + "/decompress?beta=2.56", blob_k)
+            launches_k = {n: k.launches for n, k in kernels.items()}
+            served[kind] = {"launches": launches_k, "bin_bytes": len(blob_k),
+                            "equal": blob_k == http_post(
+                                base + "/compress?q=2.0", rgb_png)[0]}
     finally:
         srv.shutdown()
         srv.batcher.close()
@@ -6884,6 +7026,11 @@ def jpeg_served_check(card: str) -> dict:
     check(blob == blob_png, "the JPEG body's .bin != its PNG's")
     check(blob_pal == blob_pal_rgb, "the palette PNG body's .bin != the "
           "RGB PNG's of its pixels")
+    for kind, sv in served.items():
+        check(sv["equal"], f"the {kind} body's .bin != the RGB PNG's of its "
+              "pixels")
+        check(sv["launches"] == want, f"{kind} body round trip: launches "
+              f"{sv['launches']}, expected {want} (the JPEG body's)")
     dec = decode_png(out)
     check(dec.shape == (IMG_H, IMG_W, 3),
           f"JPEG body: decoded {dec.shape}")
@@ -6897,7 +7044,7 @@ def jpeg_served_check(card: str) -> dict:
           "differ")
     mse = float(np.mean((back.astype(np.float64) - dec) ** 2))
     res = {"launches": got, "held": held, "bin_bytes": len(blob),
-           "palette_bin_bytes": len(blob_pal),
+           "palette_bin_bytes": len(blob_pal), "bodies": served,
            "compress_ms": enc_s * 1e3, "decompress_ms": dec_s * 1e3,
            "recon_jpeg_psnr": 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))}
     del model
@@ -7066,9 +7213,13 @@ def jpeg_phase(card: str) -> tuple:
         runs.append((time.perf_counter() - t0) * 1e3)
     ms = float(np.median(runs[2:]))
     res.update(decode_ms_768x512=ms, decode_ms_per_mpix=ms / 0.393216)
+    # after the JPEG timing, which read ~40% slower when these ran first
+    res["body_fixtures"] = {k: body_fixtures_check(k) for k in BODY_DIRS}
+    res["body_decode"] = body_decode_timing()
     res["encoder"] = jpeg_encode_check()
     res["served"] = jpeg_served_check(card)
     with tempfile.TemporaryDirectory() as tmp:
+        res["truncated_dataset"] = truncated_dataset_check(tmp)
         res["training"] = jpeg_training_check(card, tmp)
     res["phase_s"] = time.perf_counter() - t_phase
     fx, sv, tr = res["fixtures"], res["served"], res["training"]
@@ -7085,6 +7236,22 @@ def jpeg_phase(card: str) -> tuple:
           f"{tr['wait_max_ms']:.2f}, first {tr['first_wait_ms']:.1f}); last "
           f"total loss {tr['loss_last']:.4f}; "
           f"phase {res['phase_s']:.1f} s [{card}]")
+    bfx, bd, bodies = res["body_fixtures"], res["body_decode"], sv["bodies"]
+    print(f"Truncated JPEGs: {fx['truncated']} read on the file path as "
+          f"cv2 reads them ({res['truncated_dataset']['files']} through "
+          f"OpenImageImageDataset too), refused on the body path as PIL "
+          f"refuses them.  Request bodies as PIL reads them: "
+          + ", ".join(f"{k} {v['decoded']} fixtures equal to PIL's digests "
+                      f"({v['refused']} refused with their reasons)"
+                      for k, v in bfx.items())
+          + "; each refused on the file path; at 768x512 (synthetic_images) "
+          f"the WebP decoder {bd['webp_lossy']['ms']:.2f} ms lossy / "
+          f"{bd['webp_lossless']['ms']:.2f} ms lossless (equal to the "
+          f"pixels), the GIF reader {bd['gif']['ms']:.2f} ms (one host "
+          f"thread); served bodies: "
+          + ", ".join(f"{k} .bin equal to its pixels' PNG's, launches "
+                      f"{v['launches']}" for k, v in bodies.items())
+          + f"; phase {res['phase_s']:.1f} s [{card}]")
     pf, bf, pd = res["png_fixtures"], res["bmp_fixtures"], res["png_decode"]
     print(f"PNG and BMP input: {pf['decoded']} PNG fixtures' pixels equal "
           f"to cv2's and PIL's digests on both paths ({pf['twin_checked']} "
@@ -7106,7 +7273,9 @@ def jpeg_phase(card: str) -> tuple:
           f"{sv['recon_jpeg_psnr']:.2f} dB; validation(save_img=True) wrote "
           f"{tr['validation_samples']}; train -wb's JSONL: "
           f"{tr['wandb']['lines']} lines with JAX's keys [{card}]")
-    return res, {"jpeg body": sv["launches"]}
+    return res, {"jpeg body": sv["launches"],
+                 **{f"{k.lower()} body": v["launches"]
+                    for k, v in sv["bodies"].items()}}
 
 
 def main() -> None:

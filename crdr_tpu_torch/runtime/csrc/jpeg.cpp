@@ -4,8 +4,8 @@
 //
 // Plain C ABI, loaded with ctypes (utils/jpeg.py):
 //
-//   uint8_t* crdr_jpeg_decode(data, n, cmyk_mode, &w, &h, &orientation,
-//                             err, errlen)
+//   uint8_t* crdr_jpeg_decode(data, n, cmyk_mode, partial, &w, &h,
+//                             &orientation, err, errlen)
 //     -> a malloc'ed w*h*3 RGB buffer (free it with crdr_jpeg_free), or
 //        NULL with the reason in err.
 //
@@ -15,11 +15,19 @@
 // orientation is the EXIF orientation tag of the first "Exif" APP1 (1 when
 // there is none); the caller applies it or not.
 //
+// partial set (cv2.imread's file path): a file that ends inside a scan or
+// without EOI decodes as libjpeg-turbo decodes it after "Premature end of
+// JPEG file": the MCU the data ran out in is decoded with zero bits, the
+// scan's later MCUs and every later scan are skipped (their coefficients
+// stay as earlier scans left them, zero if none: gray 128), and a component
+// that never had a scan is gray.  Unset (PIL's body path), such a file
+// raises, as PIL raises "image file is truncated".
+//
 // Raises (returns NULL) on what libjpeg-turbo either refuses or decodes
 // only partly: 12-bit precision, lossless, hierarchical and arithmetic
-// frames, truncated or corrupt entropy data, a file without EOI, and
-// progressive files whose scans leave a low coefficient unrefined (libjpeg
-// smooths those blocks).
+// frames, corrupt entropy data, a file that ends inside a marker segment,
+// and progressive files whose scans leave a low coefficient unrefined
+// (libjpeg smooths those blocks), truncated or not.
 
 #include <algorithm>
 #include <cstdint>
@@ -102,7 +110,8 @@ struct Huffman {
 
 // MSB-first entropy-coded segment reader: stuffed 0xFF00 -> 0xFF; at a
 // marker (or the end of the data) it feeds zero bits, and consuming any
-// of those is an error (truncated or corrupt data).
+// of those is an error (truncated or corrupt data), or with partial set
+// at the end of the data, ran_out.
 struct BitReader {
   const uint8_t* d = nullptr;
   size_t n = 0, pos = 0;
@@ -110,6 +119,7 @@ struct BitReader {
   int bits = 0;  // bits held in buf
   int fake = 0;  // of those, zero bits fed past a marker or the end
   bool stopped = false;
+  bool partial = false, ran_out = false;
 
   void fill() {
     while (bits <= 56) {
@@ -121,6 +131,11 @@ struct BitReader {
           while (q < n && d[q] == 0xFF) q++;
           if (q < n && d[q] == 0x00) {
             pos = q + 1;  // a stuffed data byte 0xFF
+          } else if (q >= n) {  // 0xFF bytes to the end: the data ends
+            pos = n;
+            stopped = true;
+            b = 0;
+            fake += 8;
           } else {
             pos = q - 1;  // the marker's 0xFF
             stopped = true;
@@ -140,9 +155,14 @@ struct BitReader {
   }
   void consume(int k) {
     bits -= k;
-    if (bits < fake)
+    if (bits < fake) {
+      if (pos >= n && partial) {
+        ran_out = true;  // libjpeg fills with zero bits and warns
+        return;
+      }
       fail(pos >= n ? "truncated data (the file ends inside a scan)"
                     : "corrupt data (a marker inside a scan's entropy data)");
+    }
   }
   int peek(int k) {
     if (bits < k) fill();
@@ -211,6 +231,8 @@ struct Decoder {
   int adobe_transform = -1;
   int orientation = 1;
   bool exif_seen = false;
+  bool partial = false;  // read a truncated file as libjpeg does
+  int scans = 0;
 
   Decoder(const uint8_t* data, size_t len) : d(data), n(len) {}
 
@@ -229,7 +251,10 @@ struct Decoder {
     for (;;) {
       while (pos < n && d[pos] != 0xFF) pos++;
       while (pos < n && d[pos] == 0xFF) pos++;
-      if (pos >= n) fail("truncated data (no EOI marker)");
+      if (pos >= n) {
+        if (partial) return 0xD9;  // libjpeg's fake EOI past the end
+        fail("truncated data (no EOI marker)");
+      }
       int c = d[pos++];
       if (c != 0) return c;
     }
@@ -429,10 +454,12 @@ struct Decoder {
       for (int i = 0; i < ns; i++)
         for (int k = 0; k < 64; k++) sc[i]->bits_known[k] = 0;
 
+    scans++;
     BitReader br;
     br.d = d;
     br.n = n;
     br.pos = pos;
+    br.partial = partial;
     int eobrun = 0;
     int restarts_to_go = restart_interval;
     int next_rst = 0;
@@ -447,15 +474,23 @@ struct Decoder {
       total = (int64_t)sc[0]->wblocks * sc[0]->hblocks;
     }
     for (int64_t m = 0; m < total; m++) {
+      if (br.ran_out) break;  // libjpeg leaves the rest of the scan as it is
       if (restart_interval) {
         if (restarts_to_go == 0) {
           br.reset();
           pos = br.pos;
           int mk = next_marker();
-          if (mk != 0xD0 + next_rst)
+          if (mk == 0xD9 && partial && pos >= n) {
+            // the data ends where a restart marker was due: libjpeg takes
+            // its fake EOI for the marker, then decodes the next MCU from
+            // zero bits
+            br.pos = n;
+          } else if (mk != 0xD0 + next_rst) {
             fail("corrupt data (restart marker missing or out of order)");
-          next_rst = (next_rst + 1) & 7;
-          br.pos = pos;
+          } else {
+            next_rst = (next_rst + 1) & 7;
+            br.pos = pos;
+          }
           restarts_to_go = restart_interval;
           eobrun = 0;
           for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
@@ -498,6 +533,10 @@ struct Decoder {
             }
           }
       }
+    }
+    if (br.ran_out) {
+      pos = n;  // every later marker is the fake EOI
+      return;
     }
     br.reset();
     pos = br.pos;
@@ -625,15 +664,23 @@ struct Decoder {
       }
     }
     if (!frame) fail("no frame (SOF) before EOI");
+    if (!scans) fail("no scan (SOS) before EOI");
+    // libjpeg smooths a progressive image (jdcoefct.c smoothing_ok) when
+    // every component has some DC and a low coefficient is not fully
+    // refined; complete files leave none
+    bool smoothing = progressive;
     for (int i = 0; i < ncomp; i++) {
-      if (!comp[i].latched) fail("a component has no scan");
-      // libjpeg smooths blocks whose DC or first 9 AC coefficients are not
-      // fully refined; complete files leave none
+      if (!comp[i].latched) {
+        if (!(partial && pos >= n)) fail("a component has no scan");
+        std::memset(comp[i].quant, 0, sizeof(comp[i].quant));  // gray
+      }
+      if (comp[i].bits_known[0] < 0) smoothing = false;
+    }
+    for (int i = 0; i < ncomp && smoothing; i++)
       for (int k = 0; k < 10; k++)
         if (comp[i].bits_known[k] != 0)
           fail("progressive scans leave coefficient " + std::to_string(k) +
                " unrefined (libjpeg's block smoothing is not reproduced)");
-    }
   }
 
   // -------------------------------------------------------------- IDCT
@@ -877,10 +924,11 @@ struct Decoder {
 extern "C" {
 
 uint8_t* crdr_jpeg_decode(const uint8_t* data, int64_t n, int cmyk_mode,
-                          int* width, int* height, int* orientation,
-                          char* err, int errlen) {
+                          int partial, int* width, int* height,
+                          int* orientation, char* err, int errlen) {
   try {
     Decoder dec(data, (size_t)n);
+    dec.partial = partial != 0;
     dec.parse();
     uint8_t* rgb = (uint8_t*)std::malloc((size_t)dec.width * dec.height * 3);
     if (!rgb) fail("out of memory");

@@ -6,8 +6,11 @@ The JAX package reads and writes images through cv2 and PIL, which the GPU
 machines the port runs on do not have.  The port reads files as
 ``cv2.imread`` does and request bodies as PIL does, by their magic bytes and
 not their suffix: PNG (``utils/png.py``), JPEG (``utils/jpeg.py``) and BMP
-(``utils/bmp.py``), EXIF orientation applied to a file.  It writes PNG, and
-JPEG and BMP byte-equal to ``cv2.imwrite``.
+(``utils/bmp.py``) on both paths, EXIF orientation applied to a file; WebP
+(``utils/webp.py``), GIF (``utils/gif.py``), PNM (``utils/pnm.py``) and TIFF
+(``utils/tiff.py``) in request bodies only, as the JAX package's file globs
+take ``*.png``, ``*.jpg``, ``*.jpeg`` and ``*.bmp`` only.  It writes PNG,
+and JPEG and BMP byte-equal to ``cv2.imwrite``.
 """
 
 from __future__ import annotations
@@ -22,9 +25,19 @@ import torch.nn.functional as F
 
 from .bmp import BMP_MAGIC, decode_bmp, encode_bmp  # noqa: F401
 from .device import resolve_device
+from .gif import GIF_MAGICS, decode_gif
 from .jpeg import JPEG_MAGIC, decode_jpeg, encode_jpeg
 from .png import (PNG_SIGNATURE, decode_png, encode_png,  # noqa: F401
                   read_png, write_png)
+from .pnm import decode_pnm, is_pnm
+from .tiff import decode_tiff, is_tiff
+from .webp import decode_webp, is_webp
+
+# the formats only a request body reads: (test, name, reader)
+BODY_FORMATS = ((is_webp, "WebP", decode_webp),
+                (lambda d: d[:6] in GIF_MAGICS, "GIF", decode_gif),
+                (is_pnm, "PNM", decode_pnm),
+                (is_tiff, "TIFF", decode_tiff))
 
 # ---------------------------------------------------------------------------
 # range conversion
@@ -164,23 +177,33 @@ def calc_ms_ssim(real, fake, device: Union[str, torch.device, None] = None
 
 
 # ---------------------------------------------------------------------------
-# image I/O (utils/png.py, utils/jpeg.py, utils/bmp.py; no cv2, no PIL)
+# image I/O (utils/png.py, jpeg.py, bmp.py, webp.py, gif.py, pnm.py,
+# tiff.py; no cv2, no PIL)
 # ---------------------------------------------------------------------------
 
 def decode_image(data: bytes, name: str = "image data",
                  file_path: bool = True) -> np.ndarray:
-    """PNG, JPEG or BMP bytes (told apart by their magic bytes) -> uint8
-    [H, W, 3] RGB, as ``cv2.imread`` reads a file (EXIF orientation
-    applied) or, with ``file_path`` False, as PIL's ``convert("RGB")``
-    reads a request body (``utils/png.py``, ``utils/jpeg.py``,
-    ``utils/bmp.py``)."""
+    """Image bytes (told apart by their magic bytes) -> uint8 [H, W, 3]
+    RGB: a PNG, JPEG or BMP file as ``cv2.imread`` reads it (EXIF
+    orientation applied; a truncated JPEG as libjpeg's partial image) or,
+    with ``file_path`` False, a request body as PIL's ``convert("RGB")``
+    reads it, which takes WebP, GIF, PNM and TIFF too.  On the file path
+    those four raise, naming their format."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data, name, file_path=file_path)
     if data.startswith(JPEG_MAGIC):
         return decode_jpeg(data, name, file_path=file_path)
     if data.startswith(BMP_MAGIC):
         return decode_bmp(data, name, file_path=file_path)
-    raise ValueError(f"{name}: not a PNG, JPEG or BMP file")
+    for test, kind, decode in BODY_FORMATS:
+        if test(data):
+            if file_path:
+                raise ValueError(f"{name}: not a PNG, JPEG or BMP file (a "
+                                 f"{kind} file: only request bodies read "
+                                 f"{kind})")
+            return decode(data, name)
+    raise ValueError(f"{name}: not a PNG, JPEG, BMP, WebP, GIF, PNM or TIFF "
+                     "file")
 
 
 def read_image(path: str) -> np.ndarray:

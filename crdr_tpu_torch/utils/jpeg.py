@@ -70,8 +70,8 @@ def _get_lib() -> ctypes.CDLL:
                 ip = ctypes.POINTER(ctypes.c_int)
                 lib.crdr_jpeg_decode.restype = ctypes.c_void_p
                 lib.crdr_jpeg_decode.argtypes = [
-                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ip, ip,
-                    ip, ctypes.c_char_p, ctypes.c_int]
+                    ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+                    ctypes.c_int, ip, ip, ip, ctypes.c_char_p, ctypes.c_int]
                 lib.crdr_jpeg_encode.restype = ctypes.c_void_p
                 lib.crdr_jpeg_encode.argtypes = [
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -104,7 +104,7 @@ def decode_jpeg(data: bytes, name: str = "JPEG data",
     w, h, orientation = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(256)
     ptr = lib.crdr_jpeg_decode(data, len(data), 0 if file_path else 1,
-                               ctypes.byref(w), ctypes.byref(h),
+                               int(file_path), ctypes.byref(w), ctypes.byref(h),
                                ctypes.byref(orientation), err, len(err))
     if not ptr:
         raise ValueError(f"{name}: {err.value.decode()}")

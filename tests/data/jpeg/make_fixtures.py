@@ -9,7 +9,12 @@ restart intervals, optimized Huffman tables, odd sizes, EXIF orientations
 2-8, Adobe CMYK (and YCCK, its Adobe transform byte set to 2), and one
 photo-like 768x512 image for timing.  The variants neither writes are made
 from a baseline file: its SOF0 marker rewritten to SOF9 (arithmetic) and to
-SOF3 (lossless), its precision byte set to 12, and one file cut mid-scan.
+SOF3 (lossless), its precision byte set to 12.  Four files are cut short,
+as a scraped training set holds them: mid-scan (a baseline file), inside
+the last scan of a progressive one, where a restart marker was due, and
+just before EOI; ``cv2.imread`` reads each (libjpeg's "Premature end of
+JPEG file": the rest of the image gray, or as the scans read so far left
+it) and PIL refuses each ("image file is truncated").
 Two files hold what ``cv2.imencode('.jpg')`` writes at its defaults (quality
 95, 4:2:0), for the port's encoder (``utils/jpeg.py::encode_jpeg``): of the
 768x512 photo's decoded pixels, and of that JPEG's decoded pixels (a
@@ -18,7 +23,9 @@ reconstruction); ``bytes`` in their entries is the sha256 of the file.
 ``digests.json`` holds, for each decodable file, the sha256 of the pixels
 (uint8 RGB, row-major) that ``cv2.imread`` gives (``file``: EXIF orientation
 applied) and that ``PIL.Image.open(...).convert("RGB")`` gives (``body``),
-with their shapes; for each refused file, the reason the port gives.
+with their shapes; for each refused file, the reason the port gives; for
+each truncated file, cv2's digests, the port's reason for refusing it on
+the body path (``body_raises``) and PIL's message (``pil``).
 ``tests/test_torch_jpeg.py`` recomputes both from the committed files.
 """
 
@@ -38,8 +45,10 @@ REFUSED = {
     "refused_sof9.jpg": "arithmetic-coded JPEG",
     "refused_sof3.jpg": "lossless JPEG",
     "refused_12bit.jpg": "12-bit samples",
-    "refused_truncated.jpg": "truncated data",
 }
+# read on the file path as cv2 reads them, refused on the body path
+TRUNCATED = ("truncated_baseline.jpg", "truncated_progressive.jpg",
+             "truncated_restart.jpg", "truncated_no_eoi.jpg")
 
 
 def synthetic(h: int, w: int, seed: int, noise: float = 12.0) -> np.ndarray:
@@ -128,7 +137,13 @@ def fixtures() -> dict:
     out["refused_sof3.jpg"] = base.replace(b"\xff\xc0", b"\xff\xc3", 1)
     sof = base.index(b"\xff\xc0")
     out["refused_12bit.jpg"] = base[:sof + 4] + b"\x0c" + base[sof + 5:]
-    out["refused_truncated.jpg"] = base[:len(base) * 2 // 3]
+    out["truncated_baseline.jpg"] = base[:len(base) * 2 // 3]
+    prog = out["progressive_420.jpg"]
+    last = prog.rindex(b"\xff\xda")  # the last scan: luma's last AC bit
+    out["truncated_progressive.jpg"] = prog[:(last + len(prog)) // 2]
+    rst = out["restart_interval.jpg"]
+    out["truncated_restart.jpg"] = rst[:rst.index(b"\xff\xd4")]
+    out["truncated_no_eoi.jpg"] = base[:-2]
     return out
 
 
@@ -147,6 +162,21 @@ def oracle_digests(path: str) -> dict:
             "body": sha(rgb), "body_shape": list(rgb.shape)}
 
 
+def truncated_digests(path: str) -> dict:
+    """cv2's digests of a truncated file, PIL's refusal of it."""
+    with open(path, "rb") as f:
+        data = f.read()
+    bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+    try:
+        Image.open(io.BytesIO(data)).convert("RGB")
+    except OSError as e:
+        pil = str(e)
+    else:
+        raise AssertionError(f"PIL reads {path}")
+    return {"file": sha(bgr[..., ::-1]), "file_shape": list(bgr.shape),
+            "body_raises": "truncated data", "pil": pil}
+
+
 def main() -> None:
     digests = {}
     for name, data in sorted(fixtures().items()):
@@ -154,6 +184,7 @@ def main() -> None:
         with open(path, "wb") as f:
             f.write(data)
         digests[name] = ({"raises": REFUSED[name]} if name in REFUSED
+                         else truncated_digests(path) if name in TRUNCATED
                          else oracle_digests(path))
         if name.startswith("encoded_"):
             digests[name]["bytes"] = hashlib.sha256(data).hexdigest()

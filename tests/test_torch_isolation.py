@@ -57,6 +57,20 @@ def test_png_decoder_needs_only_standard_headers():
     assert includes and set(includes) <= std, includes
 
 
+@pytest.mark.parametrize("source", ["webp.cpp", "lzw.cpp"])
+def test_body_decoders_need_only_standard_headers(source):
+    """The WebP and LZW decoders (``runtime/csrc/``) include only standard
+    C++ headers (no libwebp, no libtiff, no PIL), so the card's machine
+    builds them from the repository's sources alone."""
+    std = {"algorithm", "cstdint", "cstdio", "cstdlib", "cstring",
+           "stdexcept", "string", "vector"}
+    with open(os.path.join(ROOT, "crdr_tpu_torch", "runtime", "csrc",
+                           source)) as f:
+        includes = [line.split()[1].strip("<>\"") for line in f
+                    if line.startswith("#include")]
+    assert includes and set(includes) <= std, includes
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
@@ -69,6 +83,8 @@ def test_importing_the_port_loads_no_jax():
         "import crdr_tpu_torch.runtime.cache, crdr_tpu_torch.data\n"
         "import crdr_tpu_torch.utils.jpeg, crdr_tpu_torch.utils.img_utils\n"
         "import crdr_tpu_torch.utils.png, crdr_tpu_torch.utils.bmp\n"
+        "import crdr_tpu_torch.utils.webp, crdr_tpu_torch.utils.gif\n"
+        "import crdr_tpu_torch.utils.pnm, crdr_tpu_torch.utils.tiff\n"
         "import crdr_tpu_torch.cli.compress, crdr_tpu_torch.cli.calc_metrics\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

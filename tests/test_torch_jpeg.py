@@ -4,8 +4,11 @@ BMP reader against cv2 and PIL, on the CPU; tolerance 0 throughout.
 * Every fixture of ``tests/data/jpeg/``: ``digests.json`` recomputed from
   the committed files with cv2 (the file path, EXIF orientation applied)
   and PIL (the body path), so it cannot drift; the port's pixels have the
-  same digests on each path.  The refused fixtures (SOF9, SOF3, 12-bit, a
-  file cut mid-scan) raise with the file's name and their reason.
+  same digests on each path.  The refused fixtures (SOF9, SOF3, 12-bit)
+  raise with the file's name and their reason.  The truncated ones (cut
+  mid-scan, inside a progressive file's last scan, where a restart marker
+  was due, before EOI) decode on the file path to ``cv2.imread``'s pixels
+  (libjpeg's partial image) and raise on the body path, as PIL raises.
 * 240 seeded random images across the variants (cv2 at every sampling it
   writes, progressive, restart intervals, optimized tables, grayscale, any
   quality and odd sizes; PIL's subsamplings, RGB without conversion, CMYK
@@ -64,6 +67,18 @@ def test_fixture_digests(name):
     with open(path, "rb") as f:
         data = f.read()
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+    if "body_raises" in want:  # a truncated file
+        with pytest.raises(OSError, match="image file is truncated") as e:
+            Image.open(io.BytesIO(data)).convert("RGB")
+        assert want == {"file": _sha(bgr[..., ::-1]),
+                        "file_shape": list(bgr.shape),
+                        "body_raises": "truncated data", "pil": str(e.value)}
+        mine = img_utils.read_image(path)
+        assert list(mine.shape) == want["file_shape"]
+        assert _sha(mine) == want["file"]
+        with pytest.raises(ValueError, match=f"^{name}: truncated data"):
+            img_utils.decode_image(data, name, file_path=False)
+        return
     pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
     assert want == {"file": _sha(bgr[..., ::-1]),
                     "file_shape": list(bgr.shape),

@@ -391,7 +391,7 @@ def test_http_serves_a_jpeg_body(tiny_model):
     (("POST", "/no_such_route", b"X" * 4096), 404, "no route"),
     (("POST", "/compress?q=1", b"\xff\xd8\xff\xe0" + b"J" * 512), 400,
      "truncated data"),
-    (("POST", "/compress?q=1", b"GIF89a" + b"G" * 64), 400, "not a PNG"),
+    (("POST", "/compress?q=1", b"FORM" + b"G" * 64), 400, "not a PNG"),
 ])
 def test_http_keepalive_after_an_error(tiny_model, first, status, msg):
     """An error response drains the body, so the next request on the same
