@@ -373,12 +373,19 @@ Phases, each asserted (any failure exits non-zero):
    C++ decoder's numpy twin; the truncated JPEGs read on the file path as
    cv2 reads them (also through OpenImageImageDataset) and refused on the
    body path; every fixture of tests/data/webp, gif, pnm and tiff decoded
-   on the body path to PIL's digest (the WebP and LZW decoders built in
-   phase 1), the refused ones (PIL's, and those refused on purpose)
-   raising their reason, each refused on the file path; the C++ WebP
-   decoder's ms at 768x512 (lossy and lossless, of serve_smoke's
-   synthetic_images: the lossless one equal to those pixels) and the
-   GIF decoder's; the JPEG decoder's ms at 768x512 (a Mpix);
+   on the file path to cv2's digest and on the body path to PIL's (the
+   WebP and LZW decoders built in phase 1), the refused ones (where the
+   oracle refuses, and those refused on purpose) raising their reason;
+   the C++ WebP decoder's ms at 768x512 (lossy and lossless, of
+   serve_smoke's synthetic_images: the lossless one equal to those
+   pixels) and the GIF decoder's; the JPEG decoder's ms at 768x512 (a
+   Mpix); on the file path at 768x512, the arithmetic (sequential,
+   progressive), smoothed progressive, JPEG-in-TIFF, GIF and 16-bit TIFF
+   decodes' ms; python -m crdr_tpu_torch.cli.compress (run in process,
+   so its launches count) on the flagship's device wire over a WebP named
+   .jpg, a TIFF named .png, an arithmetic JPEG and a smoothed truncated
+   progressive JPEG beside PNGs of their pixels, one batch of 8: each
+   .bin byte-equal to its PNG's, launches K1 60, K2 11, E1 2, K3 0;
    the C++ PNG decoder's ms at 768x512 (PIL's file and an all-Paeth one)
    beside its numpy twin's; the 768x512 fixture as a JPEG body to
    cli/serve.py's server (crdr_throughput.yaml, device wire, E1): its .bin
@@ -6719,7 +6726,8 @@ def aot_phase(imgs, card: str) -> tuple:
 JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
 PNG_DIR = os.path.join(ROOT, "tests", "data", "png")
 BMP_DIR = os.path.join(ROOT, "tests", "data", "bmp")
-# the formats only a request body reads (PIL's digests)
+# the formats whose digests name cv2's file reading "cv2" (and PIL's body
+# reading "body")
 BODY_DIRS = {kind: os.path.join(ROOT, "tests", "data", kind.lower())
              for kind in ("WebP", "GIF", "PNM", "TIFF")}
 JPEG_STEPS = 3
@@ -6775,9 +6783,17 @@ def fixtures_check(folder: str, twin=None) -> dict:
                  f"({want['raises']})")
         with open(path, "rb") as f:
             data = f.read()
+        if "body" not in want:  # PIL refuses it (a BMP cv2 reads)
+            try:
+                decode_image(data, name, file_path=False)
+            except ValueError:
+                refused += 1
+            else:
+                fail(f"{name}: the body path read it, PIL refuses it")
         for path_kind, img in (
                 ("file", read_image(path)),
-                ("body", decode_image(data, name, file_path=False))):
+                *((("body", decode_image(data, name, file_path=False)),)
+                  if "body" in want else ())):
             check(list(img.shape) == want[f"{path_kind}_shape"] and
                   pixel_sha(img) == want[path_kind],
                   f"{name}: the {path_kind} path's pixels differ from "
@@ -6793,10 +6809,12 @@ def fixtures_check(folder: str, twin=None) -> dict:
 
 
 def body_fixtures_check(kind: str) -> dict:
-    """Every fixture of tests/data/<kind> (WebP, GIF, PNM, TIFF): on the
-    body path its pixels' sha256 equal to PIL's digest, or refused with its
-    reason (what PIL refuses, and what the port refuses by name); on the
-    file path refused, the format named."""
+    """Every fixture of tests/data/<kind> (WebP, GIF, PNM, TIFF) on both
+    paths: on the file path its pixels' sha256 equal to cv2's digest, or
+    refused where cv2 returns None (or by name, ``file_refused``: CCITT,
+    which cv2 reads); on the body path equal to PIL's digest, or refused
+    with its reason (what PIL refuses, and what the port refuses by
+    name)."""
     import re
 
     from crdr_tpu_torch.utils.img_utils import decode_image
@@ -6804,29 +6822,30 @@ def body_fixtures_check(kind: str) -> dict:
     folder = BODY_DIRS[kind]
     with open(os.path.join(folder, "digests.json")) as f:
         digests = json.load(f)
-    done = refused = 0
+    done = {"file": 0, "body": 0}
+    refused = {"file": 0, "body": 0}
     for name, want in sorted(digests.items()):
         with open(os.path.join(folder, name), "rb") as f:
             data = f.read()
-        # the file path: the format named (a file that is no PNM at all,
-        # PFM's colour "PF", is no format the port knows)
-        for file_path, why in ((True, f"a {kind} file|not a PNG, JPEG, BMP"),
-                               (False, want.get("refused"))):
+        for path_kind, sha, why in (
+                ("file", want["cv2"], want.get("file_refused", "")),
+                ("body", want.get("body"), want.get("refused"))):
             try:
-                img = decode_image(data, name, file_path=file_path)
+                img = decode_image(data, name, file_path=path_kind == "file")
             except ValueError as e:
-                check(why is not None and re.search(why, str(e)) is not None,
-                      f"{name}: raised {e!r}")
+                check((sha is None or why) and re.search(why or "", str(e))
+                      is not None, f"{name}: raised {e!r} on the "
+                      f"{path_kind} path")
+                refused[path_kind] += 1
                 continue
-            check(why is None, f"{name}: read on the "
-                  f"{'file' if file_path else 'body'} path, which refuses it")
-            check(list(img.shape) == want["body_shape"] and
-                  pixel_sha(img) == want["body"],
-                  f"{name}: the body path's pixels differ from PIL's")
-        if "refused" in want:
-            refused += 1
-        else:
-            done += 1
+            check(sha is not None and not why, f"{name}: read on the "
+                  f"{path_kind} path, where its oracle or the port refuses "
+                  "it")
+            check(pixel_sha(img) == sha and (path_kind == "file" or list(
+                img.shape) == want["body_shape"]), f"{name}: the "
+                f"{path_kind} path's pixels differ from "
+                f"{'cv2' if path_kind == 'file' else 'PIL'}'s")
+            done[path_kind] += 1
     return {"decoded": done, "refused": refused}
 
 
@@ -6886,12 +6905,113 @@ def truncated_dataset_check(tmp: str) -> dict:
     return {"files": len(names)}
 
 
+def decode_timing_768x512() -> dict:
+    """The file path's slower readers on the card's host at 768x512, ms a
+    decode (medians of 5 after 1 warm-up), each decode's pixels against
+    its committed digest: arithmetic-coded JPEG, sequential and
+    progressive, a progressive JPEG libjpeg smooths (its refinement scans
+    cut out), YCbCr 4:2:0 JPEG inside TIFF, GIF and 16-bit TIFF, all on
+    the file path (cv2's reading)."""
+    from crdr_tpu_torch.utils.img_utils import decode_image
+
+    res = {}
+    for kind, folder, name in (
+            ("arith_seq", JPEG_DIR, "arith_seq_768x512.jpg"),
+            ("arith_prog", JPEG_DIR, "arith_prog_768x512.jpg"),
+            ("smoothed_prog", JPEG_DIR, "smooth_768x512.jpg"),
+            ("jpeg_in_tiff_420", BODY_DIRS["TIFF"],
+             "photo_768x512_jpeg_420.tif"),
+            ("gif_file", BODY_DIRS["GIF"], "photo_768x512.gif"),
+            ("tiff_16bit_file", BODY_DIRS["TIFF"],
+             "photo_768x512_16bit.tif")):
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        with open(os.path.join(folder, "digests.json")) as f:
+            d = json.load(f)[name]
+        runs = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            img = decode_image(data, name, file_path=True)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        check(img.shape == (512, 768, 3) and
+              pixel_sha(img) == d.get("cv2", d.get("file")),
+              f"{name}: the file path's pixels differ from cv2's")
+        res[kind] = {"ms": float(np.median(runs[1:])), "bytes": len(data)}
+    return res
+
+
+# phase 25's misnamed files: (name in the CLI's folder, source folder,
+# fixture): a WebP named .jpg, a TIFF named .png, an arithmetic-coded
+# JPEG, a truncated progressive JPEG libjpeg smooths
+MISNAMED = (("a.jpg", "WebP", "photo_768x512_lossy.webp"),
+            ("b.png", "TIFF", "photo_768x512_jpeg_420.tif"),
+            ("c.jpg", "JPEG", "arith_prog_768x512.jpg"),
+            ("d.jpg", "JPEG", "truncated_smooth_768x512.jpg"))
+
+
+def misnamed_cli_check(tmp: str, want: dict) -> dict:
+    """``python -m crdr_tpu_torch.cli.compress`` (run in this process, so
+    its launches are counted) on the flagship, the device wire, over a
+    folder of MISNAMED and, beside each, a PNG of its pixels (its file
+    path's decode, held to cv2's digest): one batch of 8; each misnamed
+    file's .bin byte-equal to its PNG's, the launches those of the JPEG
+    body (``want``: K1 60, K2 11, E1 2, K3 0)."""
+    import runpy
+
+    import torch
+
+    from crdr_tpu_torch.utils.img_utils import read_image, write_png
+
+    img_dir, out = os.path.join(tmp, "misnamed"), os.path.join(tmp, "out")
+    os.makedirs(img_dir)
+    for name, kind, fixture in MISNAMED:
+        folder = JPEG_DIR if kind == "JPEG" else BODY_DIRS[kind]
+        with open(os.path.join(folder, "digests.json")) as f:
+            d = json.load(f)[fixture]
+        path = os.path.join(img_dir, name)
+        shutil.copy(os.path.join(folder, fixture), path)
+        img = read_image(path)
+        check(pixel_sha(img) == d.get("cv2", d.get("file")),
+              f"{name} ({fixture}): read_image's pixels differ from cv2's")
+        write_png(os.path.join(img_dir, f"twin_{name[0]}.png"), img)
+    argv = [sys.argv[0], os.path.join(ROOT, "config", "crdr_throughput.yaml"),
+            "--img_dir", img_dir,
+            "--save_dir", out, "-q", "2.0", "-b", "2.56", "--decompress",
+            "--batch", "8", "--wire", "device"]
+    kernels = kernel_wrappers()
+    for k in kernels.values():
+        k.launches = 0
+    saved = sys.argv
+    sys.argv = argv
+    t0 = time.perf_counter()
+    try:
+        runpy.run_module("crdr_tpu_torch.cli.compress", run_name="__main__",
+                         alter_sys=True)
+    finally:
+        sys.argv = saved
+    secs = time.perf_counter() - t0
+    got = {n: k.launches for n, k in kernels.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(got == want, f"the misnamed files' CLI run: launches {got}, "
+          f"expected {want} (a JPEG's)")
+    equal = {}
+    for name, _, fixture in MISNAMED:
+        with open(os.path.join(out, f"{name[0]}.bin"), "rb") as f, \
+                open(os.path.join(out, f"twin_{name[0]}.bin"), "rb") as g:
+            equal[fixture] = f.read() == g.read()
+        check(equal[fixture], f"{name} ({fixture}): its .bin differs from "
+              "the .bin of its pixels' PNG")
+    return {"files": [n for n, _, _ in MISNAMED], "launches": got,
+            "bin_equal": equal, "cli_s": secs}
+
+
 def png_decode_timing() -> dict:
     """The C++ PNG decoder on the card's host against its numpy twin, at
     768x512: PIL's optimized file of the photo and the file every row of
     which is Paeth (tests/data/png).  ms of the whole decode (chunks,
     Python's zlib, the pixels) and of the C++ pixels alone, medians of 12
-    after 2 warm-up; the twin's whole decode, median of 2; pixels equal."""
+    after 2 warm-up; the twin's whole decode, once; pixels equal."""
     from crdr_tpu_torch.utils import png
 
     res = {}
@@ -6907,10 +7027,9 @@ def png_decode_timing() -> dict:
             png.png_pixels(parsed, False, name)
             whole.append((t1 - t0) * 1e3)
             pixels.append((time.perf_counter() - t1) * 1e3)
-        for _ in range(2):
-            t0 = time.perf_counter()
-            ref = png.decode_png_plain(data, name)
-            plain.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()  # the numpy twin takes ~0.5 s a decode
+        ref = png.decode_png_plain(data, name)
+        plain.append((time.perf_counter() - t0) * 1e3)
         check(np.array_equal(img, ref), f"{name}: the C++ decoder's pixels "
               "differ from its numpy twin's")
         res[name] = {"ms": float(np.median(whole[2:])),
@@ -7217,9 +7336,12 @@ def jpeg_phase(card: str) -> tuple:
     res["body_fixtures"] = {k: body_fixtures_check(k) for k in BODY_DIRS}
     res["body_decode"] = body_decode_timing()
     res["encoder"] = jpeg_encode_check()
+    res["new_formats_decode"] = decode_timing_768x512()
     res["served"] = jpeg_served_check(card)
     with tempfile.TemporaryDirectory() as tmp:
         res["truncated_dataset"] = truncated_dataset_check(tmp)
+        res["misnamed_cli"] = misnamed_cli_check(tmp,
+                                                 res["served"]["launches"])
         res["training"] = jpeg_training_check(card, tmp)
     res["phase_s"] = time.perf_counter() - t_phase
     fx, sv, tr = res["fixtures"], res["served"], res["training"]
@@ -7241,10 +7363,10 @@ def jpeg_phase(card: str) -> tuple:
           f"cv2 reads them ({res['truncated_dataset']['files']} through "
           f"OpenImageImageDataset too), refused on the body path as PIL "
           f"refuses them.  Request bodies as PIL reads them: "
-          + ", ".join(f"{k} {v['decoded']} fixtures equal to PIL's digests "
-                      f"({v['refused']} refused with their reasons)"
-                      for k, v in bfx.items())
-          + "; each refused on the file path; at 768x512 (synthetic_images) "
+          + ", ".join(f"{k} {v['decoded']['body']} fixtures equal to PIL's "
+                      f"digests ({v['refused']['body']} refused with their "
+                      "reasons)" for k, v in bfx.items())
+          + "; at 768x512 (synthetic_images) "
           f"the WebP decoder {bd['webp_lossy']['ms']:.2f} ms lossy / "
           f"{bd['webp_lossless']['ms']:.2f} ms lossless (equal to the "
           f"pixels), the GIF reader {bd['gif']['ms']:.2f} ms (one host "
@@ -7273,9 +7395,24 @@ def jpeg_phase(card: str) -> tuple:
           f"{sv['recon_jpeg_psnr']:.2f} dB; validation(save_img=True) wrote "
           f"{tr['validation_samples']}; train -wb's JSONL: "
           f"{tr['wandb']['lines']} lines with JAX's keys [{card}]")
+    mc, nd = res["misnamed_cli"], res["new_formats_decode"]
+    print(f"Files read by their bytes as cv2.imread reads them: "
+          + ", ".join(f"{k} {v['decoded']['file']} fixtures equal to cv2's "
+                      f"digests on the file path ({v['refused']['file']} "
+                      f"refused where cv2 returns None or by name)"
+                      for k, v in bfx.items())
+          + f"; the compress CLI over {', '.join(mc['files'])} (a WebP, a "
+          f"TIFF, an arithmetic JPEG and a smoothed truncated progressive "
+          f"JPEG) and their pixels' PNGs, one batch of 8 on the device wire: "
+          f"each .bin equal to its PNG's, launches {mc['launches']} "
+          f"({mc['cli_s']:.1f} s, model build included); decode ms at "
+          f"768x512 (one host thread): "
+          + ", ".join(f"{k} {v['ms']:.2f}" for k, v in nd.items())
+          + f" [{card}]")
     return res, {"jpeg body": sv["launches"],
                  **{f"{k.lower()} body": v["launches"]
-                    for k, v in sv["bodies"].items()}}
+                    for k, v in sv["bodies"].items()},
+                 "misnamed files (compress CLI)": mc["launches"]}
 
 
 def main() -> None:

@@ -1,17 +1,22 @@
 // LZW decoding on the host for the GIF and TIFF readers (utils/gif.py,
-// utils/tiff.py), as PIL decodes a GIF frame and libtiff a TIFF strip.
+// utils/tiff.py), as PIL and OpenCV decode a GIF frame and libtiff a TIFF
+// strip.
 //
 // Plain C ABI, loaded with ctypes:
 //
-//   int crdr_gif_lzw(data, n, bits, width, height, interlace, out, err,
-//                    errlen)
+//   int crdr_gif_lzw(data, n, bits, width, height, interlace, strict, out,
+//                    err, errlen)
 //     data / n: the frame's image data from its first sub-block's length
-//     byte; bits: the minimum code size (1-8); out: width * height indexes
-//     the caller owns, written in the frame's row order (interlaced: rows
-//     0, 8, ..., 4, 12, ..., 2, 6, ..., 1, 3, ...).
+//     byte; bits: the minimum code size (1-11; strict 2-11); out: width *
+//     height indexes the caller owns, written in the frame's row order
+//     (interlaced: rows 0, 8, ..., 4, 12, ..., 2, 6, ..., 1, 3, ...).
 //     -> 0 when the frame is complete, 1 when an end code came first (the
 //        rows not reached keep what out held), 2 when the data ran out
 //        first, or -1 with the reason in err.
+//     strict (OpenCV's decoder, cv2.imread): the codes of every sub-block
+//     to the terminator, an end code resetting the table and dropping the
+//     rest of its byte, a pixel past the frame an error; 0 only when the
+//     data fills the frame exactly.
 //   int crdr_tiff_lzw(data, n, out, out_n, err, errlen)
 //     one strip or tile: MSB-first codes of 9-12 bits that widen one code
 //     early (at 511, 1023, 2047), clear 256, end 257.
@@ -40,10 +45,12 @@ namespace {
 constexpr int kTable = 4096;
 
 int gif_lzw(const uint8_t* d, size_t n, int bits, int width, int height,
-            int interlace, uint8_t* out) {
-  if (bits < 1 || bits > 8)
+            int interlace, int strict, uint8_t* out) {
+  if (bits < 1 || bits > 11)
     fail("GIF LZW minimum code size " + std::to_string(bits) +
-         " (1-8 are read)");
+         (strict ? " (2-11 are read)" : " (1-11 are read)"));
+  if (strict && bits < 2)
+    fail("GIF LZW minimum code size 1 (2-11 are read)");
   const int clear = 1 << bits, end = clear + 1;
   uint8_t data[kTable], stack[kTable];
   uint16_t link[kTable];
@@ -51,6 +58,7 @@ int gif_lzw(const uint8_t* d, size_t n, int bits, int width, int height,
   int next = clear + 2, codesize = bits + 1, codemask = (1 << codesize) - 1;
   int lastcode = -1, lastdata = 0;
   bool fresh = true;  // the first code after a clear (or the start)
+  bool full = false;  // strict: every pixel written
   uint32_t bitbuf = 0;
   int bitcount = 0;
   size_t pos = 0, block = 0;
@@ -76,6 +84,7 @@ int gif_lzw(const uint8_t* d, size_t n, int bits, int width, int height,
         bitcount += 8;
         block--;
       } else {  // a new sub-block, read only when it is whole
+        if (strict && (pos >= n || d[pos] == 0)) return full ? 0 : 2;
         if (pos >= n || n - pos < (size_t)d[pos] + 1) return 2;
         block = d[pos++];
       }
@@ -90,7 +99,16 @@ int gif_lzw(const uint8_t* d, size_t n, int bits, int width, int height,
       fresh = true;
       continue;
     }
-    if (c == end) return 1;
+    if (c == end) {
+      if (!strict) return 1;
+      next = clear + 2;  // cv2 goes on with the bytes that follow
+      bitbuf = 0;
+      bitcount = 0;
+      codesize = bits + 1;
+      codemask = (1 << codesize) - 1;
+      fresh = true;
+      continue;
+    }
     int len;
     const uint8_t* p;
     uint8_t one;
@@ -131,8 +149,12 @@ int gif_lzw(const uint8_t* d, size_t n, int bits, int width, int height,
       len = kTable - sp;
     }
     for (int i = 0; i < len; i++) {
-      out[(size_t)y * width + x] = p[i];
-      if (++x >= width && !newline()) return 0;
+      if (full) fail("GIF LZW data past the frame's last pixel");
+      out[(size_t)y * width + x] = (uint8_t)p[i];
+      if (++x >= width && !newline()) {
+        if (!strict) return 0;
+        full = true;
+      }
     }
   }
 }
@@ -203,10 +225,11 @@ int64_t tiff_lzw(const uint8_t* d, size_t n, uint8_t* out, size_t out_n) {
 extern "C" {
 
 int crdr_gif_lzw(const uint8_t* data, int64_t n, int bits, int width,
-                 int height, int interlace, uint8_t* out, char* err,
-                 int errlen) {
+                 int height, int interlace, int strict, uint8_t* out,
+                 char* err, int errlen) {
   try {
-    return gif_lzw(data, (size_t)n, bits, width, height, interlace, out);
+    return gif_lzw(data, (size_t)n, bits, width, height, interlace, strict,
+                   out);
   } catch (const std::exception& e) {
     std::snprintf(err, (size_t)errlen, "%s", e.what());
     return -1;

@@ -12,10 +12,11 @@ file follows cv2 and a body PIL:
 * 16 bits: cv2 shifts each field up (``v << 3``), PIL scales it
   (``v * 255 // 31``, ``// 63`` for a 6-bit green);
 * bitfields: cv2 reads 16-bit 565 / 555 masks after a 40-byte header only,
-  ignores a 32-bit image's masks under a 56-byte header and honours them
-  from 56 bytes on (byte-aligned 8-bit masks are read; others raise, cv2
-  scales them), and refuses 24-bit bitfields; PIL takes the mask sets of
-  its own table (``BmpImagePlugin``), whatever the header;
+  ignores a 32-bit image's masks under a 56-byte header or where one of
+  them is zero, and otherwise scales each field to 8 bits (times ``255 /
+  its maximum`` in float32, truncated), and refuses 24-bit bitfields; PIL
+  takes the mask sets of its own table (``BmpImagePlugin``), whatever the
+  header;
 * RLE: cv2 fills what a stream skips (end of line, delta, end of bitmap)
   with palette entry 0, moves an RLE4 delta right only (its rows are
   dropped) and needs every row's runs to fit; PIL pads with
@@ -290,9 +291,26 @@ def decode_bmp(data: bytes, name: str = "BMP data",
         return np.stack(rgb, -1).astype(np.uint8)
     px = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)
     order = (2, 1, 0)
-    if bpp == 32 and masks is not None and (hsize >= 56 or not file_path):
+    if bpp == 32 and masks is not None and file_path and hsize >= 56 \
+            and all(masks[:3]):
+        return _scaled_fields(px, masks[:3])
+    if bpp == 32 and masks is not None and not file_path:
         order = _bytes_of(masks[:3], name)
     return np.ascontiguousarray(px[..., list(order)])
+
+
+def _scaled_fields(px: np.ndarray, masks) -> np.ndarray:
+    """cv2's 32-bit bitfields (a header of 56 bytes or more, no mask
+    zero): each field ``(v & mask) >> shift`` times ``255 / (mask >>
+    shift)``, in float32, truncated."""
+    v = np.ascontiguousarray(px).view("<u4")[..., 0].astype(np.int64)
+    out = []
+    for m in masks:
+        shift = (m & -m).bit_length() - 1
+        top = m >> shift
+        f = ((v & m) >> shift).astype(np.float32)
+        out.append((f * np.float32(255.0 / top)).astype(np.uint8))
+    return np.stack(out, -1)
 
 
 def encode_bmp(img: np.ndarray) -> bytes:

@@ -3,14 +3,16 @@
 formulas (its own copy of ``crdr_tpu/utils/img_utils.py``).
 
 The JAX package reads and writes images through cv2 and PIL, which the GPU
-machines the port runs on do not have.  The port reads files as
-``cv2.imread`` does and request bodies as PIL does, by their magic bytes and
-not their suffix: PNG (``utils/png.py``), JPEG (``utils/jpeg.py``) and BMP
-(``utils/bmp.py``) on both paths, EXIF orientation applied to a file; WebP
-(``utils/webp.py``), GIF (``utils/gif.py``), PNM (``utils/pnm.py``) and TIFF
-(``utils/tiff.py``) in request bodies only, as the JAX package's file globs
-take ``*.png``, ``*.jpg``, ``*.jpeg`` and ``*.bmp`` only.  It writes PNG,
-and JPEG and BMP byte-equal to ``cv2.imwrite``.
+machines the port runs on do not have.  The port reads a file as
+``cv2.imread`` does and a request body as PIL's ``convert("RGB")`` does,
+each by its leading bytes and not its suffix (cv2 picks its decoder by
+content, so a WebP named ``*.jpg`` is a WebP to the JAX package's globs
+too): PNG (``utils/png.py``), JPEG (``utils/jpeg.py``), BMP
+(``utils/bmp.py``), WebP (``utils/webp.py``), GIF (``utils/gif.py``), PNM
+and PFM (``utils/pnm.py``) and TIFF (``utils/tiff.py``), each reader with
+the rules of both oracles.  Where the oracle returns None or raises, the
+port raises a ``ValueError`` naming the source and the reason.  It writes
+PNG, and JPEG and BMP byte-equal to ``cv2.imwrite``.
 """
 
 from __future__ import annotations
@@ -33,11 +35,14 @@ from .pnm import decode_pnm, is_pnm
 from .tiff import decode_tiff, is_tiff
 from .webp import decode_webp, is_webp
 
-# the formats only a request body reads: (test, name, reader)
-BODY_FORMATS = ((is_webp, "WebP", decode_webp),
-                (lambda d: d[:6] in GIF_MAGICS, "GIF", decode_gif),
-                (is_pnm, "PNM", decode_pnm),
-                (is_tiff, "TIFF", decode_tiff))
+# the formats told apart by their leading bytes: (test, reader)
+FORMATS = ((lambda d: d.startswith(PNG_SIGNATURE), decode_png),
+           (lambda d: d.startswith(JPEG_MAGIC), decode_jpeg),
+           (lambda d: d.startswith(BMP_MAGIC), decode_bmp),
+           (is_webp, decode_webp),
+           (lambda d: d[:6] in GIF_MAGICS, decode_gif),
+           (is_pnm, decode_pnm),
+           (is_tiff, decode_tiff))
 
 # ---------------------------------------------------------------------------
 # range conversion
@@ -183,25 +188,15 @@ def calc_ms_ssim(real, fake, device: Union[str, torch.device, None] = None
 
 def decode_image(data: bytes, name: str = "image data",
                  file_path: bool = True) -> np.ndarray:
-    """Image bytes (told apart by their magic bytes) -> uint8 [H, W, 3]
-    RGB: a PNG, JPEG or BMP file as ``cv2.imread`` reads it (EXIF
-    orientation applied; a truncated JPEG as libjpeg's partial image) or,
-    with ``file_path`` False, a request body as PIL's ``convert("RGB")``
-    reads it, which takes WebP, GIF, PNM and TIFF too.  On the file path
-    those four raise, naming their format."""
-    if data.startswith(PNG_SIGNATURE):
-        return decode_png(data, name, file_path=file_path)
-    if data.startswith(JPEG_MAGIC):
-        return decode_jpeg(data, name, file_path=file_path)
-    if data.startswith(BMP_MAGIC):
-        return decode_bmp(data, name, file_path=file_path)
-    for test, kind, decode in BODY_FORMATS:
+    """Image bytes (told apart by their leading bytes, not by a suffix)
+    -> uint8 [H, W, 3] RGB: a PNG, JPEG, BMP, WebP, GIF, PNM or TIFF file
+    as ``cv2.imread`` reads it or, with ``file_path`` False, a request
+    body as PIL's ``convert("RGB")`` reads it (module doc).  Where the
+    oracle returns None or raises, this raises a ``ValueError`` naming
+    ``name`` and the reason."""
+    for test, decode in FORMATS:
         if test(data):
-            if file_path:
-                raise ValueError(f"{name}: not a PNG, JPEG or BMP file (a "
-                                 f"{kind} file: only request bodies read "
-                                 f"{kind})")
-            return decode(data, name)
+            return decode(data, name, file_path=file_path)
     raise ValueError(f"{name}: not a PNG, JPEG, BMP, WebP, GIF, PNM or TIFF "
                      "file")
 
@@ -214,7 +209,8 @@ def read_image(path: str) -> np.ndarray:
 
 
 def imread(path: str) -> np.ndarray:
-    """Read a PNG, JPEG or BMP file to [-1,1] float32 HWC (RGB)."""
+    """Read an image file to [-1,1] float32 HWC (RGB), as the JAX
+    package's ``imread`` (``cv2.imread``) reads it."""
     return uint8_to_tensor(read_image(path))
 
 

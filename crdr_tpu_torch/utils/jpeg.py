@@ -14,25 +14,29 @@ standard Huffman tables (JAX's ``imwrite`` of a ``.jpg`` through
 ``img_utils.imwrite``).
 
 The decoder
-decodes baseline and progressive Huffman JPEG (restart intervals, any
-sampling factors libjpeg takes) with libjpeg-turbo's default
-decompression: the islow IDCT, fancy upsampling, jdcolor.c's fixed-point
-YCbCr -> RGB, and the colour space chosen as ``jdapimin.c`` chooses it.
+decodes baseline and progressive JPEG, Huffman or arithmetic-coded (SOF9,
+SOF10, DAC conditioning; restart intervals, any sampling factors libjpeg
+takes) with libjpeg-turbo's default decompression: block smoothing where a
+progressive image's scans leave a low coefficient unrefined
+(``jdcoefct.c``), the islow IDCT in the 16-bit arithmetic of its SIMD
+paths, fancy upsampling, jdcolor.c's fixed-point YCbCr -> RGB, and the
+colour space chosen as ``jdapimin.c`` chooses it (or as a container says:
+``space``, for TIFF).
 
 Two callers, two behaviours, after the JAX package's two readers:
 
 * ``decode_jpeg(data, name, file_path=True)`` (``cv2.imread``: the
   datasets and the CLIs, through ``img_utils.read_image``): EXIF
-  orientation applied; CMYK / YCCK as cv2 converts libjpeg's CMYK;
+  orientation applied; CMYK / YCCK as cv2 converts libjpeg's CMYK; a
+  truncated file as libjpeg's partial image;
 * ``decode_jpeg(data, name, file_path=False)`` (``PIL.Image.open(...)
   .convert("RGB")``, the HTTP server's request bodies): no orientation;
   CMYK as PIL converts its Adobe-inverted CMYK.
 
 What raises a ``ValueError`` naming the file and the reason: 12-bit
-samples, lossless (SOF3), hierarchical and arithmetic-coded (SOF9-11)
-JPEG, truncated or corrupt entropy data and a missing EOI (where cv2 would
-return libjpeg's partial image), and progressive files whose scans leave a
-low coefficient unrefined (libjpeg smooths those blocks).
+samples, lossless (SOF3, SOF11) and hierarchical JPEG, corrupt Huffman
+data (a marker inside a scan, a code past 16 bits), and on the body path
+truncated data and a missing EOI (where PIL raises too).
 """
 
 from __future__ import annotations
@@ -71,7 +75,8 @@ def _get_lib() -> ctypes.CDLL:
                 lib.crdr_jpeg_decode.restype = ctypes.c_void_p
                 lib.crdr_jpeg_decode.argtypes = [
                     ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
-                    ctypes.c_int, ip, ip, ip, ctypes.c_char_p, ctypes.c_int]
+                    ctypes.c_int, ctypes.c_int, ip, ip, ip, ctypes.c_char_p,
+                    ctypes.c_int]
                 lib.crdr_jpeg_encode.restype = ctypes.c_void_p
                 lib.crdr_jpeg_encode.argtypes = [
                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -94,17 +99,26 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+# the colour spaces a container may impose (``utils/tiff.py``): jpeg.cpp's
+# Space
+SPACES = {"gray": 0, "ycc": 1, "rgb": 2}
+
+
 def decode_jpeg(data: bytes, name: str = "JPEG data",
-                file_path: bool = False) -> np.ndarray:
+                file_path: bool = False,
+                space: Optional[str] = None) -> np.ndarray:
     """JPEG bytes -> uint8 [H, W, 3] RGB: as ``cv2.imread`` gives a file
-    (``file_path``: EXIF orientation applied, cv2's CMYK) or as PIL's
-    ``convert("RGB")`` gives a body (neither).  Raises ``ValueError``
-    starting with ``name``."""
+    (``file_path``: EXIF orientation applied, cv2's CMYK, a truncated file
+    as libjpeg's partial image) or as PIL's ``convert("RGB")`` gives a body
+    (none of these).  ``space`` (``"gray"``, ``"ycc"``, ``"rgb"``) sets the
+    colour space where a container such as TIFF says it, in place of the
+    markers.  Raises ``ValueError`` starting with ``name``."""
     lib = _get_lib()
     w, h, orientation = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(256)
     ptr = lib.crdr_jpeg_decode(data, len(data), 0 if file_path else 1,
-                               int(file_path), ctypes.byref(w), ctypes.byref(h),
+                               int(file_path), SPACES.get(space, -1),
+                               ctypes.byref(w), ctypes.byref(h),
                                ctypes.byref(orientation), err, len(err))
     if not ptr:
         raise ValueError(f"{name}: {err.value.decode()}")

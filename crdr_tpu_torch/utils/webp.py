@@ -1,7 +1,8 @@
-"""WebP reading on the host, as PIL reads a request body (no JAX
-counterpart: the JAX server calls ``Image.open(...).convert("RGB")``, and
-PIL decodes every WebP through libwebp's ``WebPAnimDecoder``, which the
-machines the port runs on do not have).
+"""WebP reading on the host, as PIL reads a request body or as
+``cv2.imread`` reads a file (no JAX counterpart: the JAX server calls
+``Image.open(...).convert("RGB")``, PIL decodes every WebP through
+libwebp's ``WebPAnimDecoder``, the JAX package's files go through cv2, and
+the machines the port runs on have neither).
 
 The RIFF container is parsed here; the bitstreams are decoded by
 ``runtime/csrc/webp.cpp`` (plain C ABI, standard headers only, built with
@@ -21,8 +22,9 @@ What raises a ``ValueError`` naming the source and the reason: a RIFF
 size past the data, a chunk past the RIFF, a frame past its canvas or of
 another size than its header says, ``ALPH`` beside a ``VP8L`` image, a VP8
 inter frame, bad or truncated bitstreams, more than ``MAX_PIXELS`` pixels.
-The file path (``cv2.imread``'s globs) does not read WebP at all:
-``img_utils.decode_image`` refuses it there.
+A file is read as cv2 reads it: the same pixels, but an ``ALPH`` beside a
+``VP8L`` is dropped (libwebp's ``WebPDecode``), and the EXIF chunk's
+orientation (2-8) is applied.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from .device import build_library, package_path
-from .png import MAX_PIXELS
+from .jpeg import orient
+from .png import MAX_PIXELS, exif_orientation
 
 _SRC = package_path("runtime", "csrc", "webp.cpp")
 _lock = threading.Lock()
@@ -107,7 +110,7 @@ def _bitstream_size(kind: bytes, payload: bytes, name: str) -> tuple:
     return (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
 
 
-def _frame(chunks, name: str):
+def _frame(chunks, name: str, alph_vp8l_ok: bool = False):
     """(kind, image, alpha) of the image chunks of one frame."""
     alpha = None
     for kind, payload in chunks:
@@ -116,14 +119,19 @@ def _frame(chunks, name: str):
                 alpha = payload
         elif kind in (b"VP8 ", b"VP8L"):
             if kind == b"VP8L" and alpha is not None:
+                if alph_vp8l_ok:
+                    return kind, payload, None  # libwebp's WebPDecode drops it
                 raise ValueError(f"{name}: WebP ALPH chunk beside a VP8L "
                                  "image")
             return kind, payload, alpha
     raise ValueError(f"{name}: WebP without an image chunk")
 
 
-def parse_webp(data: bytes, name: str = "WebP data") -> WebpFrame:
-    """The RIFF container of a WebP -> its first frame (module doc)."""
+def parse_webp(data: bytes, name: str = "WebP data",
+               file_path: bool = False) -> WebpFrame:
+    """The RIFF container of a WebP -> its first frame (module doc);
+    ``file_path``: as cv2 reads a file, an ``ALPH`` beside a ``VP8L`` is
+    dropped."""
     if not is_webp(data):
         raise ValueError(f"{name}: not a WebP file")
     riff = struct.unpack_from("<I", data, 4)[0]
@@ -161,14 +169,14 @@ def parse_webp(data: bytes, name: str = "WebP data") -> WebpFrame:
                 raise ValueError(f"{name}: WebP frame {fw}x{fh} at ({x}, "
                                  f"{y}) past its {cw}x{ch} canvas")
             kind, image, alpha = _frame(
-                _chunks(payload, 16, len(payload), name), name)
+                _chunks(payload, 16, len(payload), name), name, file_path)
             if _bitstream_size(kind, image, name) != (fw, fh):
                 raise ValueError(f"{name}: WebP frame of another size than "
                                  "its ANMF header")
             return WebpFrame((cw, ch), (x, y), (fw, fh), kind, image, alpha,
                              has_alpha)
         raise ValueError(f"{name}: animated WebP without frames")
-    kind, image, alpha = _frame(chunks, name)
+    kind, image, alpha = _frame(chunks, name, file_path)
     if _bitstream_size(kind, image, name) != (cw, ch):
         raise ValueError(f"{name}: WebP image of another size than its "
                          "canvas")
@@ -201,11 +209,29 @@ def frame_rgba(frame: WebpFrame, name: str = "WebP data") -> np.ndarray:
     return out
 
 
-def decode_webp_rgba(data: bytes, name: str = "WebP data") -> np.ndarray:
+def orientation(data: bytes) -> int:
+    """The EXIF orientation of an extended WebP's ``EXIF`` chunk (its
+    payload with or without the ``Exif\\0\\0`` prefix), 1 without one."""
+    riff = min(len(data), 8 + struct.unpack_from("<I", data, 4)[0])
+    pos = 12
+    while pos + 8 <= riff:
+        kind, size = data[pos:pos + 4], struct.unpack_from("<I", data,
+                                                           pos + 4)[0]
+        if kind == b"EXIF":
+            exif = data[pos + 8:pos + 8 + size]
+            return exif_orientation(exif[6:] if exif.startswith(
+                b"Exif\0\0") else exif)
+        pos += 8 + size + (size & 1)
+    return 1
+
+
+def decode_webp_rgba(data: bytes, name: str = "WebP data",
+                     file_path: bool = False) -> np.ndarray:
     """WebP bytes -> uint8 [H, W, 4] straight RGBA of the first frame on its
     canvas, as libwebp's animation decoder gives it to PIL; a file without
-    the alpha feature is opaque (PIL's ``RGBX``)."""
-    frame = parse_webp(data, name)
+    the alpha feature is opaque (PIL's ``RGBX``).  ``file_path``: the
+    frame as cv2 reads a file (``parse_webp``), before its orientation."""
+    frame = parse_webp(data, name, file_path)
     rgba = frame_rgba(frame, name)
     if frame.size != frame.canvas:
         (cw, ch), (x, y), (w, h) = frame.canvas, frame.offset, frame.size
@@ -217,8 +243,12 @@ def decode_webp_rgba(data: bytes, name: str = "WebP data") -> np.ndarray:
     return rgba
 
 
-def decode_webp(data: bytes, name: str = "WebP data") -> np.ndarray:
+def decode_webp(data: bytes, name: str = "WebP data",
+                file_path: bool = False) -> np.ndarray:
     """WebP bytes -> uint8 [H, W, 3] RGB, as PIL's ``convert("RGB")`` reads
-    a request body (module doc).  Raises ``ValueError`` starting with
-    ``name``."""
-    return np.ascontiguousarray(decode_webp_rgba(data, name)[..., :3])
+    a request body or, with ``file_path``, as ``cv2.imread`` reads a file
+    (the EXIF orientation applied; module doc).  Raises ``ValueError``
+    starting with ``name``."""
+    rgb = np.ascontiguousarray(decode_webp_rgba(data, name, file_path)
+                               [..., :3])
+    return orient(rgb, orientation(data)) if file_path else rgb

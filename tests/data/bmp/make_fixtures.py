@@ -173,6 +173,13 @@ def fixtures() -> dict:
         masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000))
     out["rgb32_v5_topdown.bmp"] = write_bmp(17, 12, 32, px.tobytes(),
                                             hsize=124, top_down=True)
+    # masks that are not whole bytes: cv2 scales each field (from a
+    # 56-byte header on); PIL refuses them
+    out["rgb32_v5_bitfields_10bit.bmp"] = write_bmp(
+        17, 12, 32, rows32, 3, hsize=124,
+        masks=(0x3FF00000, 0xFFC00, 0x3FF, 0))
+    out["rgb32_v3_bitfields_565.bmp"] = write_bmp(
+        17, 12, 32, rows32, 3, hsize=56, masks=(0xF800, 0x7E0, 0x1F, 0))
     img = synthetic(14, 19, 50)
     out["os2_rgb24.bmp"] = write_bmp(19, 14, 24, pack_rows(
         img[::-1, :, ::-1].reshape(14, -1), 8).tobytes(), hsize=12)
@@ -194,13 +201,21 @@ def sha(img: np.ndarray) -> str:
 
 
 def oracle_digests(path: str) -> dict:
-    """The digests of what cv2 (file path) and PIL (body path) decode."""
+    """The digests of what cv2 (file path: ``file`` and, as the other
+    formats name it, ``cv2``) and PIL (body path) decode; PIL's message
+    where it refuses (``pil``)."""
     with open(path, "rb") as f:
         data = f.read()
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
-    rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-    return {"file": sha(bgr[..., ::-1]), "file_shape": list(bgr.shape),
-            "body": sha(rgb), "body_shape": list(rgb.shape)}
+    out = {"file": sha(bgr[..., ::-1]), "file_shape": list(bgr.shape),
+           "cv2": sha(bgr[..., ::-1])}
+    try:
+        rgb = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except Exception as e:  # noqa: BLE001 - PIL raises several types
+        out["pil"] = str(e)
+    else:
+        out.update(body=sha(rgb), body_shape=list(rgb.shape))
+    return out
 
 
 def main() -> None:

@@ -20,8 +20,8 @@ of ``crdr_tpu_torch/cli/serve_smoke.py`` quantized by PIL to 256 colours.
 row-major) that ``PIL.Image.open(...).convert("RGB")`` gives (``body``)
 and their shape; for a file PIL refuses, the port's reason (``refused``)
 and PIL's message (``pil``).  ``cv2`` records what ``cv2.imread`` gives a
-file of the same bytes, for the record (the port's file path refuses GIF).
-``tests/test_torch_gif.py`` recomputes PIL's.
+file of the same bytes (null where it returns None), which the port's file
+path is held to.  ``tests/test_torch_gif.py`` recomputes both.
 """
 
 import hashlib
@@ -229,6 +229,19 @@ def fixtures() -> dict:
     bad[at + 1] = 0xFF
     out["refused_bad_code.gif"] = bytes(bad)
     out["refused_no_image.gif"] = good[:good.index(b",")] + b";"
+    # where cv2's own decoder parts from PIL: the background index fills
+    # the screen; minimum code size 10; LZW data past the frame's last
+    # pixel; no trailer
+    bg = bytearray(write_gif((30, 25), (7, 5, 18, 14), idx, 4,
+                             colors(16, 23), transparency=9))
+    bg[11] = 6  # the background colour index
+    out["background_index.gif"] = bytes(bg)
+    out["code_size_10.gif"] = write_gif((18, 14), (0, 0, 18, 14), idx * 61,
+                                        10, colors(256, 24))
+    out["data_past_frame.gif"] = write_gif(
+        (18, 14), (0, 0, 18, 14), idx, 4, colors(16, 25),
+        lzw=lzw_encode(np.concatenate([idx.ravel(), idx.ravel()[:9]]), 4))
+    out["no_trailer.gif"] = out["local_palette.gif"][:-1]
     return out
 
 
@@ -243,6 +256,8 @@ def sha(img: np.ndarray) -> str:
 
 
 def cv2_record(path: str):
+    """The digest of ``cv2.imread``'s RGB of a file, None where it
+    returns None."""
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
     return None if bgr is None else sha(bgr[..., ::-1])
 

@@ -15,9 +15,9 @@ bytes, PFM's colour ``PF``).
 row-major) that ``PIL.Image.open(...).convert("RGB")`` gives (``body``)
 and their shape; for a file PIL refuses, the port's reason (``refused``)
 and PIL's message (``pil``).  ``cv2`` records what ``cv2.imread`` gives a
-file of the same bytes, for the record (cv2 scales 16-bit PNM where PIL
-clips it; the port's file path refuses PNM).  ``tests/test_torch_pnm.py``
-recomputes PIL's.
+file of the same bytes (null where it returns None), which the port's file
+path is held to (cv2 takes a 16-bit sample's high byte where PIL clips
+it).  ``tests/test_torch_pnm.py`` recomputes both.
 """
 
 import hashlib
@@ -42,7 +42,8 @@ REFUSED = {"refused_truncated.ppm": "truncated PNM data",
            "refused_maxval_0.pgm": "maxval 0",
            "refused_p1_byte.pbm": "is not 0 or 1",
            "refused_long_token.ppm": "token too long",
-           "refused_color_pfm.pfm": "not a PNG, JPEG, BMP"}
+           "refused_color_pfm.pfm": "not a PNG, JPEG, BMP",
+    "pfm_color_scale_2.pfm": "not a PNG, JPEG, BMP"}
 
 
 def values(h: int, w: int, bands: int, maxval: int, seed: int) -> np.ndarray:
@@ -113,6 +114,13 @@ def fixtures() -> dict:
     out["refused_long_token.ppm"] = b"P6\n000000000003 2\n255\n" + bytes(18)
     out["refused_color_pfm.pfm"] = (b"PF\n3 2\n1.0\n"
                                     + np.zeros(18, ">f4").tobytes())
+    # where cv2 parts from PIL: colour PFM scaled by its scale, a plain
+    # file whose last number ends the data
+    fc = np.random.default_rng(11).uniform(-0.2, 2.8, (5, 7, 3))
+    out["pfm_color_scale_2.pfm"] = (b"PF\n7 5\n-2.5\n"
+                                    + fc.astype("<f4").tobytes())
+    out["p2_no_final_whitespace.pgm"] = plain(b"P2", values(
+        6, 7, 1, 255, 12), 255).rstrip()
     return out
 
 

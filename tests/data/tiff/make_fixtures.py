@@ -9,14 +9,17 @@ and RGBA modes) and, by hand (``write_tiff`` below, with its own LZW and
 PackBits encoders), the layouts PIL does not write: ``MM`` byte order,
 tiles, planar configuration 2, the predictor at 8 and 16 bits, old-style
 Deflate, 2- / 4- / 16-bit samples, associated alpha, a last strip shorter
-than RowsPerStrip, and the refusals (CCITT, LZMA-like and float samples,
-CMYK).
+than RowsPerStrip, the Orientation tag 1-8, YCbCr JPEG (4:2:0 and 4:2:2,
+strips and tiles, its tables in JPEGTables), and the refusals (CCITT,
+ZSTD, float samples).
 
 ``digests.json`` holds, for each file, the sha256 of the pixels (uint8 RGB,
 row-major) that ``PIL.Image.open(...).convert("RGB")`` gives (``body``)
-and their shape, or PIL's error (``refused``); ``cv2`` records what
-``cv2.imread`` gives a file of the same bytes, for the record (the port's
-file path refuses TIFF).  ``tests/test_torch_tiff.py`` recomputes PIL's.
+and their shape, or PIL's error (``refused``); ``cv2`` holds what
+``cv2.imread`` gives a file of the same bytes (null where it returns
+None), which the port's file path is held to; ``file_refused`` names a
+file cv2 reads and the port's file path refuses (CCITT).
+``tests/test_torch_tiff.py`` recomputes both.
 """
 
 import hashlib
@@ -25,6 +28,7 @@ import io
 import json
 import os
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -32,6 +36,7 @@ import numpy as np
 from PIL import Image
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
 
 
 def lzw_encode(data: bytes) -> bytes:
@@ -126,8 +131,10 @@ def _predict(rows: np.ndarray, spp: int, bits: int, e: str) -> np.ndarray:
 def write_tiff(samples: np.ndarray, bits: int, photometric: int,
                comp: int = 1, order: str = "II", planar: int = 1,
                rows_per_strip=None, tile=None, predictor: int = 1,
-               extra=(), colormap=None, sample_format=None) -> bytes:
-    """A TIFF of ``samples`` ([h, w, spp] integers of ``bits`` bits)."""
+               extra=(), colormap=None, sample_format=None,
+               more_tags=()) -> bytes:
+    """A TIFF of ``samples`` ([h, w, spp] integers of ``bits`` bits);
+    ``more_tags``: (tag, type, values) entries beside those written."""
     e = "<" if order == "II" else ">"
     h, w, spp = samples.shape
     planes = ([samples[..., k:k + 1] for k in range(spp)] if planar == 2
@@ -188,6 +195,7 @@ def write_tiff(samples: np.ndarray, bits: int, photometric: int,
         entries.append((338, 3, list(extra)))
     if sample_format is not None:
         entries.append((339, 3, [sample_format] * spp))
+    entries += list(more_tags)
     entries.sort()
     ifd_off = pos + (pos & 1)
     ext = ifd_off + 2 + 12 * len(entries) + 4
@@ -219,14 +227,13 @@ _spec.loader.exec_module(_gif)
 REFUSED = {"refused_truncated.tif": "truncated TIFF image data",
            "refused_planar_rgbx.tif": "planar TIFF",
            "refused_webp_in_tiff.tif": "WebP-compressed TIFF"}
-# files PIL reads and the port refuses by name
-ON_PURPOSE = {"pil_jpeg.tif": "JPEG-compressed TIFF",
-              "pil_group4.tif": "CCITT Group 4-compressed TIFF",
-              "pil_lzma.tif": "LZMA-compressed TIFF",
+# files PIL reads and the port refuses by name on the body path
+ON_PURPOSE = {"pil_group4.tif": "CCITT Group 4-compressed TIFF",
               "pil_zstd.tif": "ZSTD-compressed TIFF",
               "pil_float.tif": "sample format",
-              "pil_cmyk.tif": "CMYK",
               "planar_16bit_raw.tif": "planar TIFF"}
+# files cv2 reads and the port refuses by name on the file path
+FILE_GAPS = {"pil_group4.tif": "CCITT Group 4-compressed TIFF"}
 
 
 def synthetic(h: int, w: int, bands: int, bits: int, seed: int
@@ -245,6 +252,76 @@ def pil_tiff(im: Image.Image, **kw) -> bytes:
     b = io.BytesIO()
     im.save(b, "TIFF", **kw)
     return b.getvalue()
+
+
+def _jpeg_parts(jpeg: bytes) -> tuple:
+    """A JPEG -> (a tables-only stream: SOI, its DQT and DHT, EOI; the
+    abbreviated stream: SOI, SOF, SOS and data, EOI), as a JPEG TIFF holds
+    them (JPEGTables, then each strip or tile)."""
+    tables, rest, pos = b"\xff\xd8", b"\xff\xd8", 2
+    while jpeg[pos + 1] != 0xDA:
+        n = struct.unpack_from(">H", jpeg, pos + 2)[0]
+        seg = jpeg[pos:pos + 2 + n]
+        if jpeg[pos + 1] in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= jpeg[pos + 1] <= 0xEF:
+            rest += seg
+        pos += 2 + n
+    return tables + b"\xff\xd9", rest + jpeg[pos:]
+
+
+def jpeg_tiff(img: np.ndarray, quality: int, subsampling: int,
+              rows_per_strip=None, tile=None) -> bytes:
+    """A YCbCr JPEG-compressed TIFF (compression 7, photometric 6) of RGB
+    ``img``: each strip or tile a JPEG PIL writes at ``subsampling`` (0
+    4:4:4, 1 4:2:2, 2 4:2:0), its tables moved into JPEGTables."""
+    h, w, _ = img.shape
+    boxes = ([(y, x, tile[1], tile[0]) for y in range(0, h, tile[1])
+              for x in range(0, w, tile[0])] if tile else
+             [(y, 0, rows_per_strip or h, w)
+              for y in range(0, h, rows_per_strip or h)])
+    chunks, tables = [], b""
+    for y, x, bh, bw in boxes:
+        part = np.zeros((bh, bw, 3), np.uint8) if tile else None
+        src = img[y:y + bh, x:x + bw]
+        if tile:
+            part[:src.shape[0], :src.shape[1]] = src
+        b = io.BytesIO()
+        Image.fromarray(part if tile else src).save(
+            b, "JPEG", quality=quality, subsampling=subsampling)
+        tables, chunk = _jpeg_parts(b.getvalue())
+        chunks.append(chunk)
+    e, offsets, pos = "<", [], 8
+    for c in chunks:
+        offsets.append(pos)
+        pos += len(c)
+    sub = {0: [1, 1], 1: [2, 1], 2: [2, 2]}[subsampling]
+    entries = [(256, 4, [w]), (257, 4, [h]), (258, 3, [8, 8, 8]),
+               (259, 3, [7]), (262, 3, [6]), (277, 3, [3]), (284, 3, [1]),
+               (530, 3, sub), (347, 7, list(tables))]
+    if tile:
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]),
+                    (324, 4, offsets), (325, 4, [len(c) for c in chunks])]
+    else:
+        entries += [(273, 4, offsets), (278, 4, [rows_per_strip or h]),
+                    (279, 4, [len(c) for c in chunks])]
+    entries.sort()
+    ifd_off = pos + (pos & 1)
+    ext = ifd_off + 2 + 12 * len(entries) + 4
+    ifd, tail = struct.pack(e + "H", len(entries)), bytearray()
+    for tag, kind, vals in entries:
+        fmt = {3: "H", 4: "I", 7: "B"}[kind]
+        payload = struct.pack(f"{e}{len(vals)}{fmt}", *vals)
+        if len(payload) <= 4:
+            ifd += struct.pack(e + "HHI", tag, kind, len(vals)) \
+                + payload.ljust(4, b"\0")
+        else:
+            ifd += struct.pack(e + "HHII", tag, kind, len(vals),
+                               ext + len(tail))
+            tail += payload
+    ifd += struct.pack(e + "I", 0)
+    return (b"II*\0" + struct.pack(e + "I", ifd_off) + b"".join(chunks)
+            + bytes(ifd_off - pos) + ifd + bytes(tail))
 
 
 def fixtures() -> dict:
@@ -327,6 +404,38 @@ def fixtures() -> dict:
     out["refused_truncated.tif"] = bytes(short)
     out["refused_planar_rgbx.tif"] = write_tiff(a, 8, 2, 1, planar=2,
                                                 extra=(0,))
+    # the Orientation tag (274): PIL turns a body by it; cv2 turns a file
+    # by 2-4 and returns None for 5-8 unless the image is square
+    o_img = synthetic(13, 17, 3, 8, 18)
+    for o in range(1, 9):
+        out[f"orientation_{o}.tif"] = write_tiff(o_img, 8, 2, 1,
+                                                 more_tags=[(274, 3, [o])])
+    out["orientation_3_lzw.tif"] = write_tiff(o_img, 8, 2, 5, "MM",
+                                              more_tags=[(274, 3, [3])])
+    out["orientation_7_deflate.tif"] = write_tiff(
+        o_img, 8, 2, 8, more_tags=[(274, 3, [7])])
+    out["orientation_6_square.tif"] = write_tiff(
+        synthetic(16, 16, 3, 8, 19), 8, 2, 5, more_tags=[(274, 3, [6])])
+    # JPEG-compressed TIFF: PIL's writers, and hand-composed YCbCr
+    out["pil_jpeg_ycbcr.tif"] = pil_tiff(im.convert("YCbCr"),
+                                         compression="jpeg")
+    out["pil_jpeg_l.tif"] = pil_tiff(im.convert("L"), compression="jpeg")
+    photo = synthetic(40, 53, 3, 8, 20).astype(np.uint8)
+    out["jpeg_ycbcr_420_strips.tif"] = jpeg_tiff(photo, 80, 2,
+                                                 rows_per_strip=16)
+    out["jpeg_ycbcr_420_tiles.tif"] = jpeg_tiff(photo, 80, 2, tile=(32, 16))
+    out["jpeg_ycbcr_422_strips.tif"] = jpeg_tiff(photo, 90, 1,
+                                                 rows_per_strip=8)
+    # 768x512 (serve_smoke's synthetic_images(1, 512, 768, 25)) for the
+    # card's decode timing: YCbCr JPEG 4:2:0 in strips, 16-bit RGB
+    from crdr_tpu_torch.cli.serve_smoke import synthetic_images
+
+    big = synthetic_images(1, 512, 768, 25)[0]
+    out["photo_768x512_jpeg_420.tif"] = jpeg_tiff(big, 85, 2,
+                                                  rows_per_strip=64)
+    out["photo_768x512_16bit.tif"] = write_tiff(
+        big.astype(np.int64) * 257, 16, 2, 8, rows_per_strip=64,
+        predictor=2)
     return out
 
 
@@ -348,6 +457,8 @@ def main() -> None:
         digests = json.load(f)
     for name, why in ON_PURPOSE.items():
         digests[name]["refused"] = why
+    for name, why in FILE_GAPS.items():
+        digests[name]["file_refused"] = why
     with open(path, "w") as f:
         json.dump(digests, f, indent=1, sort_keys=True)
         f.write("\n")

@@ -11,8 +11,9 @@ multiple of the bundle), lossy and lossless with alpha at
 ``alpha_quality`` 100 and 50, an animation, 1x1, 1x7, 7x1 and odd sizes;
 by hand, an animation whose first frame is smaller than its canvas and
 lies at an offset, and a raw (uncompressed) ``ALPH`` chunk with the
-gradient filter (PIL's encoder writes neither); and refusals (a truncated file, a VP8 inter frame, an
-ALPH chunk beside a VP8L image).  Two 768x512 files time the decoder:
+gradient filter (PIL's encoder writes neither); EXIF orientations 2-8,
+which cv2 applies to a file and PIL not to a body; and refusals (a
+truncated file, a VP8 inter frame, an ALPH chunk beside a VP8L image).  Two 768x512 files time the decoder:
 ``synthetic_images(1, 512, 768, 25)`` of ``crdr_tpu_torch/cli/serve_smoke.py``
 as lossy (quality 80) and lossless WebP; the lossless one decodes to those
 pixels exactly.
@@ -22,8 +23,8 @@ row-major) that ``PIL.Image.open(...).convert("RGB")`` gives (``body``),
 their shape, and the sha256 of PIL's RGBA (``rgba``, which holds the
 decoded alpha); for a file PIL refuses, the port's reason (``refused``)
 and PIL's message (``pil``).  ``cv2`` records what ``cv2.imread`` gives a
-file of the same bytes, for the record (the port's file path refuses
-WebP).  ``tests/test_torch_webp.py`` recomputes PIL's.
+file of the same bytes (null where it returns None), which the port's file
+path is held to.  ``tests/test_torch_webp.py`` recomputes both.
 """
 
 import hashlib
@@ -177,6 +178,13 @@ def fixtures() -> dict:
     out["refused_alph_with_vp8l.webp"] = riff(
         chunk(b"VP8X", vp8x) + chunk(b"ALPH", b"\x00" + bytes(31 * 29))
         + chunk(kind, image))
+    # an EXIF chunk's orientation: cv2 turns a file by it, PIL a body not
+    for o in range(2, 9):
+        exif = Image.Exif()
+        exif[0x0112] = o
+        out[f"exif_orientation_{o}.webp"] = webp(
+            synthetic(21, 34, 40 + o), quality=75, lossless=o % 2 == 0,
+            exif=exif.tobytes())
     return out
 
 

@@ -9,7 +9,8 @@ on the CPU; tolerance 0 throughout.
   RLE8 / RLE4, 16-, 24- and 32-bit, bitfields, header sizes, top-down):
   each path equal to its oracle, or refused where its oracle refuses.
 * The variants where cv2 and PIL part (bitfields, a stream that ends
-  early, a run past its row), each path against its oracle.
+  early, a run past its row), each path against its oracle; 32-bit
+  bitfields that are not whole bytes, which cv2 scales.
 * ``imwrite('.bmp')`` and ``encode_bmp`` byte-equal to ``cv2.imwrite``.
 """
 
@@ -75,15 +76,24 @@ def test_fixture_digests(name):
     with open(path, "rb") as f:
         data = f.read()
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
-    pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
     want = DIGESTS[name]
+    try:
+        pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except Exception as e:  # noqa: BLE001 - PIL raises several types
+        body = {"pil": str(e)}
+    else:
+        body = {"body": _sha(pil), "body_shape": list(pil.shape)}
     assert want == {"file": _sha(bgr[..., ::-1]),
                     "file_shape": list(bgr.shape),
-                    "body": _sha(pil), "body_shape": list(pil.shape)}
+                    "cv2": _sha(bgr[..., ::-1]), **body}
     mine_file = img_utils.read_image(path)
-    mine_body = img_utils.decode_image(data, name, file_path=False)
     assert list(mine_file.shape) == want["file_shape"]
     assert _sha(mine_file) == want["file"]
+    if "pil" in want:  # PIL refuses it: the body path too
+        with pytest.raises(ValueError, match=f"^{name}: "):
+            img_utils.decode_image(data, name, file_path=False)
+        return
+    mine_body = img_utils.decode_image(data, name, file_path=False)
     assert list(mine_body.shape) == want["body_shape"]
     assert _sha(mine_body) == want["body"]
 
@@ -176,16 +186,26 @@ def test_readers_part(kind, tmp_path):
     _check_paths(tmp_path, _parted(kind), kind)
 
 
-def test_bitfields_cv2_scales_are_refused():
-    """cv2 reads 32-bit masks wider or narrower than a byte under a V5
-    header by scaling each field; the port refuses them (a gap, listed in
-    ROADMAP.md) and PIL does too."""
-    px = np.zeros((2, 3, 4), np.uint8)
-    data = make.write_bmp(3, 2, 32, px.tobytes(), 3, hsize=124,
+def test_bitfields_cv2_scales_are_refused(tmp_path):
+    """Named for the time the port refused them: cv2 reads 32-bit masks
+    wider or narrower than a byte under a header of 56 bytes or more by
+    scaling each field (times 255 over its maximum, in float32, truncated;
+    masks ignored where one is zero or the header is shorter), and so does
+    the port's file path; PIL refuses them, and so does the body path."""
+    rng = np.random.default_rng(12)
+    px = rng.integers(0, 256, (5, 7, 4), np.uint8)
+    for masks, hsize in (((0x3FF00000, 0xFFC00, 0x3FF, 0), 124),
+                         ((0xF800, 0x7E0, 0x1F, 0), 56),
+                         ((0x3F, 0xFC0, 0x3F000, 0), 108),
+                         ((0xFFFF0000, 0xFFFF, 0, 0), 124),
+                         ((0x7C00, 0x3E0, 0x1F, 0), 52)):
+        data = make.write_bmp(7, 5, 32, px.tobytes(), 3, hsize=hsize,
+                              masks=masks)
+        _check_paths(tmp_path, data, "wide.bmp")
+    data = make.write_bmp(7, 5, 32, px.tobytes(), 3, hsize=124,
                           masks=(0x3FF00000, 0xFFC00, 0x3FF, 0))
-    for file_path in (True, False):
-        with pytest.raises(ValueError, match="bitfields"):
-            bmp.decode_bmp(data, "wide.bmp", file_path)
+    with pytest.raises(ValueError, match="bitfields"):
+        bmp.decode_bmp(data, "wide.bmp", False)
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (2, 3), (13, 17), (64, 33)])
@@ -204,3 +224,26 @@ def test_imwrite_bmp_byte_equal_to_cv2(tmp_path, shape):
     with pytest.raises(ValueError, match="encode_bmp"):
         bmp.encode_bmp(rgb[..., 0])
     assert struct.unpack_from("<H", buf.tobytes(), 28)[0] == 24
+
+
+@pytest.mark.parametrize("chunk", range(2))
+def test_random_rle_streams_ending_at_the_last_byte(chunk, tmp_path):
+    """RLE4 / RLE8 streams that end at the file's last byte (no end of
+    bitmap, an absolute run without its pad byte, a cut, a delta last):
+    each path against its oracle."""
+    rng = np.random.default_rng(5000 + chunk)
+    for i in range(40):
+        rle4 = i % 2 == 0
+        h, w = int(rng.integers(1, 12)), int(rng.integers(3, 30))
+        idx, pal = make.palette_image(4 if rle4 else 8, h, w, i)
+        stream = make.rle_encode(idx, rle4, rng)
+        k = i // 2 % 4
+        if k == 1:
+            stream = stream[:-2]
+        elif k == 2:
+            stream = stream[:int(rng.integers(2, len(stream)))]
+        elif k == 3:
+            stream = stream[:-2] + b"\0\2\1\0"
+        data = make.write_bmp(w, h, 4 if rle4 else 8, stream,
+                              2 if rle4 else 1, palette=pal)
+        _check_paths(tmp_path, data, f"rle {chunk}/{i}")

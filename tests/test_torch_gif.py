@@ -4,13 +4,18 @@ against PIL, on the CPU; tolerance 0.
 * Every fixture of ``tests/data/gif/``: ``digests.json`` recomputed from
   the committed files with PIL, so it cannot drift; the port's RGB has the
   same digest through ``img_utils.decode_image`` on the body path.  The
-  files PIL refuses raise with their reason; on the file path every GIF
-  raises, naming the format.
+  files PIL refuses raise with their reason.  On the file path, each
+  equals its ``cv2`` digest (``cv2.imread`` of the file, recomputed), or
+  raises where cv2 returns None (OpenCV's own GIF decoder: the screen
+  filled with the background index, transparent pixels left, a default
+  gray palette with index 1 white, every block of the file walked).
 * 60 seeded random GIFs: PIL's writer (palettes of 2-256 colours, gray,
   1-bit, interlaced or not, a transparency index) and the fixture script's
   own writer (a frame at an offset on a larger screen, local palettes,
   minimum code sizes 2-8, short palettes, interlacing): byte-equal to
-  PIL's ``convert("RGB")``.
+  PIL's ``convert("RGB")``; 80 more from the script's writer (offsets,
+  transparency, background indexes, code sizes 2-11, cuts), as files,
+  equal to ``cv2.imread``.
 """
 
 import hashlib
@@ -25,6 +30,7 @@ import pytest
 from PIL import Image
 
 from crdr_tpu_torch.utils import gif, img_utils
+from tests.cv2_files import assert_fixture_file, assert_like_cv2
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "data", "gif")
@@ -46,9 +52,7 @@ def test_fixture_digests(name):
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
     want = DIGESTS[name]
-    with pytest.raises(ValueError, match=f"^{name}: not a PNG, JPEG or BMP "
-                       "file \\(a GIF file"):
-        img_utils.decode_image(data, name, file_path=True)
+    assert_fixture_file(os.path.join(FIXTURES, name), want)
     if "refused" in want:
         with pytest.raises(Exception) as e:
             Image.open(io.BytesIO(data)).convert("RGB")
@@ -99,3 +103,38 @@ def test_random_gifs_byte_equal_to_pil(chunk):
         want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
         got = gif.decode_gif(data, f"random {chunk}.{i}")
         assert got.shape == want.shape and got.tobytes() == want.tobytes(), i
+
+
+def _random_gif_file(rng, i: int) -> bytes:
+    sw, sh = (int(v) for v in rng.integers(1, 30, 2))
+    fw, fh = int(rng.integers(1, sw + 1)), int(rng.integers(1, sh + 1))
+    x0 = int(rng.integers(0, sw - fw + 1))
+    y0 = int(rng.integers(0, sh - fh + 1))
+    if rng.random() < 0.1:
+        x0 += int(rng.integers(1, 4))  # past the screen: cv2 refuses
+    bits = int(rng.integers(2, 12))
+    n = int(rng.integers(1, min(1 << bits, 600) + 1))
+    idx = rng.integers(0, n, (fh, fw))
+    top = 1 << min(bits, 8)
+    gp = make.colors(int(rng.integers(2, top + 1)), i) \
+        if rng.random() < 0.7 else None
+    lp = make.colors(int(rng.integers(2, top + 1)), i + 1000) \
+        if rng.random() < 0.4 else None
+    tr = int(rng.integers(0, min(n + 2, 256))) if rng.random() < 0.5 \
+        else None
+    il = rng.random() < 0.3
+    data = bytearray(make.write_gif((sw, sh), (x0, y0, fw, fh),
+                                    make.interlaced(idx) if il else idx,
+                                    bits, gp, lp, tr, il))
+    if gp is not None and rng.random() < 0.5:
+        data[11] = int(rng.integers(0, 8))  # the background index
+    if rng.random() < 0.1:
+        data = data[:int(rng.integers(6, len(data)))]
+    return bytes(data)
+
+
+@pytest.mark.parametrize("chunk", range(4))
+def test_random_gif_files_as_cv2_reads_them(tmp_path, chunk):
+    rng = np.random.default_rng(2100 + chunk)
+    for i in range(20):
+        assert_like_cv2(tmp_path, _random_gif_file(rng, i), ".gif", i)

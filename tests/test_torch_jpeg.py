@@ -4,11 +4,17 @@ BMP reader against cv2 and PIL, on the CPU; tolerance 0 throughout.
 * Every fixture of ``tests/data/jpeg/``: ``digests.json`` recomputed from
   the committed files with cv2 (the file path, EXIF orientation applied)
   and PIL (the body path), so it cannot drift; the port's pixels have the
-  same digests on each path.  The refused fixtures (SOF9, SOF3, 12-bit)
-  raise with the file's name and their reason.  The truncated ones (cut
-  mid-scan, inside a progressive file's last scan, where a restart marker
-  was due, before EOI) decode on the file path to ``cv2.imread``'s pixels
-  (libjpeg's partial image) and raise on the body path, as PIL raises.
+  same digests on each path.  The refused fixtures (SOF3, 12-bit) raise
+  with the file's name and their reason; ``refused_sof9.jpg`` (a Huffman
+  file under an SOF9 marker) is read as libjpeg reads it, as arithmetic
+  data.  The truncated ones (cut mid-scan, inside each scan of a 4:2:0 and
+  a 4:4:4 progressive file, where a restart marker was due, before EOI,
+  arithmetic files) decode on the file path to ``cv2.imread``'s pixels
+  (libjpeg's partial image, smoothed where its scans leave coefficients
+  unrefined) and raise on the body path, as PIL raises.  The ``smooth_*``
+  files (scans cut out) are smoothed on both paths.
+* Each arithmetic-coded fixture (SOF9 / SOF10, DAC, restart intervals)
+  equals its Huffman twin under cv2, and the port equals both.
 * 240 seeded random images across the variants (cv2 at every sampling it
   writes, progressive, restart intervals, optimized tables, grayscale, any
   quality and odd sizes; PIL's subsamplings, RGB without conversion, CMYK
@@ -17,11 +23,13 @@ BMP reader against cv2 and PIL, on the CPU; tolerance 0 throughout.
 * ``imread`` reads a JPEG by its magic bytes, whatever its suffix, and
   decodes in several threads at once.
 * 24- and 32-bit BMPs, bottom-up and top-down: equal to ``cv2.imread``;
-  a bit count cv2 refuses, a truncated BMP and unknown formats raise (the
-  other BMP variants: ``tests/test_torch_bmp.py``).
+  a bit count cv2 refuses, a truncated BMP, a GIF cv2 refuses and an
+  unknown format raise (the other BMP variants:
+  ``tests/test_torch_bmp.py``).
 """
 
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -68,7 +76,9 @@ def test_fixture_digests(name):
         data = f.read()
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
     if "body_raises" in want:  # a truncated file
-        with pytest.raises(OSError, match="image file is truncated") as e:
+        with pytest.raises(OSError) as e:  # PIL: "image file is truncated",
+            # "broken data stream" where libjpeg's arithmetic decoder asks
+            # for more bytes than it has
             Image.open(io.BytesIO(data)).convert("RGB")
         assert want == {"file": _sha(bgr[..., ::-1]),
                         "file_shape": list(bgr.shape),
@@ -92,6 +102,29 @@ def test_fixture_digests(name):
     assert _sha(mine_file) == want["file"]
     assert list(mine_body.shape) == want["body_shape"]
     assert _sha(mine_body) == want["body"]
+
+
+_spec = importlib.util.spec_from_file_location(
+    "jpeg_fixtures", os.path.join(FIXTURES, "make_fixtures.py"))
+make = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(make)
+
+
+@pytest.mark.parametrize("name", sorted(make.TWINS))
+def test_arithmetic_fixture_equals_its_huffman_twin(name):
+    """cv2.imread of the arithmetic file equals cv2.imread of the Huffman
+    file holding the same coefficients and tables; the port reads the
+    arithmetic file to the same pixels on both paths."""
+    a, b = (cv2.imread(os.path.join(FIXTURES, n), cv2.IMREAD_COLOR)
+            for n in (name, make.TWINS[name]))
+    assert a is not None and a.tobytes() == b.tobytes()
+    with open(os.path.join(FIXTURES, name), "rb") as f:
+        data = f.read()
+    assert data[2:] != open(os.path.join(FIXTURES, make.TWINS[name]),
+                            "rb").read()[2:]
+    for file_path in (True, False):
+        mine = decode_jpeg(data, name, file_path=file_path)
+        assert mine.tobytes() == a[..., ::-1].tobytes()
 
 
 def _image(rng, h: int, w: int) -> np.ndarray:
@@ -238,6 +271,13 @@ def test_bmp_and_unknown_formats_raise(tmp_path):
         img_utils.decode_bmp(_bmp(np.zeros((4, 4, 3), np.uint8), 24,
                                   False)[:-8], "cut.bmp")
     gif = tmp_path / "x.gif"
-    gif.write_bytes(b"GIF89a" + bytes(20))
-    with pytest.raises(ValueError, match="x.gif: not a PNG, JPEG or BMP"):
+    gif.write_bytes(b"GIF89a" + bytes(20))  # a 0x0 screen
+    assert cv2.imread(str(gif), cv2.IMREAD_COLOR) is None
+    with pytest.raises(ValueError, match="x.gif: GIF screen of 0x0 "
+                       "\\(cv2.imread returns None\\)"):
         img_utils.read_image(str(gif))
+    other = tmp_path / "x.jpg"
+    other.write_bytes(b"\x00\x01not an image")
+    with pytest.raises(ValueError, match="x.jpg: not a PNG, JPEG, BMP, WebP, "
+                       "GIF, PNM or TIFF file"):
+        img_utils.read_image(str(other))

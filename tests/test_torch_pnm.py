@@ -4,12 +4,15 @@ tolerance 0.
 * Every fixture of ``tests/data/pnm/``: ``digests.json`` recomputed from
   the committed files with PIL, so it cannot drift; the port's RGB has the
   same digest through ``img_utils.decode_image`` on the body path.  The
-  files PIL refuses raise with their reason; on the file path every PNM
-  raises, naming the format.
+  files PIL refuses raise with their reason.  On the file path, each
+  equals its ``cv2`` digest (``cv2.imread`` of the file, recomputed), or
+  raises where cv2 returns None (OpenCV's ``grfmt_pxm.cpp``: raw samples
+  as they are, a 16-bit one's high byte, plain ones clipped to the maxval
+  and scaled by ``255 // maxval``; colour PFM by its scale).
 * 240 seeded random PNMs (P1 to P6, maxvals 1-65535, whitespace and
   comments in the header and the plain data, truncated data, samples past
   the maxval): equal to PIL's ``convert("RGB")``, or refused where PIL
-  refuses.
+  refuses; 120 more as files, equal to ``cv2.imread``.
 """
 
 import hashlib
@@ -24,6 +27,7 @@ import pytest
 from PIL import Image
 
 from crdr_tpu_torch.utils import img_utils, pnm
+from tests.cv2_files import assert_fixture_file, assert_like_cv2
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "data", "pnm")
@@ -45,10 +49,7 @@ def test_fixture_digests(name):
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
     want = DIGESTS[name]
-    if pnm.is_pnm(data):
-        with pytest.raises(ValueError, match=f"^{name}: not a PNG, JPEG or "
-                           "BMP file \\(a PNM file"):
-            img_utils.decode_image(data, name, file_path=True)
+    assert_fixture_file(os.path.join(FIXTURES, name), want)
     if "refused" in want:
         with pytest.raises(Exception) as e:
             Image.open(io.BytesIO(data)).convert("RGB")
@@ -110,3 +111,13 @@ def test_random_pnms_equal_to_pil(chunk):
             continue
         got = pnm.decode_pnm(data, "random")
         assert got.shape == want.shape and got.tobytes() == want.tobytes(), i
+
+
+@pytest.mark.parametrize("chunk", range(2))
+def test_random_pnm_files_as_cv2_reads_them(tmp_path, chunk):
+    rng = np.random.default_rng(3100 + chunk)
+    for i in range(60):
+        data = _random_pnm(rng, i)
+        if i % 7 == 0:  # the last number ends the data
+            data = data.rstrip()
+        assert_like_cv2(tmp_path, data, ".pnm", i)

@@ -5,11 +5,14 @@ against PIL (libwebp's animation decoder), on the CPU; tolerance 0.
   the committed files with PIL, so it cannot drift; the port's RGB (and its
   RGBA, which holds the decoded ``ALPH``) have the same digests through
   ``img_utils.decode_image`` on the body path.  The files PIL refuses
-  raise with their reason; on the file path every WebP raises, naming the
-  format.
+  raise with their reason.  On the file path, each equals its ``cv2``
+  digest (``cv2.imread`` of the file, recomputed), or raises where cv2
+  returns None: cv2 reads an ``ALPH`` beside a ``VP8L`` (libwebp's
+  ``WebPDecode`` drops it) and turns a file by its EXIF orientation.
 * 48 seeded random WebPs (lossy at any quality and ``method``, lossless,
   noise and palettes, alpha at any ``alpha_quality``, sizes 1-90): RGBA
-  byte-equal to PIL's.
+  byte-equal to PIL's; 24 more with an EXIF orientation, as files, equal
+  to ``cv2.imread``.
 """
 
 import hashlib
@@ -23,6 +26,7 @@ import pytest
 from PIL import Image
 
 from crdr_tpu_torch.utils import img_utils, webp
+from tests.cv2_files import assert_fixture_file, assert_like_cv2
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(ROOT, "tests", "data", "webp")
@@ -40,9 +44,7 @@ def test_fixture_digests(name):
     with open(os.path.join(FIXTURES, name), "rb") as f:
         data = f.read()
     want = DIGESTS[name]
-    with pytest.raises(ValueError, match=f"^{name}: not a PNG, JPEG or BMP "
-                       "file \\(a WebP file"):
-        img_utils.decode_image(data, name, file_path=True)
+    assert_fixture_file(os.path.join(FIXTURES, name), want)
     if "refused" in want:
         with pytest.raises(Exception) as e:
             Image.open(io.BytesIO(data)).convert("RGB")
@@ -96,3 +98,19 @@ def test_random_webps_byte_equal_to_pil(chunk):
         want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
         got = webp.decode_webp_rgba(data, f"random {chunk}.{i}")
         assert got.shape == want.shape and got.tobytes() == want.tobytes(), i
+
+
+@pytest.mark.parametrize("chunk", range(2))
+def test_random_webp_files_as_cv2_reads_them(tmp_path, chunk):
+    rng = np.random.default_rng(1100 + chunk)
+    for i in range(12):
+        data = _random_webp(rng)
+        if i % 2:  # an EXIF orientation, 0-9 (cv2 turns 2-8)
+            exif = Image.Exif()
+            exif[0x0112] = int(rng.integers(0, 10))
+            im = Image.open(io.BytesIO(data))
+            b = io.BytesIO()
+            im.save(b, "WEBP", lossless=bool(i % 4 == 1), quality=70,
+                    exif=exif.tobytes())
+            data = b.getvalue()
+        assert_like_cv2(tmp_path, data, ".webp", i)
