@@ -12,7 +12,8 @@ Phases, each asserted (any failure exits non-zero):
 
 1. card: the nvidia-smi name / power-limit line; the kernels build from the
    checkout's sources (nvcc for K1, K2, K3 and E1; g++ for the host rANS
-   coders, all started together) into build/crdr_tpu_torch/.
+   coders and the image decoders, all started together) into
+   build/crdr_tpu_torch/.
 2. K1 (the Charm SliceTransform kernel) at the main path's shapes: batch 4,
    a 32x48 latent (a 512x768 image), Cin 480 (mean / scale) and 512 (LRP),
    seeded weights in a 10-slice packed stack, slice 7.  The library's SASS
@@ -372,20 +373,25 @@ Phases, each asserted (any failure exits non-zero):
    the refused ones raising their reason, each small PNG equal through the
    C++ decoder's numpy twin; the truncated JPEGs read on the file path as
    cv2 reads them (also through OpenImageImageDataset) and refused on the
-   body path; every fixture of tests/data/webp, gif, pnm and tiff decoded
-   on the file path to cv2's digest and on the body path to PIL's (the
-   WebP and LZW decoders built in phase 1), the refused ones (where the
-   oracle refuses, and those refused on purpose) raising their reason;
+   body path; every fixture of tests/data/webp, gif, pnm, tiff, jpeg2000,
+   sunras and hdr decoded on the file path to cv2's digest and on the body
+   path to PIL's (the WebP, LZW, JPEG 2000 and run-length decoders built
+   in phase 1), the refused ones (where the oracle refuses, and those
+   refused on purpose) raising their reason;
    the C++ WebP decoder's ms at 768x512 (lossy and lossless, of
    serve_smoke's synthetic_images: the lossless one equal to those
    pixels) and the GIF decoder's; the JPEG decoder's ms at 768x512 (a
    Mpix); on the file path at 768x512, the arithmetic (sequential,
    progressive), smoothed progressive, JPEG-in-TIFF, GIF and 16-bit TIFF
-   decodes' ms; python -m crdr_tpu_torch.cli.compress (run in process,
-   so its launches count) on the flagship's device wire over a WebP named
-   .jpg, a TIFF named .png, an arithmetic JPEG and a smoothed truncated
-   progressive JPEG beside PNGs of their pixels, one batch of 8: each
-   .bin byte-equal to its PNG's, launches K1 60, K2 11, E1 2, K3 0;
+   decodes' ms; at 768x512, the JPEG 2000 decoder's ms (a reversible JP2,
+   an irreversible codestream, a tiled RPCL JP2), a run-length Sun
+   raster's (body) and a run-length Radiance file's; python -m
+   crdr_tpu_torch.cli.compress (run in process, so its launches count) on
+   the flagship's device wire over a WebP named .jpg, a TIFF named .png,
+   an arithmetic JPEG, a smoothed truncated progressive JPEG, a JP2, a
+   Radiance file and a Sun raster named .jpg beside PNGs of their pixels,
+   one batch of 14: each .bin byte-equal to its PNG's, launches K1 60, K2
+   11, E1 2, K3 0;
    the C++ PNG decoder's ms at 768x512 (PIL's file and an all-Paeth one)
    beside its numpy twin's; the 768x512 fixture as a JPEG body to
    cli/serve.py's server (crdr_throughput.yaml, device wire, E1): its .bin
@@ -558,7 +564,7 @@ def build_kernels() -> dict:
     from crdr_tpu_torch.ops import lane_decode as k2
     from crdr_tpu_torch.ops import lane_encode as e1
     from crdr_tpu_torch.ops import slice_transform as k1
-    from crdr_tpu_torch.utils import gif, jpeg, png, webp
+    from crdr_tpu_torch.utils import gif, jpeg, jpeg2000, png, sunras, webp
 
     results, threads = {}, []
 
@@ -577,7 +583,10 @@ def build_kernels() -> dict:
                      ("host JPEG decoder and encoder (g++)", jpeg.build),
                      ("host PNG decoder (g++)", png.build),
                      ("host WebP decoder (g++)", webp.build),
-                     ("host LZW decoders, GIF and TIFF (g++)", gif.build)):
+                     ("host LZW decoders, GIF and TIFF (g++)", gif.build),
+                     ("host JPEG 2000 decoder (g++)", jpeg2000.build),
+                     ("host run-length decoders, Sun raster and Radiance "
+                      "(g++)", sunras.build)):
         threads.append(threading.Thread(target=run, args=(name, fn)))
         threads[-1].start()
     for t in threads:
@@ -6729,7 +6738,8 @@ BMP_DIR = os.path.join(ROOT, "tests", "data", "bmp")
 # the formats whose digests name cv2's file reading "cv2" (and PIL's body
 # reading "body")
 BODY_DIRS = {kind: os.path.join(ROOT, "tests", "data", kind.lower())
-             for kind in ("WebP", "GIF", "PNM", "TIFF")}
+             for kind in ("WebP", "GIF", "PNM", "TIFF", "JPEG2000", "SunRas",
+                          "HDR")}
 JPEG_STEPS = 3
 
 
@@ -6809,12 +6819,12 @@ def fixtures_check(folder: str, twin=None) -> dict:
 
 
 def body_fixtures_check(kind: str) -> dict:
-    """Every fixture of tests/data/<kind> (WebP, GIF, PNM, TIFF) on both
-    paths: on the file path its pixels' sha256 equal to cv2's digest, or
-    refused where cv2 returns None (or by name, ``file_refused``: CCITT,
-    which cv2 reads); on the body path equal to PIL's digest, or refused
-    with its reason (what PIL refuses, and what the port refuses by
-    name)."""
+    """Every fixture of tests/data/<kind> (WebP, GIF, PNM, TIFF, JPEG2000,
+    SunRas, HDR) on both paths: on the file path its pixels' sha256 equal
+    to cv2's digest, or refused where cv2 returns None (or by name,
+    ``file_refused``: CCITT, which cv2 reads); on the body path equal to
+    PIL's digest, or refused with its reason (what PIL refuses, and what
+    the port refuses by name)."""
     import re
 
     from crdr_tpu_torch.utils.img_utils import decode_image
@@ -6940,27 +6950,83 @@ def decode_timing_768x512() -> dict:
     return res
 
 
+def new_readers_timing() -> dict:
+    """The JPEG 2000, Sun raster and Radiance readers on the card's host at
+    768x512 (serve_smoke's synthetic_images(1, 512, 768, 25)): ms a
+    decode, medians of 3 after 1 warm-up, each decode's pixels against its
+    committed digest: a reversible JP2, an irreversible codestream of two
+    quality layers and an irreversible JP2 in 256x256 RPCL tiles (the file
+    path, cv2's), the run-length Sun raster (the body path, PIL's: cv2
+    reads no run-length Sun raster) and the run-length Radiance file (the
+    file path)."""
+    from crdr_tpu_torch.utils.img_utils import decode_image
+
+    res = {}
+    for kind, folder, name, file_path in (
+            ("jp2_reversible", "JPEG2000", "photo_768x512_reversible.jp2",
+             True),
+            ("j2k_irreversible", "JPEG2000", "photo_768x512_layers.j2k",
+             True),
+            ("jp2_tiled_rpcl", "JPEG2000", "photo_768x512_tiled_rpcl.jp2",
+             True),
+            ("sunras_rle_body", "SunRas", "photo_768x512_rle.ras", False),
+            ("hdr_rle", "HDR", "photo_768x512_rle.hdr", True)):
+        folder = BODY_DIRS[folder]
+        with open(os.path.join(folder, name), "rb") as f:
+            data = f.read()
+        with open(os.path.join(folder, "digests.json")) as f:
+            want = json.load(f)[name]["cv2" if file_path else "body"]
+        runs = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            img = decode_image(data, name, file_path=file_path)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        check(img.shape == (512, 768, 3) and pixel_sha(img) == want,
+              f"{name}: pixels differ from {'cv2' if file_path else 'PIL'}'s")
+        res[kind] = {"ms": float(np.median(runs[1:])), "bytes": len(data)}
+    return res
+
+
+def sun_raster(rgb) -> bytes:
+    """A standard (type 1) 24-bit Sun raster of uint8 RGB: BGR rows padded
+    to 16 bits."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = (w * 3 + 1) & ~1
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = rgb[..., ::-1].reshape(h, -1)
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, h * stride, 1, 0, 0) \
+        + rows.tobytes()
+
+
 # phase 25's misnamed files: (name in the CLI's folder, source folder,
 # fixture): a WebP named .jpg, a TIFF named .png, an arithmetic-coded
-# JPEG, a truncated progressive JPEG libjpeg smooths
+# JPEG, a truncated progressive JPEG libjpeg smooths, a JP2, a run-length
+# Radiance file, and a standard Sun raster of the run-length one's pixels
+# (cv2 reads no run-length Sun raster)
 MISNAMED = (("a.jpg", "WebP", "photo_768x512_lossy.webp"),
             ("b.png", "TIFF", "photo_768x512_jpeg_420.tif"),
             ("c.jpg", "JPEG", "arith_prog_768x512.jpg"),
-            ("d.jpg", "JPEG", "truncated_smooth_768x512.jpg"))
+            ("d.jpg", "JPEG", "truncated_smooth_768x512.jpg"),
+            ("e.jpg", "JPEG2000", "photo_768x512_reversible.jp2"),
+            ("f.jpg", "HDR", "photo_768x512_rle.hdr"),
+            ("g.jpg", "SunRas", "photo_768x512_rle.ras"))
 
 
 def misnamed_cli_check(tmp: str, want: dict) -> dict:
     """``python -m crdr_tpu_torch.cli.compress`` (run in this process, so
     its launches are counted) on the flagship, the device wire, over a
     folder of MISNAMED and, beside each, a PNG of its pixels (its file
-    path's decode, held to cv2's digest): one batch of 8; each misnamed
+    path's decode, held to cv2's digest): one batch of 14; each misnamed
     file's .bin byte-equal to its PNG's, the launches those of the JPEG
     body (``want``: K1 60, K2 11, E1 2, K3 0)."""
     import runpy
 
     import torch
 
-    from crdr_tpu_torch.utils.img_utils import read_image, write_png
+    from crdr_tpu_torch.utils.img_utils import (decode_image, read_image,
+                                                write_png)
 
     img_dir, out = os.path.join(tmp, "misnamed"), os.path.join(tmp, "out")
     os.makedirs(img_dir)
@@ -6969,15 +7035,22 @@ def misnamed_cli_check(tmp: str, want: dict) -> dict:
         with open(os.path.join(folder, "digests.json")) as f:
             d = json.load(f)[fixture]
         path = os.path.join(img_dir, name)
-        shutil.copy(os.path.join(folder, fixture), path)
+        if kind == "SunRas":  # its pixels (PIL's digest) as a standard file
+            with open(os.path.join(folder, fixture), "rb") as f:
+                body = decode_image(f.read(), fixture, file_path=False)
+            with open(path, "wb") as f:
+                f.write(sun_raster(body))
+        else:
+            shutil.copy(os.path.join(folder, fixture), path)
         img = read_image(path)
-        check(pixel_sha(img) == d.get("cv2", d.get("file")),
+        check(pixel_sha(img) == (d["body"] if kind == "SunRas" else
+                                 d.get("cv2", d.get("file"))),
               f"{name} ({fixture}): read_image's pixels differ from cv2's")
         write_png(os.path.join(img_dir, f"twin_{name[0]}.png"), img)
     argv = [sys.argv[0], os.path.join(ROOT, "config", "crdr_throughput.yaml"),
             "--img_dir", img_dir,
             "--save_dir", out, "-q", "2.0", "-b", "2.56", "--decompress",
-            "--batch", "8", "--wire", "device"]
+            "--batch", str(2 * len(MISNAMED)), "--wire", "device"]
     kernels = kernel_wrappers()
     for k in kernels.values():
         k.launches = 0
@@ -7337,6 +7410,7 @@ def jpeg_phase(card: str) -> tuple:
     res["body_decode"] = body_decode_timing()
     res["encoder"] = jpeg_encode_check()
     res["new_formats_decode"] = decode_timing_768x512()
+    res["new_readers_decode"] = new_readers_timing()
     res["served"] = jpeg_served_check(card)
     with tempfile.TemporaryDirectory() as tmp:
         res["truncated_dataset"] = truncated_dataset_check(tmp)
@@ -7402,12 +7476,24 @@ def jpeg_phase(card: str) -> tuple:
                       f"refused where cv2 returns None or by name)"
                       for k, v in bfx.items())
           + f"; the compress CLI over {', '.join(mc['files'])} (a WebP, a "
-          f"TIFF, an arithmetic JPEG and a smoothed truncated progressive "
-          f"JPEG) and their pixels' PNGs, one batch of 8 on the device wire: "
-          f"each .bin equal to its PNG's, launches {mc['launches']} "
+          f"TIFF, an arithmetic JPEG, a smoothed truncated progressive "
+          f"JPEG, a JP2, a Radiance file and a Sun raster) and their "
+          f"pixels' PNGs, one batch of {2 * len(MISNAMED)} on the device "
+          f"wire: each .bin equal to its PNG's, launches {mc['launches']} "
           f"({mc['cli_s']:.1f} s, model build included); decode ms at "
           f"768x512 (one host thread): "
           + ", ".join(f"{k} {v['ms']:.2f}" for k, v in nd.items())
+          + f" [{card}]")
+    nr = res["new_readers_decode"]
+    print("JPEG 2000, Sun raster and Radiance HDR input: "
+          + ", ".join(f"{k} {bfx[k]['decoded']['file']} fixtures equal to "
+                      f"cv2's digests on the file path and "
+                      f"{bfx[k]['decoded']['body']} to PIL's on the body "
+                      f"path ({bfx[k]['refused']['file']} / "
+                      f"{bfx[k]['refused']['body']} refused with their "
+                      "reasons)" for k in ("JPEG2000", "SunRas", "HDR"))
+          + "; decode ms at 768x512 (one host thread): "
+          + ", ".join(f"{k} {v['ms']:.2f}" for k, v in nr.items())
           + f" [{card}]")
     return res, {"jpeg body": sv["launches"],
                  **{f"{k.lower()} body": v["launches"]

@@ -9,8 +9,11 @@ each by its leading bytes and not its suffix (cv2 picks its decoder by
 content, so a WebP named ``*.jpg`` is a WebP to the JAX package's globs
 too): PNG (``utils/png.py``), JPEG (``utils/jpeg.py``), BMP
 (``utils/bmp.py``), WebP (``utils/webp.py``), GIF (``utils/gif.py``), PNM
-and PFM (``utils/pnm.py``) and TIFF (``utils/tiff.py``), each reader with
-the rules of both oracles.  Where the oracle returns None or raises, the
+and PFM (``utils/pnm.py``), TIFF (``utils/tiff.py``), JPEG 2000 (a JP2
+file or a bare codestream, ``utils/jpeg2000.py``) and Sun raster
+(``utils/sunras.py``), each reader with the rules of both oracles, and
+Radiance HDR (``utils/hdr.py``) on the file path only (PIL does not open
+it).  Where the oracle returns None or raises, the
 port raises a ``ValueError`` naming the source and the reason.  It writes
 PNG, and JPEG and BMP byte-equal to ``cv2.imwrite``.
 """
@@ -28,10 +31,13 @@ import torch.nn.functional as F
 from .bmp import BMP_MAGIC, decode_bmp, encode_bmp  # noqa: F401
 from .device import resolve_device
 from .gif import GIF_MAGICS, decode_gif
+from .hdr import decode_hdr, is_hdr
 from .jpeg import JPEG_MAGIC, decode_jpeg, encode_jpeg
+from .jpeg2000 import decode_jpeg2000, is_jpeg2000
 from .png import (PNG_SIGNATURE, decode_png, encode_png,  # noqa: F401
                   read_png, write_png)
 from .pnm import decode_pnm, is_pnm
+from .sunras import decode_sunras, is_sunras
 from .tiff import decode_tiff, is_tiff
 from .webp import decode_webp, is_webp
 
@@ -42,7 +48,10 @@ FORMATS = ((lambda d: d.startswith(PNG_SIGNATURE), decode_png),
            (is_webp, decode_webp),
            (lambda d: d[:6] in GIF_MAGICS, decode_gif),
            (is_pnm, decode_pnm),
-           (is_tiff, decode_tiff))
+           (is_tiff, decode_tiff),
+           (is_jpeg2000, decode_jpeg2000),
+           (is_sunras, decode_sunras),
+           (is_hdr, decode_hdr))
 
 # ---------------------------------------------------------------------------
 # range conversion
@@ -183,22 +192,23 @@ def calc_ms_ssim(real, fake, device: Union[str, torch.device, None] = None
 
 # ---------------------------------------------------------------------------
 # image I/O (utils/png.py, jpeg.py, bmp.py, webp.py, gif.py, pnm.py,
-# tiff.py; no cv2, no PIL)
+# tiff.py, jpeg2000.py, sunras.py, hdr.py; no cv2, no PIL)
 # ---------------------------------------------------------------------------
 
 def decode_image(data: bytes, name: str = "image data",
                  file_path: bool = True) -> np.ndarray:
     """Image bytes (told apart by their leading bytes, not by a suffix)
-    -> uint8 [H, W, 3] RGB: a PNG, JPEG, BMP, WebP, GIF, PNM or TIFF file
-    as ``cv2.imread`` reads it or, with ``file_path`` False, a request
-    body as PIL's ``convert("RGB")`` reads it (module doc).  Where the
+    -> uint8 [H, W, 3] RGB: a PNG, JPEG, BMP, WebP, GIF, PNM, TIFF,
+    JPEG 2000, Sun raster or Radiance HDR file as ``cv2.imread`` reads it
+    or, with ``file_path`` False, a request body (but Radiance HDR) as
+    PIL's ``convert("RGB")`` reads it (module doc).  Where the
     oracle returns None or raises, this raises a ``ValueError`` naming
     ``name`` and the reason."""
     for test, decode in FORMATS:
         if test(data):
             return decode(data, name, file_path=file_path)
-    raise ValueError(f"{name}: not a PNG, JPEG, BMP, WebP, GIF, PNM or TIFF "
-                     "file")
+    raise ValueError(f"{name}: not a PNG, JPEG, BMP, WebP, GIF, PNM, TIFF, "
+                     "JPEG 2000, Sun raster or Radiance HDR file")
 
 
 def read_image(path: str) -> np.ndarray:

@@ -312,8 +312,9 @@ def decode_pnm(data: bytes, name: str = "PNM data",
     if file_path:
         return _decode_pnm_cv2(data, name)
     if data[1:2] == b"F":
-        raise ValueError(f"{name}: not a PNG, JPEG, BMP, WebP, GIF, PNM or "
-                         "TIFF file (PIL does not read colour PFM)")
+        raise ValueError(f"{name}: not a PNG, JPEG, BMP, WebP, GIF, PNM, "
+                         "TIFF, JPEG 2000 or Sun raster file (PIL does not "
+                         "read colour PFM)")
     magic = data[:2]
     r = _Reader(data, name)
     r.pos = 3

@@ -5,10 +5,10 @@ bodies turned as PIL turns them; on the CPU, tolerance 0.
   the port's body path does too: orientations 1-8, raw, LZW and Deflate,
   against ``Image.open(...).convert("RGB")``.
 * F2: ``cv2.imread`` picks its decoder by a file's content, so a WebP, a
-  GIF, a PNM or a TIFF named ``*.jpg`` is read by the JAX package's
-  ``imread`` and its ``OpenImageImageDataset``; the port's ``read_image``
-  and its dataset give the same pixels, exactly (JAX's own ``imread`` the
-  oracle).
+  GIF, a PNM, a TIFF, a JPEG 2000, a Sun raster or a Radiance HDR named
+  ``*.jpg`` is read by the JAX package's ``imread`` and its
+  ``OpenImageImageDataset``; the port's ``read_image`` and its dataset
+  give the same pixels, exactly (JAX's own ``imread`` the oracle).
 * libjpeg's block smoothing and arithmetic decoding on seeded random
   files at small sizes: progressive files with their scans cut (Huffman
   and arithmetic, each against ``cv2.imread`` of a file and PIL), and
@@ -46,6 +46,7 @@ def _maker(fmt: str):
 
 TIFF = _maker("tiff")
 JPEG = _maker("jpeg")
+SUN = _maker("sunras")
 
 
 @pytest.mark.parametrize("orientation", range(1, 9))
@@ -62,8 +63,8 @@ def test_f1_tiff_body_turned_by_orientation_as_pil(comp, orientation):
 
 
 def _misnamed(folder, seed: int) -> dict:
-    """A WebP, a GIF, a PNM and a TIFF, each named ``*.jpg``: {name:
-    format}."""
+    """A WebP, a GIF, a PNM, a TIFF, a JPEG 2000, a Sun raster and a
+    Radiance HDR, each named ``*.jpg``: {name: format}."""
     rng = np.random.default_rng(seed)
     folder.mkdir(parents=True, exist_ok=True)
 
@@ -81,10 +82,20 @@ def _misnamed(folder, seed: int) -> dict:
         name = f"img_{i}.jpg"
         im.save(str(folder / name), fmt, **kw)
         out[name] = fmt
+    out["img_4.jpg"] = "JPEG2000"
+    Image.fromarray(img(41, 51)).save(str(folder / "img_4.jpg"), "JPEG2000",
+                                      irreversible=True)
+    out["img_5.jpg"] = "SUN"
+    (folder / "img_5.jpg").write_bytes(SUN.sun(img(39, 45)[..., ::-1], 24))
+    out["img_6.jpg"] = "HDR"
+    cv2.imwrite(str(folder / "img_6.hdr"), img(37, 49).astype(np.float32)
+                / 180)
+    (folder / "img_6.hdr").rename(folder / "img_6.jpg")
     return out
 
 
-@pytest.mark.parametrize("fmt", ["WEBP", "GIF", "PPM", "TIFF"])
+@pytest.mark.parametrize("fmt", ["WEBP", "GIF", "PPM", "TIFF", "JPEG2000",
+                                 "SUN", "HDR"])
 def test_f2_misnamed_files_read_by_content_as_jax(tmp_path, fmt):
     files = _misnamed(tmp_path, 7)
     name = next(n for n, f in files.items() if f == fmt)
@@ -103,8 +114,8 @@ def test_f2_openimage_tree_of_misnamed_files_as_jax(tmp_path):
            "image_size": 32, "seed": 3}
     for is_train in (True, False):
         mine, ref = build_dataset(opt, is_train), jax_dataset(opt, is_train)
-        assert len(mine) == len(ref) == 4
-        for i in range(4):
+        assert len(mine) == len(ref) == 7
+        for i in range(7):
             a, b = mine[i]["real_images"], ref[i]["real_images"]
             assert a.shape == b.shape and a.tobytes() == b.tobytes()
 

@@ -279,5 +279,6 @@ def test_bmp_and_unknown_formats_raise(tmp_path):
     other = tmp_path / "x.jpg"
     other.write_bytes(b"\x00\x01not an image")
     with pytest.raises(ValueError, match="x.jpg: not a PNG, JPEG, BMP, WebP, "
-                       "GIF, PNM or TIFF file"):
+                       "GIF, PNM, TIFF, JPEG 2000, Sun raster or Radiance "
+                       "HDR file"):
         img_utils.read_image(str(other))
